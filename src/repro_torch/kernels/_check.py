@@ -1,0 +1,36 @@
+"""Argument checks shared by the kernel wrappers and their registry bindings."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["on_cuda", "require", "require_cuda"]
+
+
+def require(cond: bool, name: str, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {msg}")
+
+
+def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True if every tensor is on one CUDA device, False if all are on the
+    CPU; raises on a mix, on another device type, or on a non-contiguous
+    tensor (the kernels index raw memory)."""
+    devices = {t.device for t in tensors}
+    require(len(devices) == 1, name, f"tensors on several devices {devices}")
+    (dev,) = devices
+    require(dev.type in ("cpu", "cuda"), name, f"unsupported device {dev}")
+    for t in tensors:
+        require(t.is_contiguous(), name, "tensors must be contiguous")
+    return dev.type == "cuda"
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """The ``cuda`` kernel space runs its kernels or raises: it does not take
+    CPU tensors to the plain version."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(
+                f"{name}: the cuda kernel space needs CUDA tensors, got a "
+                f"tensor on {t.device}; use make_executor('torch') on the CPU"
+            )
