@@ -132,6 +132,28 @@ def copy_bandwidth(torch) -> float:
     return bw
 
 
+def tree_tol(terms) -> float:
+    """Tolerance of an f32 tree sum of ``terms`` against their sum in f64.
+
+    Each addition rounds by at most u|s| (u = 2^-24), and the roundings act as
+    independent (the probabilistic model of Higham and Mary), so the error's
+    spread is about u sqrt(sum of s^2 over the tree's nodes / 3).  The nodes
+    are those of a balanced pairwise tree, leaves (the f32 terms themselves)
+    included; the tolerance is 16 u times that root-sum-square, over 25 times
+    the spread.  For the random-sign w.y at m = 2M this is a few hundredths,
+    so dropping a typical block partial (128 terms, tens in size) fails."""
+    s = terms.double().flatten()
+    total = float((s * s).sum())
+    while s.numel() > 1:
+        if s.numel() % 2:  # pad to even with a zero leaf
+            padded = s.new_zeros(s.numel() + 1)
+            padded[:-1] = s
+            s = padded
+        s = s[0::2] + s[1::2]
+        total += float((s * s).sum())
+    return 16 * 2.0 ** -24 * total ** 0.5
+
+
 def check(name: str, err: float, tol: float) -> None:
     say(f"[kernels] {name}: max_abs_err {err:.3e} (tolerance {tol:.3e})")
     if not err <= tol:
@@ -190,16 +212,16 @@ def phase_kernels(torch, A, A_host, P, ex, copy_bw) -> dict:
         ell_bytes, 2 * m * k,
         lambda: torch.sparse.mm(A_csr, xs))
 
-    # spmv_dot_ell — y as spmv_ell; dot: 16 eps log2(m) relative to sum |w_i y_i|
+    # spmv_dot_ell — y as spmv_ell; w.y against the f64 sum, tree_tol
     cfg = ex.launch_config("spmv_dot", {"m": m, "k": k, "itemsize": 4})
     geo_d = dict(block_threads=cfg["block_threads"], subgroup=cfg["subgroup"])
     y, d = K.spmv_dot_ell(A.col_idx, A.values, x, w, **geo_d)
-    y_ref, d_ref = K.spmv_dot_ell_plain(A.col_idx, A.values, x, w)
+    y_ref = K.spmv_dot_ell_plain(A.col_idx, A.values, x, w)[0]
+    wy64 = w.double() * K.spmv_ell_plain(A.col_idx, A.values.double(), x.double())
     err_y = float((y - y_ref).abs().max())
-    err_d = float((d - d_ref).abs())
+    err_d = float((d.double() - wy64.sum()).abs())
     check("spmv_dot_ell y", err_y, 8 * k * eps * scale)
-    check("spmv_dot_ell w.y", err_d,
-          16 * eps * m.bit_length() * float((w * y_ref).abs().sum()))
+    check("spmv_dot_ell w.y", err_d, tree_tol(wy64))
     d2 = K.spmv_dot_ell(A.col_idx, A.values, x, w, **geo_d)[1]
     if not bool(d2 == d):
         fail("spmv_dot_ell dot is not deterministic across runs")
@@ -210,17 +232,19 @@ def phase_kernels(torch, A, A_host, P, ex, copy_bw) -> dict:
         lambda: K.spmv_dot_ell_plain(A.col_idx, A.values, x, w),
         ell_bytes + m * 4 + 4, 2 * m * k + 2 * m)
 
-    # axpy_norm — z: 2 eps relative to max |alpha x| + |y|; z.z as the dot
+    # axpy_norm — z: 2 eps relative to max |alpha x| + |y|; z.z against the
+    # f64 sum, tree_tol
     cfg = ex.launch_config("axpy_norm", {"n": m, "itemsize": 4})
     geo_a = dict(block_threads=cfg["block_threads"],
                  grid_blocks=cfg["grid_blocks"])
     alpha = torch.tensor(-0.37, device="cuda")
     z, ss = K.axpy_norm(alpha, x, w, **geo_a)
-    z_ref, ss_ref = K.axpy_norm_plain(alpha, x, w)
+    z_ref = K.axpy_norm_plain(alpha, x, w)[0]
+    z64 = alpha.double() * x.double() + w.double()
     err_z = float((z - z_ref).abs().max())
-    err_s = float((ss - ss_ref).abs())
+    err_s = float((ss.double() - (z64 * z64).sum()).abs())
     check("axpy_norm z", err_z, 2 * eps * float((alpha.abs() * x.abs() + w.abs()).max()))
-    check("axpy_norm z.z", err_s, 16 * eps * m.bit_length() * float(ss_ref))
+    check("axpy_norm z.z", err_s, tree_tol(z64 * z64))
     out["axpy_norm"] = row(
         "axpy_norm", "axpy_norm.cu", "src/repro/kernels/axpy_norm/kernel.py:39",
         max(err_z, err_s),
@@ -280,6 +304,7 @@ def phase_path(torch, A, b):
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t0
     launches = K.launch_counts()
+    by_storage = dict(K.block_jacobi_apply.launches_by_storage)
     log = dict(ex.dispatch_log)
 
     k = res.iterations
@@ -310,7 +335,8 @@ def phase_path(torch, A, b):
         f"= {t_loop / k * 1e3:.4f} ms per iteration; precision_counts "
         f"{P.precision_counts}; storage {P.storage_bytes} bytes")
     say(f"[path] dispatch log {log}")
-    say(f"[path] kernel launches {launches}")
+    say(f"[path] kernel launches {launches}; block_jacobi_apply by storage "
+        f"{by_storage}")
 
     expected = {
         "spmv_ell": 1,  # the initial residual b - A x0
@@ -324,6 +350,11 @@ def phase_path(torch, A, b):
         if launches[name] != want or log.get(name) != want:
             fail(f"{name}: {launches[name]} launches, {log.get(name)} "
                  f"dispatches, expected {want} for {k} iterations")
+    # one apply launch per storage class present, per preconditioner apply
+    want_storage = {dtype: k + 1 for dtype, _ in P.precision_counts}
+    if by_storage != want_storage:
+        fail(f"block_jacobi_apply launches by storage {by_storage}, expected "
+             f"{want_storage}")
 
     # true residual with the plain SpMV in f64.  f32 CG stops on its
     # recursive residual; the true one drifts from it by about
@@ -357,7 +388,7 @@ def phase_path(torch, A, b):
     say(f"[path] torch space loop {t_torch_loop:.4f} s = "
         f"{t_torch_loop / res_tl.iterations * 1e3:.4f} ms per iteration")
     profile = phase_profile(torch, A, b, P, ex)
-    return launches, {"iterations": k, "time_to_solution_s": t_total,
+    return launches, by_storage, {"iterations": k, "time_to_solution_s": t_total,
                       "setup_s": t_setup, "loop_s": t_loop,
                       "ms_per_iteration": t_loop / k * 1e3,
                       "precision_counts": P.precision_counts,
@@ -465,13 +496,13 @@ def main() -> None:
     copy_bw = copy_bandwidth(torch)
     rows = phase_kernels(torch, A, A_host, P, ex, copy_bw)
     del P
-    launches, path = phase_path(torch, A, b)
+    launches, by_storage, path = phase_path(torch, A, b)
     phase_small_reference(torch)
 
     for name, entry in rows.items():
         entry["launches"] = launches[name]
         for var in entry.get("storage_variants", ()):
-            var["launches"] = launches[name] if var["storage"] == entry["storage"] else 0
+            var["launches"] = by_storage.get(var["storage"], 0)
     say(json.dumps({"card": card, "build_s": build_s,
                     "copy_gbs": copy_bw / 1e9, "path": path,
                     "total_s": time.perf_counter() - t_start}))

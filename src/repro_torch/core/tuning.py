@@ -9,9 +9,9 @@ executor instead of hard-coding block sizes::
     spmv_ell(..., block_threads=cfg["block_threads"], subgroup=cfg["subgroup"])
 
 ``resolve`` takes an explicit per-``(op, target)`` table entry when one is
-set, else the spec's seed; constrains it; and halves the largest parameter
-until the block's shared memory fits ``smem_per_block_bytes``.  A geometry
-that cannot fit is reported (``fits_smem=False``); the caller raises.
+set, else the spec's seed; constrains it; and checks the block's shared
+memory against ``smem_per_block_bytes``, raising if it does not fit.  The
+autotune sweep that would fill the table is not ported yet.
 """
 
 from __future__ import annotations
@@ -52,17 +52,13 @@ def prev_pow2(n: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LaunchConfig:
-    """Resolved launch geometry for one (op, target, shapes).
-
-    ``source`` is ``"table"`` or ``"seed"``, with ``"+shrunk"`` when the
-    shared-memory check reduced it.
-    """
+    """Resolved launch geometry for one (op, target, shapes); ``source`` is
+    ``"table"`` or ``"seed"``."""
 
     op: str
     target: str
     block: Mapping[str, int]
     smem_bytes: int
-    fits_smem: bool
     source: str
 
     def __getitem__(self, key: str) -> int:
@@ -79,8 +75,7 @@ class TuningSpec:
 
     * ``seed(hw)`` — default geometry from the hardware table;
     * ``smem_bytes(shapes, block)`` — shared memory of one block;
-    * ``constrain(hw, shapes, block)`` — clamp/align a proposed geometry;
-    * ``floors`` — lower bounds for the shrink loop.
+    * ``constrain(hw, shapes, block)`` — clamp/align a proposed geometry.
     """
 
     op: str
@@ -88,18 +83,6 @@ class TuningSpec:
     seed: Callable[[HardwareParams], Block]
     smem_bytes: Callable[[Shapes, Block], int] = _no_smem
     constrain: Optional[Callable[[HardwareParams, Shapes, Block], Block]] = None
-    floors: Mapping[str, int] = dataclasses.field(default_factory=dict)
-
-    def shrink(self, block: Block) -> Optional[Block]:
-        """One shrink step: halve the largest still-shrinkable parameter."""
-        shrinkable = [
-            (v, k) for k, v in block.items()
-            if k in self.params and v // 2 >= int(self.floors.get(k, 1))
-        ]
-        if not shrinkable:
-            return None
-        _, key = max(shrinkable)
-        return {**block, key: block[key] // 2}
 
 
 _LOCK = threading.Lock()
@@ -139,7 +122,7 @@ def table_entry(op: str, target: str) -> Optional[Block]:
 
 
 def resolve(op: str, shapes: Shapes, hw: HardwareParams) -> LaunchConfig:
-    """Table entry, else seed; constrained; shrunk to fit shared memory."""
+    """Table entry, else seed; constrained; checked against shared memory."""
     spec = get_spec(op)
     shapes = dict(shapes)
     override = _TABLE.get((op, hw.name))
@@ -149,26 +132,11 @@ def resolve(op: str, shapes: Shapes, hw: HardwareParams) -> LaunchConfig:
         block, source = spec.seed(hw), "seed"
     if spec.constrain is not None:
         block = spec.constrain(hw, shapes, block)
-
-    budget = hw.smem_per_block_bytes
-    smem = spec.smem_bytes(shapes, block)
-    shrunk = False
-    while smem > budget:
-        nxt = spec.shrink(block)
-        if nxt is None:
-            break
-        if spec.constrain is not None:
-            nxt = spec.constrain(hw, shapes, nxt)
-        if nxt == block:
-            break
-        block, shrunk = nxt, True
-        smem = spec.smem_bytes(shapes, block)
-
-    return LaunchConfig(
-        op=op,
-        target=hw.name,
-        block=block,
-        smem_bytes=int(smem),
-        fits_smem=smem <= budget,
-        source=source + ("+shrunk" if shrunk else ""),
-    )
+    smem = int(spec.smem_bytes(shapes, block))
+    if smem > hw.smem_per_block_bytes:
+        raise ValueError(
+            f"{op}: geometry {block} needs {smem} bytes of shared memory, "
+            f"{hw.name} gives a block {hw.smem_per_block_bytes}"
+        )
+    return LaunchConfig(op=op, target=hw.name, block=block, smem_bytes=smem,
+                        source=source)

@@ -40,6 +40,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    block_jacobi_apply.launches_by_storage = {}
 
 
 __all__ = [

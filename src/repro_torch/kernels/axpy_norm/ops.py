@@ -29,7 +29,6 @@ AXPY_NORM_SPEC = tuning.register_spec(
         },
         smem_bytes=lambda shapes, block: 32 * shapes.get("itemsize", 4),
         constrain=_constrain,
-        floors={"block_threads": 32, "grid_blocks": 1},
     )
 )
 
@@ -44,7 +43,5 @@ def _axpy_norm_cuda(ex, alpha, x, y):
         )
     cfg = ex.launch_config("axpy_norm", {"n": x.shape[0],
                                          "itemsize": x.element_size()})
-    if not cfg.fits_smem:
-        raise RuntimeError(f"axpy_norm: no geometry fits shared memory ({cfg})")
     return axpy_norm(alpha, x, y, block_threads=cfg["block_threads"],
                      grid_blocks=cfg["grid_blocks"])

@@ -2,8 +2,9 @@
 PyTorch version.
 
 ``block_jacobi_apply`` launches the kernel for CUDA tensors and counts the
-launch in ``block_jacobi_apply.launches``; for CPU tensors it returns the
-plain version.  Blocks may be stored in a reduced precision (bf16/fp16 for
+launch in ``block_jacobi_apply.launches`` and, under the storage dtype's name
+(``"float16"``, ...), in ``block_jacobi_apply.launches_by_storage``; for CPU
+tensors it returns the plain version.  Blocks may be stored in a reduced precision (bf16/fp16 for
 f32 vectors) and are up-cast to the vector's dtype inside the kernel.
 """
 
@@ -58,7 +59,11 @@ def block_jacobi_apply(inv_blocks: torch.Tensor, vp: torch.Tensor, *,
             inv_blocks.data_ptr(), vp.data_ptr(), y.data_ptr(), nb, bs,
             block_threads, _build.stream_of(vp)))
         block_jacobi_apply.launches += 1
+        by = block_jacobi_apply.launches_by_storage
+        key = str(inv_blocks.dtype).removeprefix("torch.")
+        by[key] = by.get(key, 0) + 1
     return y
 
 
 block_jacobi_apply.launches = 0
+block_jacobi_apply.launches_by_storage = {}

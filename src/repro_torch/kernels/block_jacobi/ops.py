@@ -25,7 +25,6 @@ BLOCK_JACOBI_SPEC = tuning.register_spec(
         params=("block_threads",),
         seed=lambda hw: {"block_threads": 8 * hw.warp_size},
         constrain=_constrain,
-        floors={"block_threads": 32},
     )
 )
 

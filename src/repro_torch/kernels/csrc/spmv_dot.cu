@@ -24,8 +24,15 @@
 
 namespace {
 
-// rows per subgroup; the wrapper sizes the partials with the same number
+// rows per subgroup
 constexpr int ROWS = 4;
+
+// blocks of the row kernel for m rows, one partial each
+long long num_blocks(long long m, int block_threads, int subgroup) {
+  const long long rows_per_block =
+      static_cast<long long>(block_threads) / subgroup * ROWS;
+  return (m + rows_per_block - 1) / rows_per_block;
+}
 
 template <int SG, typename T>
 __global__ void spmv_dot_ell_kernel(const int* __restrict__ cols,
@@ -59,10 +66,9 @@ template <typename T>
 int launch(const int* cols, const T* vals, const T* x, const T* w, T* y,
            T* partials, int num_partials, T* dot, long long m, int k,
            int block_threads, int subgroup, cudaStream_t stream) {
-  const long long rows_per_block = static_cast<long long>(block_threads) /
-                                   subgroup * ROWS;
-  const long long grid = (m + rows_per_block - 1) / rows_per_block;
-  if (grid != num_partials) return static_cast<int>(cudaErrorInvalidValue);
+  if (subgroup < 1 || block_threads < subgroup ||
+      num_blocks(m, block_threads, subgroup) != num_partials)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (subgroup) {
 #define CASE(SG)                                                       \
   case SG:                                                             \
@@ -82,6 +88,12 @@ int launch(const int* cols, const T* vals, const T* x, const T* w, T* y,
 }
 
 }  // namespace
+
+// the partials buffer the entries below need: the wrapper sizes it with this
+extern "C" int repro_spmv_dot_ell_partials(long long m, int block_threads,
+                                           int subgroup) {
+  return static_cast<int>(num_blocks(m, block_threads, subgroup));
+}
 
 extern "C" int repro_spmv_dot_ell_f32(const int* cols, const float* vals,
                                       const float* x, const float* w, float* y,

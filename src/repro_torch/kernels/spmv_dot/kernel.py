@@ -9,6 +9,7 @@ it returns the plain version.  The dot stays a 0-d tensor on the device.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -27,9 +28,14 @@ _ENTRY = {torch.float32: "repro_spmv_dot_ell_f32",
           torch.float64: "repro_spmv_dot_ell_f64"}
 _ARGS = (_P, _P, _P, _P, _P, _P, ctypes.c_int, _P, ctypes.c_longlong,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)
-#: rows each subgroup of the kernel takes (``ROWS`` in spmv_dot.cu, which
-#: refuses a partials buffer of another size)
-_ROWS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def _num_partials(m: int, block_threads: int, subgroup: int) -> int:
+    """Blocks of the row kernel, one partial each (spmv_dot.cu decides)."""
+    fn = _build.function("repro_spmv_dot_ell_partials",
+                         (ctypes.c_longlong, ctypes.c_int, ctypes.c_int))
+    return fn(m, block_threads, subgroup)
 
 
 def spmv_dot_ell_plain(col_idx, values, x, w):
@@ -56,7 +62,7 @@ def spmv_dot_ell(col_idx: torch.Tensor, values: torch.Tensor, x: torch.Tensor,
     y = torch.empty(m, dtype=values.dtype, device=values.device)
     d = torch.zeros((), dtype=values.dtype, device=values.device)
     if m:
-        grid = -(-m // (block_threads // subgroup * _ROWS))  # blocks = partials
+        grid = _num_partials(m, block_threads, subgroup)
         partials = torch.empty(grid, dtype=values.dtype, device=values.device)
         fn = _build.function(_ENTRY[values.dtype], _ARGS)
         _build.check("spmv_dot_ell", fn(

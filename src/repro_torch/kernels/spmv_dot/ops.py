@@ -28,7 +28,6 @@ SPMV_DOT_SPEC = tuning.register_spec(
                          "subgroup": hw.subgroup_size},
         smem_bytes=_smem_bytes,
         constrain=constrain_rows,
-        floors={"block_threads": 32, "subgroup": 1},
     )
 )
 
@@ -42,8 +41,6 @@ def _spmv_dot_ell_cuda(ex, A, x, w):
     cfg = ex.launch_config("spmv_dot", {"m": A.values.shape[0],
                                         "k": A.values.shape[1],
                                         "itemsize": x.element_size()})
-    if not cfg.fits_smem:
-        raise RuntimeError(f"spmv_dot_ell: no geometry fits shared memory ({cfg})")
     return spmv_dot_ell(A.col_idx, A.values, x, w,
                         block_threads=cfg["block_threads"],
                         subgroup=cfg["subgroup"])

@@ -30,7 +30,6 @@ ELL_SPEC = tuning.register_spec(
         seed=lambda hw: {"block_threads": 8 * hw.warp_size,
                          "subgroup": hw.subgroup_size},
         constrain=constrain_rows,
-        floors={"block_threads": 32, "subgroup": 1},
     )
 )
 

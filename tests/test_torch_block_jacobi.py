@@ -6,8 +6,12 @@
   only fused multiply-adds may differ), and the identity fallback of a
   rank-deficient block is identical.
 * Adaptive storage selection gives equal ``precision_counts`` and
-  ``storage_bytes``.
+  ``storage_bytes``.  Stored inverses and applies are compared per storage
+  class: within 1e-5 for f32 blocks, within one unit in the last place
+  (the dtype's eps, relative) for bf16/fp16 copies of two such inverses.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -61,6 +65,12 @@ def block_spd(n, bs, coupling=0.0, seed=8):
     for i in range(n - bs):
         a[i, i + bs] = a[i + bs, i] = coupling
     return a
+
+
+#: relative tolerance of a stored inverse, by storage dtype
+STORE_RTOL = {"float32": 1e-5,
+              "bfloat16": torch.finfo(torch.bfloat16).eps,
+              "float16": torch.finfo(torch.float16).eps}
 
 
 def _pair(a):
@@ -137,17 +147,27 @@ def test_block_jacobi_storage_matches(name, a, adaptive):
                                                     Pj.num_blocks)
     np.testing.assert_array_equal(Pt.gather_idx.numpy(), np.asarray(Pj.gather_idx))
     np.testing.assert_array_equal(Pt.scatter_idx.numpy(), np.asarray(Pj.scatter_idx))
-    for tj, tt in zip(Pj.inv_blocks, Pt.inv_blocks):
-        np.testing.assert_allclose(tt.float().numpy(),
-                                   np.asarray(tj, np.float32), rtol=1e-2,
-                                   atol=1e-5 * float(np.abs(np.asarray(
-                                       tj, np.float32)).max()))
+    rtols = [STORE_RTOL[d] for d, _ in Pt.precision_counts]
+    for tj, tt, rtol in zip(Pj.inv_blocks, Pt.inv_blocks, rtols):
+        want_inv = np.asarray(tj, np.float32)
+        np.testing.assert_allclose(tt.float().numpy(), want_inv, rtol=rtol,
+                                   atol=1e-5 * float(np.abs(want_inv).max()))
+    # each row's tolerance is its class's, relative to sum_j |inv_ij v_j|
     r = np.random.default_rng(2).standard_normal(a.shape[0]).astype(np.float32)
+    counts = np.array([c for _, c in Pt.precision_counts])
+    row_class = np.searchsorted(np.cumsum(counts),
+                                Pt.scatter_idx.numpy() // Pt.block_size,
+                                side="right")
+    P_abs = dataclasses.replace(Pt, inv_blocks=tuple(t.abs() for t in Pt.inv_blocks))
+    scale = P_abs.apply(torch.from_numpy(np.abs(r)),
+                        executor=make_executor("reference")).numpy()
+    tol = np.asarray(rtols)[row_class] * scale + 1e-30
     want = np.asarray(Pj.apply(jnp.asarray(r), executor=jax_make_executor("xla")))
     for space in ("reference", "torch"):
         got = Pt.apply(torch.from_numpy(r), executor=make_executor(space)).numpy()
-        np.testing.assert_allclose(got, want, rtol=1e-2,
-                                   atol=1e-5 * float(np.abs(want).max()))
+        bad = np.abs(got - want) > tol
+        assert not bad.any(), (space, np.flatnonzero(bad)[:5],
+                               (np.abs(got - want) / tol).max())
 
 
 def test_adaptive_mixes_all_classes():

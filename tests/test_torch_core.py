@@ -51,6 +51,7 @@ SLICE_MODULES = [
     "repro_torch.kernels._build",
     "repro_torch.kernels.axpy_norm.ops",
     "repro_torch.kernels.block_jacobi.ops",
+    "repro_torch.kernels.loader_check",
     "repro_torch.kernels.spmv_dot.ops",
     "repro_torch.kernels.spmv_ell.ops",
     "repro_torch.observability.convergence",

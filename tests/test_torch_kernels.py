@@ -10,6 +10,8 @@ Tolerances: f32 sums taken in another order; 1e-5 relative to the sum of
 magnitudes of the terms (about 100 eps32).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -153,17 +155,39 @@ def test_wrappers_check_their_arguments():
 def test_tuning_geometry_for_h100():
     hw = make_executor("h100").hw
     cfg = tuning.resolve("spmv_ell", {"m": 2_097_152, "k": 7}, hw)
-    assert cfg["subgroup"] == 8 and cfg["block_threads"] == 256 and cfg.fits_smem
+    assert cfg["subgroup"] == 8 and cfg["block_threads"] == 256
+    assert cfg.smem_bytes == 0 and cfg.source == "seed"
     assert tuning.resolve("spmv_ell", {"m": 10, "k": 3}, hw)["subgroup"] == 4
     cfg = tuning.resolve("spmv_dot", {"m": 10, "k": 27, "itemsize": 4}, hw)
     assert cfg["subgroup"] == 8 and cfg["block_threads"] == 256
-    assert cfg.smem_bytes == 128 and cfg.fits_smem
+    assert cfg.smem_bytes == 128
+    # a geometry over the shared-memory budget is refused, not shrunk
+    tiny = dataclasses.replace(hw, smem_per_block_bytes=64)
+    with pytest.raises(ValueError, match="shared memory"):
+        tuning.resolve("spmv_dot", {"m": 10, "k": 27, "itemsize": 4}, tiny)
     tuning.set_table_entry("block_jacobi", "h100", {"block_threads": 1000})
     try:
         cfg = tuning.resolve("block_jacobi", {"nb": 5, "bs": 8}, hw)
         assert cfg.source == "table" and cfg["block_threads"] == 992
     finally:
         tuning._TABLE.pop(("block_jacobi", "h100"))
+
+
+def test_launch_counts_reset_per_kernel_and_per_storage(monkeypatch):
+    monkeypatch.setattr(K.spmv_ell, "launches", 3)
+    monkeypatch.setattr(K.block_jacobi_apply, "launches", 2)
+    monkeypatch.setattr(K.block_jacobi_apply, "launches_by_storage",
+                        {"float16": 1, "bfloat16": 1})
+    K.reset_launch_counts()
+    assert set(K.launch_counts().values()) == {0}
+    assert K.block_jacobi_apply.launches_by_storage == {}
+
+
+def test_loader_check_needs_a_card(monkeypatch):
+    from repro_torch.kernels import loader_check
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert loader_check.main(["--cudart", "static"]) == 2
 
 
 def test_build_needs_nvcc(monkeypatch, tmp_path):
