@@ -39,10 +39,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-#: link as a shared library against the shared CUDA runtime: PyTorch has
-#: already loaded libcudart.so.12, so the kernels run in PyTorch's own runtime
-#: (a static runtime would be a second copy whose exported symbols PyTorch's
-#: globally loaded libcudart interposes)
+#: link as a shared library against the shared CUDA runtime: the dynamic
+#: linker binds the library's runtime calls to the libcudart.so.12 PyTorch
+#: has loaded, so the process holds one runtime.  (A static link works too:
+#: its runtime copy stays private, exporting no symbol and binding none to
+#: PyTorch's; ``loader_check --cudart static`` drives the path that way.)
 LINK_FLAGS = ("-shared", "-cudart", "shared")
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -4,8 +4,9 @@ PyTorch version.
 ``block_jacobi_apply`` launches the kernel for CUDA tensors and counts the
 launch in ``block_jacobi_apply.launches`` and, under the storage dtype's name
 (``"float16"``, ...), in ``block_jacobi_apply.launches_by_storage``; for CPU
-tensors it returns the plain version.  Blocks may be stored in a reduced precision (bf16/fp16 for
-f32 vectors) and are up-cast to the vector's dtype inside the kernel.
+tensors it returns the plain version.  Blocks may be stored in a reduced
+precision (bf16/fp16 for f32 vectors) and are up-cast to the vector's dtype
+inside the kernel.
 """
 
 from __future__ import annotations
