@@ -16,16 +16,34 @@ Phases, each of which exits non-zero on failure:
             block-Jacobi CG through the CUDA executor, checks convergence, the
             true residual and every kernel's launch count, and repeats the
             solve in the torch space on the card for comparison; a small solve
-            is also held against the reference space on the CPU.
+            is also held against the reference space on the CPU;
+5. amg    — runs ``repro_torch.launch.amg_check`` on poisson_2d(1024)
+            (1,048,576 rows, CSR, f32) through the CUDA executor: the
+            smoothed-aggregation hierarchy (SpGEMM and transpose kernels), AMG-CG
+            against block-Jacobi CG, the gate, each kernel's launch count
+            against the hierarchy, the true residual, the setup split; then the
+            same path in the torch space on the card (the hierarchy bitwise
+            equal); then, at this path's shapes, spmv_ell on every level
+            operator, axpy_norm at the outer CG's vectors and
+            block_jacobi_apply at the baseline's blocks against their plain
+            versions (phase 3's tolerances), and the two SpGEMM kernels at
+            level 0's shapes (bitwise), with their times.
 
 It then prints one JSON line describing the kernels and, last, the
-``{"ok": true, "device": ...}`` line.  It imports nothing of JAX or of the JAX
+``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
+sum over the two paths' counted runs (phases 4 and 5), each run counted from
+0; ``launches_by_path`` gives each, and block_jacobi_apply's storage variants
+carry the same per storage dtype.  ``max_abs_err`` is the larger over the
+shapes the kernel was held at; ``at_amg_path_shape`` holds the times at the
+AMG path's shapes of a kernel whose row is timed at phase 3's.  It imports nothing of JAX or of the JAX
 package.  Without a CUDA device, or without the repository beside it, it
 exits non-zero before printing any result.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
 import json
 import statistics
 import subprocess
@@ -41,6 +59,10 @@ N_SIDE = 128
 STOP_KW = dict(max_iters=3000, reduction_factor=1e-6)
 PRECOND_OPTS = {"block_size": 8, "adaptive": True}
 REPS = 30
+#: the AMG path: amg_check on poisson_2d(1024) (1,048,576 rows); block-Jacobi
+#: CG needs about 1,800 iterations there, AMG-CG about 15
+AMG_N_SIDE = 1024
+AMG_KW = dict(cycle="v", theta=0.08, tol=1e-6, max_iters=6000, iter_cut=5)
 
 
 def fail(msg: str) -> None:
@@ -160,6 +182,79 @@ def check(name: str, err: float, tol: float) -> None:
         fail(f"{name} disagrees with its plain version: {err} > {tol}")
 
 
+def kernel_row(torch, flush, copy_bw, name, src, line, err, kernel_fn,
+               plain_fn, nbytes, flops, library_fn=None) -> dict:
+    """One entry of the ``kernels`` line: the kernel's, its plain version's
+    and (where one exists) a library call's device time, and the bounds."""
+    entry = {
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{src}",
+        "replaces": line,
+        "max_abs_err": err,
+        "ms": device_ms(torch, kernel_fn, flush),
+        "plain_ms": device_ms(torch, plain_fn, flush),
+        "library_ms": (device_ms(torch, library_fn, flush)
+                       if library_fn is not None else None),
+    }
+    entry.update(bounds(nbytes, flops, copy_bw))
+    say(f"[kernels] {name}: {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}, "
+        f"library {entry['library_ms']}, bound {entry['bound_ms']:.4f} "
+        f"by {entry['bound_by']}, copy bound {entry['copy_bound_ms']:.4f})")
+    return entry
+
+
+def held_axpy_norm(torch, ex, x, w, where: str = "") -> dict:
+    """Holds ``axpy_norm(alpha, x, w)`` against its plain version — z within
+    2 eps of max |alpha x| + |w|, z.z against the f64 sum within tree_tol —
+    and returns the rest of its ``kernel_row`` arguments."""
+    from repro_torch import kernels as K
+
+    eps = torch.finfo(torch.float32).eps
+    n = x.numel()
+    cfg = ex.launch_config("axpy_norm", {"n": n, "itemsize": 4})
+    geo = dict(block_threads=cfg["block_threads"], grid_blocks=cfg["grid_blocks"])
+    alpha = torch.tensor(-0.37, device="cuda")
+    z, ss = K.axpy_norm(alpha, x, w, **geo)
+    z_ref = K.axpy_norm_plain(alpha, x, w)[0]
+    z64 = alpha.double() * x.double() + w.double()
+    err_z = float((z - z_ref).abs().max())
+    err_s = float((ss.double() - (z64 * z64).sum()).abs())
+    check(f"axpy_norm z{where}", err_z,
+          2 * eps * float((alpha.abs() * x.abs() + w.abs()).max()))
+    check(f"axpy_norm z.z{where}", err_s, tree_tol(z64 * z64))
+    return dict(err=max(err_z, err_s),
+                kernel_fn=lambda: K.axpy_norm(alpha, x, w, **geo),
+                plain_fn=lambda: K.axpy_norm_plain(alpha, x, w),
+                nbytes=3 * n * 4 + 4, flops=4 * n)
+
+
+def held_block_jacobi(torch, ex, inv, vp, where: str = "") -> dict:
+    """Holds ``block_jacobi_apply(inv, vp)`` against its plain version —
+    within 2 bs eps of max_b,i sum_j |inv_bij v_bj| — with the launch
+    configuration the registry binding gives these blocks, and returns the
+    rest of its ``kernel_row`` arguments (the library call is ``torch.bmm``
+    on the blocks in f32)."""
+    from repro_torch import kernels as K
+
+    eps = torch.finfo(torch.float32).eps
+    nb, bs = vp.shape
+    bt = ex.launch_config("block_jacobi", {"nb": nb, "bs": bs})["block_threads"]
+    inv32 = inv.float()
+    yb = K.block_jacobi_apply(inv, vp, block_threads=bt)
+    yb_ref = K.block_jacobi_apply_plain(inv, vp)
+    err = float((yb - yb_ref).abs().max())
+    sc = float(K.block_jacobi_apply_plain(inv32.abs(), vp.abs()).max())
+    check(f"block_jacobi_apply[{inv.dtype}]{where}", err, 2 * bs * eps * sc)
+    vcol = vp[:, :, None]
+    return dict(err=err,
+                kernel_fn=lambda: K.block_jacobi_apply(inv, vp, block_threads=bt),
+                plain_fn=lambda: K.block_jacobi_apply_plain(inv, vp),
+                nbytes=nb * bs * bs * inv.element_size() + 2 * nb * bs * 4,
+                flops=2 * nb * bs * bs,
+                library_fn=lambda: torch.bmm(inv32, vcol))
+
+
 def phase_kernels(torch, A, A_host, P, ex, copy_bw) -> dict:
     """``A_host``: the matrix's host CSR arrays, for the library's CSR SpMV."""
     from repro_torch import kernels as K
@@ -172,24 +267,7 @@ def phase_kernels(torch, A, A_host, P, ex, copy_bw) -> dict:
     eps = torch.finfo(torch.float32).eps
     out = {}
 
-    def row(name, src, line, err, kernel_fn, plain_fn, nbytes, flops,
-            library_fn=None):
-        entry = {
-            "name": name,
-            "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}",
-            "replaces": line,
-            "max_abs_err": err,
-            "ms": device_ms(torch, kernel_fn, flush),
-            "plain_ms": device_ms(torch, plain_fn, flush),
-            "library_ms": (device_ms(torch, library_fn, flush)
-                           if library_fn is not None else None),
-        }
-        entry.update(bounds(nbytes, flops, copy_bw))
-        say(f"[kernels] {name}: {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}, "
-            f"library {entry['library_ms']}, bound {entry['bound_ms']:.4f} "
-            f"by {entry['bound_by']}, copy bound {entry['copy_bound_ms']:.4f})")
-        return entry
+    row = functools.partial(kernel_row, torch, flush, copy_bw)
 
     # spmv_ell — tolerance: 8 k eps relative to max_i sum_j |a_ij x_j|
     cfg = ex.launch_config("spmv_ell", {"m": m, "k": k})
@@ -232,51 +310,21 @@ def phase_kernels(torch, A, A_host, P, ex, copy_bw) -> dict:
         lambda: K.spmv_dot_ell_plain(A.col_idx, A.values, x, w),
         ell_bytes + m * 4 + 4, 2 * m * k + 2 * m)
 
-    # axpy_norm — z: 2 eps relative to max |alpha x| + |y|; z.z against the
-    # f64 sum, tree_tol
-    cfg = ex.launch_config("axpy_norm", {"n": m, "itemsize": 4})
-    geo_a = dict(block_threads=cfg["block_threads"],
-                 grid_blocks=cfg["grid_blocks"])
-    alpha = torch.tensor(-0.37, device="cuda")
-    z, ss = K.axpy_norm(alpha, x, w, **geo_a)
-    z_ref = K.axpy_norm_plain(alpha, x, w)[0]
-    z64 = alpha.double() * x.double() + w.double()
-    err_z = float((z - z_ref).abs().max())
-    err_s = float((ss.double() - (z64 * z64).sum()).abs())
-    check("axpy_norm z", err_z, 2 * eps * float((alpha.abs() * x.abs() + w.abs()).max()))
-    check("axpy_norm z.z", err_s, tree_tol(z64 * z64))
     out["axpy_norm"] = row(
         "axpy_norm", "axpy_norm.cu", "src/repro/kernels/axpy_norm/kernel.py:39",
-        max(err_z, err_s),
-        lambda: K.axpy_norm(alpha, x, w, **geo_a),
-        lambda: K.axpy_norm_plain(alpha, x, w),
-        3 * m * 4 + 4, 4 * m)
+        **held_axpy_norm(torch, ex, x, w))
 
-    # block_jacobi_apply — every storage dtype at the main path's block count;
-    # tolerance: 2 bs eps relative to max_b,i sum_j |inv_bij v_bj|
+    # block_jacobi_apply — every storage dtype at the main path's block count
     nb, bs = P.num_blocks, P.block_size
     vp = torch.randn(nb, bs, generator=gen, device="cuda")
     base = torch.cat([t.float() for t in P.inv_blocks])  # main-path blocks, f32
-    cfg = ex.launch_config("block_jacobi", {"nb": nb, "bs": bs})
-    bt = cfg["block_threads"]
     variants = []
     main_dtype = P.inv_blocks[0].dtype
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        inv = base.to(dtype)
-        inv32 = inv.float()
-        yb = K.block_jacobi_apply(inv, vp, block_threads=bt)
-        yb_ref = K.block_jacobi_apply_plain(inv, vp)
-        err = float((yb - yb_ref).abs().max())
-        sc = float(K.block_jacobi_apply_plain(inv32.abs(), vp.abs()).max())
-        check(f"block_jacobi_apply[{dtype}]", err, 2 * bs * eps * sc)
-        vcol = vp[:, :, None]
         variants.append(row(
             "block_jacobi_apply", "block_jacobi.cu",
-            "src/repro/kernels/block_jacobi/kernel.py:36", err,
-            lambda inv=inv: K.block_jacobi_apply(inv, vp, block_threads=bt),
-            lambda inv=inv: K.block_jacobi_apply_plain(inv, vp),
-            nb * bs * bs * inv.element_size() + 2 * nb * bs * 4, 2 * nb * bs * bs,
-            lambda inv32=inv32: torch.bmm(inv32, vcol)))
+            "src/repro/kernels/block_jacobi/kernel.py:36",
+            **held_block_jacobi(torch, ex, base.to(dtype), vp)))
         variants[-1]["storage"] = str(dtype).removeprefix("torch.")
     entry = dict(next(v for v in variants if v["storage"] ==
                       str(main_dtype).removeprefix("torch.")))
@@ -400,9 +448,11 @@ def phase_path(torch, A, b):
                       "profile": profile}
 
 
-def phase_profile(torch, A, b, P, ex, iters: int = 50) -> dict:
-    """Device time by kernel over ``iters`` CG iterations of the main path
-    (torch.profiler), and the device's busy share of the window's wall time."""
+def phase_profile(torch, A, b, P, ex, iters: int = 50,
+                  tag: str = "profile") -> dict:
+    """Device time by kernel over ``iters`` CG iterations preconditioned by
+    ``P`` (torch.profiler), and the device's busy share of the window's wall
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -423,14 +473,313 @@ def phase_profile(torch, A, b, P, ex, iters: int = 50) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    say(f"[profile] {iters} iterations: wall {wall_us:.0f} us, device busy "
+    say(f"[{tag}] {iters} iterations: wall {wall_us:.0f} us, device busy "
         f"{busy:.0f} us ({busy / wall_us:.1%}); per iteration "
         f"{wall_us / iters:.1f} us wall, {busy / iters:.1f} us device")
     for dev, count, key in rows[:16]:
-        say(f"[profile]   {dev / iters:9.2f} us/iter  {count:6d} calls  {key[:90]}")
+        say(f"[{tag}]   {dev / iters:9.2f} us/iter  {count:6d} calls  {key[:90]}")
     return {"iterations": iters, "wall_us": wall_us, "device_busy_us": busy,
             "top": [{"name": key[:120], "calls": count, "us": dev}
                     for dev, count, key in rows[:16]]}
+
+
+class SpanTotals:
+    """A tracer for ``repro_torch.observability.trace``: sums the host time
+    of spans by name (the registry's dispatch events are not kept)."""
+
+    def __init__(self):
+        self.us = collections.Counter()
+
+    def rel_us(self, t: float) -> float:
+        return t * 1e6
+
+    def complete(self, name, ts_us, dur_us, cat="span", args=None) -> None:
+        if cat != "dispatch":
+            self.us[name] += dur_us
+
+
+def phase_amg(torch, copy_bw):
+    """The AMG path: ``amg_check`` on poisson_2d(1024) through the CUDA
+    executor (counted), its launch counts against the hierarchy, the true
+    residual, the setup split, the loops alone, the same path in the torch
+    space on the card, and the kernels held at this path's shapes: spmv_ell
+    on every level operator, axpy_norm and block_jacobi_apply at the outer
+    CG's and the baseline's operands, the two SpGEMM kernels at level 0."""
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+    from repro_torch.launch.amg_check import run_amg_check
+    from repro_torch.observability import trace
+    from repro_torch.precond import make_preconditioner
+    from repro_torch.solvers import Stop, cg
+    from repro_torch.sparse import ops
+
+    ex = make_executor("cuda")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    r = run_amg_check(AMG_N_SIDE, executor=ex, **AMG_KW)
+    launches = K.launch_counts()
+    by_storage = dict(K.block_jacobi_apply.launches_by_storage)
+    if not r.ok:
+        fail("AMG-GATE failed on the card")
+    M, A, b = r.M, r.A, r.b
+    nlev = len(M.levels)  # coarsened levels: num_levels - 1
+    k_amg, k_bj = r.amg.iterations, r.block_jacobi.iterations
+    say(f"[amg] hierarchy: {M.num_levels} levels; rows/nnz per level "
+        + ", ".join(f"{L.A.shape[0]}/{L.A.nnz}" for L in M.levels)
+        + f", coarse {M.coarse_A.shape[0]}/{M.coarse_A.nnz}; operator "
+        f"complexity {M.operator_complexity:.4f}")
+    say(f"[amg] launches by phase {r.launches}")
+    say(f"[amg] dispatches by phase {r.dispatches}")
+
+    # launch counts the hierarchy implies: per coarsened level three SpGEMMs
+    # (A.T, A.P, R.(AP)) and one transpose (R = P^T); per V(1,1)-cycle five
+    # ELL SpMVs per coarsened level (A.x in the pre-sweep, the residual
+    # before restriction, R, P, A.x in the post-sweep), one cycle per
+    # preconditioner apply and CG applies it k + 1 times; the fused CG body
+    # launches axpy_norm once per iteration; block-Jacobi applies once per
+    # storage class per apply
+    classes = len(r.M_bj.inv_blocks)
+    expected = {
+        ("amg_setup", "spgemm_expand"): 3 * nlev,
+        ("amg_setup", "csr_permute"): nlev,
+        ("amg_solve", "spmv_ell"): 5 * nlev * (k_amg + 1),
+        ("amg_solve", "axpy_norm"): k_amg,
+        ("block_jacobi_solve", "axpy_norm"): k_bj,
+        ("block_jacobi_solve", "block_jacobi_apply"): (k_bj + 1) * classes,
+    }
+    for (ph, name), want in expected.items():
+        got = r.launches[ph][name]
+        if got != want:
+            fail(f"{name} launched {got} times in {ph}, expected {want}")
+    for name in ("spgemm_expand", "csr_permute", "spmv_ell", "axpy_norm",
+                 "block_jacobi_apply"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the AMG path")
+    # the baseline applies each storage class once per preconditioner apply;
+    # the AMG hierarchy's Jacobi smoother launches no block_jacobi_apply
+    want_storage = {dtype: k_bj + 1 for dtype, _ in r.M_bj.precision_counts}
+    say(f"[amg] block_jacobi_apply launches by storage {by_storage}")
+    if by_storage != want_storage:
+        fail(f"block_jacobi_apply launches by storage {by_storage}, expected "
+             f"{want_storage}")
+
+    # true residual of the AMG solution, f64 plain CSR SpMV
+    x = r.amg.x
+    if x.shape != b.shape or not bool(torch.isfinite(x).all()):
+        fail("AMG solution has the wrong shape or non-finite values")
+    rows = torch.repeat_interleave(
+        torch.arange(A.shape[0], device="cuda"),
+        (A.indptr[1:] - A.indptr[:-1]).long())
+    ax = torch.zeros(A.shape[0], dtype=torch.float64, device="cuda").index_add_(
+        0, rows, A.values.double() * x.double()[A.indices.long()])
+    rel = float((b.double() - ax).norm() / b.double().norm())
+    say(f"[amg] true relative residual {rel:.4e}")
+    if not rel <= 1e-4:
+        fail(f"AMG true relative residual {rel} > 1e-4")
+
+    # the loops alone (no symmetry probe) for the time per iteration.  CSR
+    # SpMV in the torch space sums rows with index_add_, whose CUDA atomics
+    # add in no fixed order, so a repeat may differ in the last bits: it must
+    # converge within 2 iterations of the first
+    stop = Stop(max_iters=AMG_KW["max_iters"], reduction_factor=AMG_KW["tol"])
+
+    def time_loops(run, exe):
+        """(seconds, iterations) of each solve's loop alone."""
+        out = {}
+        for name, P, res in (("amg", run.M, run.amg),
+                             ("block_jacobi", run.M_bj, run.block_jacobi)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = cg(run.A, run.b, stop=stop, M=P, executor=exe, strict=False)
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0, again.iterations)
+            if not again.converged or abs(again.iterations - res.iterations) > 2:
+                fail(f"a repeated {name} CG solve took {again.iterations} "
+                     f"iterations against {res.iterations}")
+        return out
+
+    loops = time_loops(r, ex)
+    sec = r.seconds
+    summary = {
+        "levels": M.num_levels,
+        "rows": [L.A.shape[0] for L in M.levels] + [M.coarse_A.shape[0]],
+        "nnz": [L.A.nnz for L in M.levels] + [M.coarse_A.nnz],
+        "operator_complexity": M.operator_complexity,
+        "true_relative_residual": rel,
+        "seconds": sec,
+    }
+    for name, res, setup_key, solve_key in (
+            ("amg", r.amg, "amg_setup", "amg_solve"),
+            ("block_jacobi", r.block_jacobi, "block_jacobi_setup",
+             "block_jacobi_solve")):
+        k = res.iterations
+        tts = sec[setup_key] + sec[solve_key]
+        loop_s, loop_k = loops[name]
+        summary[name] = {"iterations": k, "converged": res.converged,
+                         "time_to_solution_s": tts, "loop_s": loop_s,
+                         "ms_per_iteration": loop_s / loop_k * 1e3}
+        say(f"[amg] {name}-cg: {k} iterations, converged {res.converged}, "
+            f"time to solution {tts:.4f} s (setup {sec[setup_key]:.4f}, solve "
+            f"{sec[solve_key]:.4f} with the symmetry probe); loop alone "
+            f"{loop_s:.4f} s for {loop_k} iterations = "
+            f"{loop_s / loop_k * 1e3:.4f} ms per iteration")
+
+    # the setup split: a second AMG setup under a span tracer
+    totals = SpanTotals()
+    trace.set_tracer(totals)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        make_preconditioner(A, "amg", executor=ex, cycle=AMG_KW["cycle"],
+                            theta=AMG_KW["theta"])
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    finally:
+        trace.set_tracer(None)
+    us = totals.us
+    split = {
+        "aggregation": us["amg.aggregate"],
+        "structure_passes": us["spgemm.structure"] + us["spgemm.coalesce"]
+        + us["sptranspose.structure"],
+        "numeric_passes": us["spgemm.numeric"] + us["sptranspose.numeric"],
+        "coarse_inverse": us["amg.coarse_solver"],
+    }
+    split = {key: v / 1e6 for key, v in split.items()}
+    split["rest"] = us["amg.setup"] / 1e6 - sum(split.values())
+    split["total"] = traced_s
+    summary["setup_split_s"] = split
+    say(f"[amg] setup split (second setup, host clock, s): "
+        + ", ".join(f"{key} {v:.4f}" for key, v in split.items())
+        + " — numeric passes are the kernels with their index upload and the "
+        "products' download; rest is the ELL mirrors, P's smoothing sum and "
+        "host copies")
+
+    # the same path in the torch space on the card: no kernel launches, the
+    # same hierarchy bit for bit, iterations within 2, x within 1e-3
+    ex_t = make_executor("torch", device="cuda")
+    before = K.launch_counts()
+    rt = run_amg_check(AMG_N_SIDE, executor=ex_t, **AMG_KW)
+    if K.launch_counts() != before:
+        fail("the torch space launched a port kernel")
+    Mt = rt.M
+    def same_csr(X, Y) -> bool:
+        return all(torch.equal(getattr(X, f), getattr(Y, f))
+                   for f in ("indptr", "indices", "values"))
+
+    if Mt.num_levels != M.num_levels or not all(
+            same_csr(getattr(L, f), getattr(Lt, f))
+            for L, Lt in zip(M.levels, Mt.levels) for f in ("A", "P", "R")) \
+            or not same_csr(M.coarse_A, Mt.coarse_A):
+        fail("the torch-space hierarchy differs from the cuda-space one")
+    dx = float((rt.amg.x - x).norm() / rt.amg.x.norm())
+    say(f"[amg] torch space on the card: hierarchy bitwise equal; amg-cg "
+        f"{rt.amg.iterations} iterations (cuda {k_amg}), block_jacobi-cg "
+        f"{rt.block_jacobi.iterations} (cuda {k_bj}); relative difference of "
+        f"the AMG solutions {dx:.3e}; setup {rt.seconds['amg_setup']:.4f} s, "
+        f"AMG solve {rt.seconds['amg_solve']:.4f} s")
+    if abs(rt.amg.iterations - k_amg) > 2 or not dx <= 1e-3:
+        fail("the torch-space AMG solve disagrees with the cuda-space one")
+    loops_t = time_loops(rt, ex_t)
+    say("[amg] torch space loops alone: " + ", ".join(
+        f"{name} {sec_:.4f} s for {k} iterations = {sec_ / k * 1e3:.4f} ms per "
+        f"iteration" for name, (sec_, k) in loops_t.items()))
+    summary["torch_space"] = {
+        "amg_iterations": rt.amg.iterations,
+        "block_jacobi_iterations": rt.block_jacobi.iterations,
+        "seconds": rt.seconds, "x_relative_difference": dx,
+        "ms_per_iteration": {name: sec_ / k * 1e3
+                             for name, (sec_, k) in loops_t.items()}}
+    summary["profile"] = phase_profile(torch, A, b, M, ex, iters=k_amg,
+                                       tag="profile amg")
+
+    # spmv_ell at every operator the V-cycle applies (A, P, R per level,
+    # k from 4 to about 100): against its plain version, tolerance as in
+    # phase 3 (8 k eps relative to max_i sum_j |a_ij x_j|)
+    eps = torch.finfo(torch.float32).eps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    worst = 0.0
+    for lvl, L in enumerate(M.levels):
+        for name, E in (("A", L.A_op), ("P", L.P_op), ("R", L.R_op)):
+            m, k = E.values.shape
+            xv = torch.randn(E.shape[1], generator=gen, device="cuda")
+            cfg = ex.launch_config("spmv_ell", {"m": m, "k": k})
+            y = K.spmv_ell(E.col_idx, E.values, xv, block_threads=cfg["block_threads"],
+                           subgroup=cfg["subgroup"])
+            y_ref = K.spmv_ell_plain(E.col_idx, E.values, xv)
+            sc = float(K.spmv_ell_plain(E.col_idx, E.values.abs(), xv.abs()).max())
+            err = float((y - y_ref).abs().max())
+            if not err <= 8 * k * eps * sc:
+                fail(f"spmv_ell disagrees with its plain version on level {lvl} "
+                     f"{name} ({m}x{E.shape[1]}, k = {k}): {err}")
+            worst = max(worst, err / sc if sc else err)
+    say(f"[kernels] spmv_ell on the {3 * nlev} AMG level operators: largest "
+        f"error {worst:.3e} relative to the row magnitudes (each within 8 k eps)")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    row = functools.partial(kernel_row, torch, flush, copy_bw)
+
+    # axpy_norm at the outer CG's vectors (n rows) and block_jacobi_apply at
+    # the baseline's blocks, each storage class: as in phase 3
+    xv = torch.randn(A.shape[0], generator=gen, device="cuda")
+    wv = torch.randn(A.shape[0], generator=gen, device="cuda")
+    held = {"axpy_norm": [row(
+        "axpy_norm", "axpy_norm.cu", "src/repro/kernels/axpy_norm/kernel.py:39",
+        **held_axpy_norm(torch, ex, xv, wv, " (AMG path)"))],
+        "block_jacobi_apply": []}
+    bs = r.M_bj.block_size
+    for inv in r.M_bj.inv_blocks:
+        vp = torch.randn(inv.shape[0], bs, generator=gen, device="cuda")
+        held["block_jacobi_apply"].append(row(
+            "block_jacobi_apply", "block_jacobi.cu",
+            "src/repro/kernels/block_jacobi/kernel.py:36",
+            **held_block_jacobi(torch, ex, inv, vp, " (AMG path)")))
+        held["block_jacobi_apply"][-1]["storage"] = \
+            str(inv.dtype).removeprefix("torch.")
+
+    # the two kernels at level 0's shapes: R.(AP) and P^T
+    L0 = M.levels[0]
+    AP = ops.spgemm(A, L0.P, executor=ex_t)
+    _, _, _, idx1, _ = ops._spgemm_expansion(L0.R, AP)
+    idx = torch.from_numpy(idx1).cuda()
+    a_vals = L0.R.values
+    b_pad = torch.cat([AP.values.new_zeros(1), AP.values])
+    bt = ex.launch_config("spgemm", {})["block_threads"]
+    out = K.spgemm_expand(a_vals, idx, b_pad, block_threads=bt)
+    ref = K.spgemm_expand_plain(a_vals, idx, b_pad)
+    err = float((out - ref).abs().max())
+    say(f"[kernels] spgemm_expand at R.(AP) of level 0: T = {idx.shape[0]}, "
+        f"K = {idx.shape[1]}, nnz(AP) = {AP.nnz}; bitwise equal to the plain "
+        f"version: {torch.equal(out, ref)}")
+    if not torch.equal(out, ref):
+        fail(f"spgemm_expand differs from its plain version (max {err})")
+    t, kw = idx.shape
+    gathered = int(torch.unique(idx).numel()) * 4
+    say("[kernels] spgemm_expand library_ms: null — no single PyTorch call "
+        "computes the padded (T, K) expansion (a sparse product coalesces)")
+    rows_out = {"spgemm_expand": row(
+        "spgemm_expand", "spgemm.cu", "src/repro/kernels/spgemm/kernel.py:46",
+        err, lambda: K.spgemm_expand(a_vals, idx, b_pad, block_threads=bt),
+        lambda: K.spgemm_expand_plain(a_vals, idx, b_pad),
+        4 * t + 8 * t * kw + gathered, t * kw)}
+    rows_out["spgemm_expand"]["shape"] = {"T": t, "K": kw}
+
+    order_np, _, _ = ops._transpose_structure(L0.P)
+    order = torch.from_numpy(order_np.astype("int32")).cuda()
+    vals = L0.P.values
+    out = K.csr_permute(vals, order, block_threads=bt)
+    ref = K.csr_permute_plain(vals, order)
+    say(f"[kernels] csr_permute at P^T of level 0: nnz = {order.numel()}; "
+        f"bitwise equal to the plain version: {torch.equal(out, ref)}")
+    if not torch.equal(out, ref):
+        fail("csr_permute differs from its plain version")
+    nnz = order.numel()
+    rows_out["csr_permute"] = row(
+        "csr_permute", "spgemm.cu", "src/repro/kernels/spgemm/kernel.py:92",
+        0.0, lambda: K.csr_permute(vals, order, block_threads=bt),
+        lambda: K.csr_permute_plain(vals, order), 12 * nnz, 0,
+        lambda: torch.index_select(vals, 0, order))
+    rows_out["csr_permute"]["shape"] = {"nnz": nnz}
+    return launches, by_storage, summary, rows_out, held
 
 
 def phase_small_reference(torch) -> None:
@@ -498,11 +847,35 @@ def main() -> None:
     del P
     launches, by_storage, path = phase_path(torch, A, b)
     phase_small_reference(torch)
+    del A, b
+    amg_launches, amg_storage, path["amg"], amg_rows, held = phase_amg(
+        torch, copy_bw)
+    rows.update(amg_rows)
 
+    # a kernel also held at the AMG path's shapes: that row, and the larger
+    # error of the two (for block_jacobi_apply, in the variant of its storage)
+    for name, extra in held.items():
+        for e in extra:
+            targets = [v for v in rows[name].get("storage_variants", ())
+                       if v["storage"] == e.get("storage")] or [rows[name]]
+            for t in targets:
+                t["at_amg_path_shape"] = e
+                t["max_abs_err"] = max(t["max_abs_err"], e["max_abs_err"])
+        variants = rows[name].get("storage_variants")
+        if variants:
+            rows[name]["max_abs_err"] = max(v["max_abs_err"] for v in variants)
+
+    # launches: the sum over the two paths' counted runs, and each path's;
+    # block_jacobi_apply's storage variants likewise, per storage dtype
     for name, entry in rows.items():
-        entry["launches"] = launches[name]
+        entry["launches_by_path"] = {"block_jacobi_cg": launches.get(name, 0),
+                                     "amg_check": amg_launches[name]}
+        entry["launches"] = sum(entry["launches_by_path"].values())
         for var in entry.get("storage_variants", ()):
-            var["launches"] = by_storage.get(var["storage"], 0)
+            var["launches_by_path"] = {
+                "block_jacobi_cg": by_storage.get(var["storage"], 0),
+                "amg_check": amg_storage.get(var["storage"], 0)}
+            var["launches"] = sum(var["launches_by_path"].values())
     say(json.dumps({"card": card, "build_s": build_s,
                     "copy_gbs": copy_bw / 1e9, "path": path,
                     "total_s": time.perf_counter() - t_start}))

@@ -16,11 +16,18 @@ from repro_torch.kernels.block_jacobi.kernel import (
     block_jacobi_apply,
     block_jacobi_apply_plain,
 )
+from repro_torch.kernels.spgemm.kernel import (
+    csr_permute,
+    csr_permute_plain,
+    spgemm_expand,
+    spgemm_expand_plain,
+)
 from repro_torch.kernels.spmv_dot.kernel import spmv_dot_ell, spmv_dot_ell_plain
 from repro_torch.kernels.spmv_ell.kernel import spmv_ell, spmv_ell_plain
 
 import repro_torch.kernels.axpy_norm.ops  # noqa: E402,F401
 import repro_torch.kernels.block_jacobi.ops  # noqa: E402,F401
+import repro_torch.kernels.spgemm.ops  # noqa: E402,F401
 import repro_torch.kernels.spmv_dot.ops  # noqa: E402,F401
 import repro_torch.kernels.spmv_ell.ops  # noqa: E402,F401
 
@@ -30,6 +37,8 @@ KERNELS = {
     "spmv_dot_ell": spmv_dot_ell,
     "axpy_norm": axpy_norm,
     "block_jacobi_apply": block_jacobi_apply,
+    "spgemm_expand": spgemm_expand,
+    "csr_permute": csr_permute,
 }
 
 def launch_counts() -> dict:
@@ -51,6 +60,10 @@ __all__ = [
     "axpy_norm_plain",
     "block_jacobi_apply",
     "block_jacobi_apply_plain",
+    "csr_permute",
+    "csr_permute_plain",
+    "spgemm_expand",
+    "spgemm_expand_plain",
     "spmv_dot_ell",
     "spmv_dot_ell_plain",
     "spmv_ell",

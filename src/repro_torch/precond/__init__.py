@@ -1,5 +1,6 @@
-"""repro_torch.precond — the block-Jacobi preconditioner and the string-keyed
-factory the solvers use to resolve ``M="block_jacobi"``-style arguments."""
+"""repro_torch.precond — block-Jacobi, smoothed-aggregation AMG, and the
+string-keyed factory the solvers use to resolve ``M="block_jacobi"``-style
+arguments."""
 
 from __future__ import annotations
 
@@ -26,15 +27,22 @@ __all__ = [
     "uniform_block_ptrs",
     "unit_roundoff",
     "make_preconditioner",
+    "Multigrid",
+    "amg_preconditioner",
 ]
+
+from repro_torch.precond.amg import Multigrid, amg_preconditioner  # noqa: E402
 
 
 def make_preconditioner(A, kind: str, *, executor=None, **opts):
     """Resolve a preconditioner by name — the solvers' ``M=<str>`` path.
 
     Kinds: ``identity``, ``jacobi`` (scalar; accepts ``adaptive``),
-    ``block_jacobi`` (accepts ``block_size``/``blocks``/``adaptive``/``tau``).
-    ``parilu`` and ``amg`` are not ported yet and raise.
+    ``block_jacobi`` (accepts ``block_size``/``blocks``/``adaptive``/``tau``),
+    ``amg`` (smoothed-aggregation multigrid on a CSR ``A``; accepts
+    ``theta``/``cycle``/``smoother``/``coarse_solver``/... — see
+    :class:`repro_torch.precond.amg.Multigrid`).  ``parilu`` is not ported
+    yet and raises.
     """
     if kind == "identity":
         if opts:
@@ -50,11 +58,13 @@ def make_preconditioner(A, kind: str, *, executor=None, **opts):
         return jacobi_preconditioner(A, executor=executor, **opts)
     if kind == "block_jacobi":
         return block_jacobi(A, executor=executor, **opts)
-    if kind in ("parilu", "amg"):
+    if kind == "amg":
+        return amg_preconditioner(A, executor=executor, **opts)
+    if kind == "parilu":
         raise NotImplementedError(
             f"the {kind!r} preconditioner is not ported to repro_torch yet"
         )
     raise KeyError(
         f"unknown preconditioner kind {kind!r}; known: "
-        "identity, jacobi, block_jacobi (parilu, amg: not ported yet)"
+        "identity, jacobi, block_jacobi, amg (parilu: not ported yet)"
     )

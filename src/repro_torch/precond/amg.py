@@ -1,0 +1,403 @@
+"""Algebraic multigrid — smoothed aggregation on the SpGEMM family.
+
+The port of the JAX package's ``gko::multigrid`` analogue.  Setup, all
+sparse-sparse composition through the registered ``spgemm`` / ``sptranspose``
+ops (so it runs in whichever kernel space the executor selects):
+
+  1. strength of connection — entry (i, j) is strong when
+     ``|a_ij| ≥ θ·√(a_ii·a_jj)``;
+  2. greedy aggregation — three sequential host passes (seed, attach,
+     singletons), the same ``agg`` as the JAX package's;
+  3. tentative prolongator ``T`` (one unit entry per row), smoothed into
+     ``P = (I − ω·D⁻¹A)·T`` by one SpGEMM;
+  4. Galerkin product ``A_c = R·(A·P)`` with ``R = Pᵀ`` — two SpGEMMs and one
+     transpose.
+
+So a coarsened level costs three ``spgemm`` and one ``sptranspose``
+dispatches (two ``spgemm`` without the smoothed prolongator).  The cycle
+(V or W) runs weighted-Jacobi or block-Jacobi smoothers and a dense-inverse
+(default) or CG coarse solve; every level applies A, P and R through their
+ELL mirrors (``spmv_ell``).  With one pre- and one post-sweep a V-cycle
+makes 5 ELL SpMVs per coarsened level: A·x in the pre-sweep (x = 0 there,
+as in the JAX package), the residual before restriction, R, P, and A·x in
+the post-sweep.
+
+Setup emits ``amg.setup`` / ``amg.level`` / ``amg.coarse_solver`` trace
+spans (:func:`repro_torch.observability.trace.span`) and the gauges
+``amg_level_rows``, ``amg_level_nnz`` and ``amg_operator_complexity``.
+
+The serve-path half of the JAX module (``amg_serve_pattern``,
+``amg_serve_factors``, ``batch_amg_apply``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.linop import LinOp
+from repro_torch.observability import metrics
+from repro_torch.observability.trace import span
+from repro_torch.sparse.formats import (
+    Csr,
+    Ell,
+    csr_from_arrays,
+    csr_host_arrays,
+    ell_from_csr_host,
+)
+from repro_torch.sparse.ops import (
+    _coalesce_host,
+    apply as sp_apply,
+    spgemm,
+    sptranspose,
+    to_dense,
+)
+
+__all__ = [
+    "AmgLevel",
+    "Multigrid",
+    "aggregate",
+    "amg_preconditioner",
+    "strength_mask",
+    "tentative_prolongator",
+]
+
+
+# =============================================================================
+# Setup: strength, aggregation, prolongators, Galerkin product
+# =============================================================================
+
+
+def strength_mask(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    values: np.ndarray,
+    theta: float = 0.08,
+) -> np.ndarray:
+    """Boolean mask over nnz: ``|a_ij| ≥ θ·√(a_ii·a_jj)``, diagonal excluded."""
+    n = indptr.shape[0] - 1
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    cols = np.asarray(indices, dtype=np.int64)
+    diag = np.ones(n, np.float64)
+    dmask = rows == cols
+    diag[rows[dmask]] = np.abs(values[dmask].astype(np.float64))
+    ref = theta * np.sqrt(diag[rows] * diag[cols])
+    return (~dmask) & (np.abs(values.astype(np.float64)) >= ref)
+
+
+def aggregate(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    strong: np.ndarray,
+    n: int,
+) -> Tuple[np.ndarray, int]:
+    """Greedy aggregation: ``(agg, n_agg)`` with ``agg[i]`` the aggregate of
+    row i.  Three sequential passes (seed / attach / singleton sweep)."""
+    ip = np.asarray(indptr).tolist()
+    ix = np.asarray(indices).tolist()
+    st = np.asarray(strong).tolist()
+    agg = [-1] * n
+    n_agg = 0
+    # pass 1: rows whose strong neighbourhood is entirely unaggregated seed a
+    # new aggregate of themselves and that neighbourhood
+    for i in range(n):
+        if agg[i] != -1:
+            continue
+        nbrs = [ix[t] for t in range(ip[i], ip[i + 1]) if st[t]]
+        if any(agg[j] != -1 for j in nbrs):
+            continue
+        agg[i] = n_agg
+        for j in nbrs:
+            agg[j] = n_agg
+        n_agg += 1
+    # pass 2: attach leftovers to any strongly connected aggregate
+    for i in range(n):
+        if agg[i] != -1:
+            continue
+        for t in range(ip[i], ip[i + 1]):
+            if st[t] and agg[ix[t]] != -1:
+                agg[i] = agg[ix[t]]
+                break
+    # pass 3: whatever remains (isolated rows) becomes a singleton aggregate
+    for i in range(n):
+        if agg[i] == -1:
+            agg[i] = n_agg
+            n_agg += 1
+    return np.asarray(agg, np.int64), n_agg
+
+
+def tentative_prolongator(agg: np.ndarray, n_agg: int, *, device=None) -> Csr:
+    """``T``: (n, n_agg) CSR with one unit entry per row."""
+    n = agg.shape[0]
+    return csr_from_arrays(
+        np.arange(n + 1, dtype=np.int64),
+        agg.astype(np.int32),
+        np.ones(n, np.float32),
+        (n, n_agg),
+        device=device,
+    )
+
+
+def _csr_diag(indptr, indices, values, n) -> np.ndarray:
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    diag = np.zeros(n, values.dtype)
+    m = rows == indices
+    diag[rows[m]] = values[m]
+    return diag
+
+
+def _ell_of(A: Csr) -> Ell:
+    indptr, indices, values = csr_host_arrays(A)
+    return ell_from_csr_host(indptr, indices, values, A.shape,
+                             device=A.values.device)
+
+
+def _csr_sub_scaled(Tm: Csr, S: Csr, row_scale: np.ndarray) -> Csr:
+    """Host sparse combination ``T − diag(row_scale)·S`` (same shape)."""
+    ti, tc, tv = csr_host_arrays(Tm)
+    si, sc, sv = csr_host_arrays(S)
+    m, n = Tm.shape
+    t_rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(ti))
+    s_rows = np.repeat(np.arange(m, dtype=np.int64), np.diff(si))
+    rows = np.concatenate([t_rows, s_rows])
+    cols = np.concatenate([tc.astype(np.int64), sc.astype(np.int64)])
+    vals = np.concatenate([tv, -row_scale[s_rows] * sv])
+    indptr, out_c, out_v = _coalesce_host(rows, cols, vals, m)
+    return csr_from_arrays(indptr, out_c, out_v, (m, n),
+                           device=Tm.values.device)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AmgLevel:
+    """One level: its operator, the transfer pair, the smoother's data.
+
+    The CSR forms are what the Galerkin composition produced; the ``*_op``
+    ELL mirrors are what the cycle applies.  ``smoother`` is a block-Jacobi
+    LinOp when the hierarchy was built with ``smoother="block_jacobi"``,
+    else None (weighted Jacobi with ``inv_diag``).
+    """
+
+    A: Csr
+    P: Csr  # prolongation: coarse -> fine
+    R: Csr  # restriction: fine -> coarse (Pᵀ)
+    A_op: Ell
+    P_op: Ell
+    R_op: Ell
+    inv_diag: torch.Tensor
+    smoother: Optional[LinOp] = None
+
+
+class Multigrid(LinOp):
+    """AMG V/W-cycle as a LinOp (gko::multigrid::Pgm + gko::solver::Multigrid).
+
+    ``apply(r)`` runs one cycle from a zero initial guess: the preconditioner
+    application ``M⁻¹ r``.  With symmetric smoothing (weighted Jacobi, equal
+    pre/post sweep counts) the V-cycle is SPD, safe as CG's ``M``.  The
+    hierarchy lives on A's device.
+    """
+
+    def __init__(
+        self,
+        A: Csr,
+        *,
+        theta: float = 0.08,
+        omega: float = 2.0 / 3.0,
+        smooth_prolongator: bool = True,
+        cycle: str = "v",
+        pre_sweeps: int = 1,
+        post_sweeps: int = 1,
+        max_levels: int = 10,
+        coarse_size: int = 64,
+        coarse_solver: str = "dense",
+        smoother: str = "jacobi",
+        smoother_opts: Optional[dict] = None,
+        executor=None,
+    ):
+        if cycle not in ("v", "w"):
+            raise ValueError(f"cycle must be 'v' or 'w', got {cycle!r}")
+        if coarse_solver not in ("dense", "cg"):
+            raise ValueError(
+                f"coarse_solver must be 'dense' or 'cg', got {coarse_solver!r}"
+            )
+        if smoother not in ("jacobi", "block_jacobi"):
+            raise ValueError(
+                f"smoother must be 'jacobi' or 'block_jacobi', got {smoother!r}"
+            )
+        self.executor = executor
+        self.cycle = cycle
+        self.omega = float(omega)
+        self.pre_sweeps = int(pre_sweeps)
+        self.post_sweeps = int(post_sweeps)
+        self._shape = A.shape
+        self._dtype = A.values.dtype
+        self.levels: List[AmgLevel] = []
+        dev = A.values.device
+
+        fine_nnz = max(A.nnz, 1)
+        with span("amg.setup", cat="amg", n=A.shape[0], nnz=A.nnz,
+                  theta=theta, cycle=cycle):
+            level = 0
+            while A.shape[0] > coarse_size and level < max_levels:
+                indptr, indices, values = csr_host_arrays(A)
+                n = A.shape[0]
+                with span("amg.aggregate", cat="amg", level=level, rows=n):
+                    strong = strength_mask(indptr, indices, values, theta)
+                    agg, n_agg = aggregate(indptr, indices, strong, n)
+                if n_agg >= n:
+                    break  # coarsening stalled: stop descending
+                diag = _csr_diag(indptr, indices, values, n)
+                inv_d = np.where(diag != 0, 1.0 / diag, 0.0).astype(values.dtype)
+                with span("amg.level", cat="amg", level=level, rows=n,
+                          nnz=A.nnz, coarse_rows=n_agg):
+                    T = tentative_prolongator(agg, n_agg, device=dev)
+                    if smooth_prolongator:
+                        AT = spgemm(A, T, executor=executor)
+                        P = _csr_sub_scaled(T, AT, self.omega * inv_d)
+                    else:
+                        P = T
+                    R = sptranspose(P, executor=executor)
+                    A_c = spgemm(R, spgemm(A, P, executor=executor),
+                                 executor=executor)
+                sm = None
+                if smoother == "block_jacobi":
+                    from repro_torch.precond.block_jacobi import block_jacobi
+
+                    sm = block_jacobi(A, executor=executor,
+                                      **(smoother_opts or {}))
+                self.levels.append(AmgLevel(
+                    A=A, P=P, R=R,
+                    A_op=_ell_of(A), P_op=_ell_of(P), R_op=_ell_of(R),
+                    inv_diag=torch.as_tensor(inv_d, device=dev),
+                    smoother=sm,
+                ))
+                metrics.gauge("amg_level_rows", level=level).set(n)
+                metrics.gauge("amg_level_nnz", level=level).set(A.nnz)
+                A = A_c
+                level += 1
+
+            self.coarse_A = A
+            metrics.gauge("amg_level_rows", level=level).set(A.shape[0])
+            metrics.gauge("amg_level_nnz", level=level).set(A.nnz)
+            total_nnz = sum(l.A.nnz for l in self.levels) + A.nnz
+            self.operator_complexity = total_nnz / fine_nnz
+            metrics.gauge("amg_operator_complexity").set(
+                self.operator_complexity
+            )
+            with span("amg.coarse_solver", cat="amg", kind=coarse_solver,
+                      rows=A.shape[0]):
+                if coarse_solver == "dense":
+                    dense = to_dense(A, executor=executor)
+                    # f32 outside any kernel, as the JAX package's jnp.linalg.inv
+                    self._coarse_inv = torch.linalg.inv(
+                        dense.to(torch.float32)).to(self._dtype)
+                    self._coarse_solver = None
+                else:
+                    from repro_torch.solvers.common import Stop
+                    from repro_torch.solvers.krylov import CgSolver
+
+                    self._coarse_inv = None
+                    self._coarse_solver = CgSolver(
+                        A,
+                        stop=Stop(max_iters=50, reduction_factor=1e-8),
+                        executor=executor,
+                    )
+
+    @classmethod
+    def from_levels(
+        cls,
+        levels: Sequence[AmgLevel],
+        coarse_A: Csr,
+        coarse_inv: torch.Tensor,
+        *,
+        cycle: str = "v",
+        omega: float = 2.0 / 3.0,
+        pre_sweeps: int = 1,
+        post_sweeps: int = 1,
+        executor=None,
+    ) -> "Multigrid":
+        """A Multigrid over a given hierarchy (dense coarse solve), with no
+        setup run: what :func:`repro_torch.convert.multigrid` builds."""
+        if cycle not in ("v", "w"):
+            raise ValueError(f"cycle must be 'v' or 'w', got {cycle!r}")
+        self = cls.__new__(cls)
+        self.executor = executor
+        self.cycle = cycle
+        self.omega = float(omega)
+        self.pre_sweeps = int(pre_sweeps)
+        self.post_sweeps = int(post_sweeps)
+        self.levels = list(levels)
+        fine = self.levels[0].A if self.levels else coarse_A
+        self._shape = fine.shape
+        self._dtype = fine.values.dtype
+        self.coarse_A = coarse_A
+        self.operator_complexity = (
+            (sum(l.A.nnz for l in self.levels) + coarse_A.nnz)
+            / max(fine.nnz, 1)
+        )
+        self._coarse_inv = coarse_inv
+        self._coarse_solver = None
+        return self
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    @property
+    def num_levels(self) -> int:
+        """Levels counting the coarse grid, as gko::solver::Multigrid does."""
+        return len(self.levels) + 1
+
+    # -- the cycle -------------------------------------------------------------
+
+    def _smooth(self, L: AmgLevel, x, r, sweeps: int, executor):
+        for _ in range(sweeps):
+            res = r - sp_apply(L.A_op, x, executor=executor)
+            if L.smoother is not None:
+                x = x + L.smoother.apply(res, executor=executor)
+            else:
+                x = x + self.omega * L.inv_diag * res
+        return x
+
+    def _coarse_solve(self, r, executor):
+        if self._coarse_inv is not None:
+            return self._coarse_inv @ r
+        return self._coarse_solver.apply(r, executor=executor)
+
+    def _cycle(self, lvl: int, r, executor):
+        if lvl == len(self.levels):
+            return self._coarse_solve(r, executor)
+        L = self.levels[lvl]
+        x = self._smooth(L, torch.zeros_like(r), r, self.pre_sweeps, executor)
+        rc = sp_apply(L.R_op, r - sp_apply(L.A_op, x, executor=executor),
+                      executor=executor)
+        xc = self._cycle(lvl + 1, rc, executor)
+        if self.cycle == "w" and lvl + 1 < len(self.levels):
+            # second recursive visit (γ = 2), corrected with the updated
+            # coarse residual; the coarsest visit is exact, so not repeated
+            rc2 = rc - sp_apply(self.levels[lvl + 1].A_op, xc,
+                                executor=executor)
+            xc = xc + self._cycle(lvl + 1, rc2, executor)
+        x = x + sp_apply(L.P_op, xc, executor=executor)
+        return self._smooth(L, x, r, self.post_sweeps, executor)
+
+    def _apply(self, r: torch.Tensor, executor) -> torch.Tensor:
+        ex = executor if executor is not None else self.executor
+        if not self.levels:
+            return self._coarse_solve(r, ex)
+        return self._cycle(0, r, ex)
+
+
+def amg_preconditioner(A: Csr, *, executor=None, **opts) -> Multigrid:
+    """``M="amg"`` factory — one V(1,1)-cycle of smoothed aggregation."""
+    if not isinstance(A, Csr):
+        raise TypeError(
+            f"amg preconditioner needs a CSR operand, got {type(A).__name__}"
+        )
+    return Multigrid(A, executor=executor, **opts)

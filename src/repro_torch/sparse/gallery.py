@@ -13,7 +13,7 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["HostCsr", "poisson_2d", "poisson_3d", "spd_banded"]
+__all__ = ["HostCsr", "anisotropic_2d", "poisson_2d", "poisson_3d", "spd_banded"]
 
 #: (indptr, indices, values, shape) — the host-side CSR quadruple
 HostCsr = Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]
@@ -71,6 +71,33 @@ def poisson_3d(n_side: int) -> HostCsr:
         rows.append(idx[m])
         cols.append(((ni * n_side + nj) * n_side + nk)[m])
         vals.append(np.full(int(m.sum()), -1.0, np.float32))
+    return _coo_to_csr(
+        np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
+    )
+
+
+def anisotropic_2d(n_side: int, epsilon: float = 0.01) -> HostCsr:
+    """Anisotropic diffusion ``-u_xx - ε u_yy`` on an ``n_side``² grid.
+
+    With ``epsilon`` ≪ 1 the y-coupling is weak, which AMG's
+    strength-of-connection filter must drop.
+    """
+    n = n_side * n_side
+    eps = np.float32(epsilon)
+    idx = np.arange(n)
+    gi, gj = idx // n_side, idx % n_side
+    rows = [idx]
+    cols = [idx]
+    vals = [np.full(n, 2.0 * (1.0 + eps), np.float32)]
+    # x-direction (strong): weight -1; y-direction (weak): weight -epsilon
+    for (di, dj), w in (
+        ((0, -1), -1.0), ((0, 1), -1.0), ((-1, 0), -eps), ((1, 0), -eps)
+    ):
+        ni, nj = gi + di, gj + dj
+        m = (ni >= 0) & (ni < n_side) & (nj >= 0) & (nj < n_side)
+        rows.append(idx[m])
+        cols.append((ni * n_side + nj)[m])
+        vals.append(np.full(int(m.sum()), w, np.float32))
     return _coo_to_csr(
         np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
     )

@@ -193,7 +193,7 @@ def test_default_block_size_and_factory():
     assert P.block_size == 8  # the executor's subgroup width
     with pytest.raises(NotImplementedError):
         make_preconditioner(At, "parilu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="CSR"):  # AMG takes CSR, as in JAX
         make_preconditioner(At, "amg")
     with pytest.raises(ValueError, match="block pointers"):
         block_jacobi(At, blocks=[0, 5, 3, 24])

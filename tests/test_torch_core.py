@@ -32,7 +32,7 @@ from repro_torch.core import (
     registry,
     reset_default_executor,
 )
-from repro_torch.observability import convergence, trace
+from repro_torch.observability import convergence, metrics, trace
 from repro_torch.precond import block_jacobi
 from repro_torch.sparse import formats as F
 from repro_torch.sparse import gallery
@@ -52,12 +52,18 @@ SLICE_MODULES = [
     "repro_torch.kernels.axpy_norm.ops",
     "repro_torch.kernels.block_jacobi.ops",
     "repro_torch.kernels.loader_check",
+    "repro_torch.kernels.spgemm.kernel",
+    "repro_torch.kernels.spgemm.ops",
     "repro_torch.kernels.spmv_dot.ops",
     "repro_torch.kernels.spmv_ell.ops",
+    "repro_torch.launch",
+    "repro_torch.launch.amg_check",
     "repro_torch.observability.convergence",
     "repro_torch.observability.events",
+    "repro_torch.observability.metrics",
     "repro_torch.observability.trace",
     "repro_torch.precond",
+    "repro_torch.precond.amg",
     "repro_torch.precond.block_jacobi",
     "repro_torch.solvers",
     "repro_torch.solvers.common",
@@ -220,3 +226,25 @@ def test_convergence_ring_buffer_wraps():
     np.testing.assert_array_equal(convergence.trim(hist, 2), [3.0, 4.0])
     with pytest.raises(ValueError):
         convergence.capacity(-1, None)
+
+
+def test_metrics_registry_series():
+    reg = metrics.MetricsRegistry()
+    reg.counter("solves", space="cuda").inc()
+    reg.counter("solves", space="cuda").inc(2)
+    with pytest.raises(ValueError):
+        reg.counter("solves", space="cuda").inc(-1)
+    reg.gauge("rows", level=0).set(256)
+    h = reg.histogram("wall_s")
+    for v in (0.3, 3.0, 3.5):
+        h.observe(v)
+    with pytest.raises(TypeError, match="already registered"):
+        reg.gauge("solves", space="cuda")
+    got = {(r["name"], tuple(r["labels"].items())): r for r in reg.samples()}
+    assert got[("solves", (("space", "cuda"),))]["value"] == 3.0
+    assert got[("rows", (("level", "0"),))]["value"] == 256.0
+    hist = got[("wall_s", ())]
+    assert hist["count"] == 3 and hist["min"] == 0.3 and hist["max"] == 3.5
+    assert hist["buckets"] == {"0.5": 1, "4": 2}
+    reg.reset()
+    assert reg.samples() == []
