@@ -27,17 +27,40 @@ Phases, each of which exits non-zero on failure:
             operator, axpy_norm at the outer CG's vectors and
             block_jacobi_apply at the baseline's blocks against their plain
             versions (phase 3's tolerances), and the two SpGEMM kernels at
-            level 0's shapes (bitwise), with their times.
+            level 0's shapes (bitwise), with their times;
+6. sellp  — Jacobi-CG on power_law_laplacian(2**21, seed=4) stored as SELL-P
+            (C = 8, stride 8, f32) through the CUDA executor: convergence, the
+            true residual, spmv_sellp's launch count against the loop's
+            SpMVs, a repeat bit for bit, the torch space on the card, the
+            storage ELL would need; spmv_sellp held against its plain version
+            (per row, 2 (w + 1) eps relative to the row's magnitudes, w its
+            slice's width) and timed, torch.sparse.mm on the CSR as library;
+7. batch  — repro_torch.launch.batch_solve at 16,384 systems of 1,024 rows
+            (f32 BatchEll, k = 3) with no preconditioner and with Jacobi,
+            batch_cg with 8-row block-Jacobi, and BiCGSTAB at 1,024 x 64:
+            every system converged, the error against the known solutions,
+            each kernel's launches against the sweeps, a 4-sweep chunked
+            advance bit for bit equal to the monolithic one, the torch space
+            on the card (iterations within 1, x close); spmv_batch_ell
+            (at the CG runs' and the BiCGSTAB run's operators), row-batched
+            axpy_norm (at the CG runs' rows, one block each, and at
+            256 x 1,024, rows cut into pieces) and block_jacobi_apply held
+            and timed at this path's shapes (torch.sparse.mm on the
+            block-diagonal CSR of all systems as spmv_batch_ell's library
+            call).
 
 It then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
-sum over the two paths' counted runs (phases 4 and 5), each run counted from
-0; ``launches_by_path`` gives each, and block_jacobi_apply's storage variants
-carry the same per storage dtype.  ``max_abs_err`` is the larger over the
-shapes the kernel was held at; ``at_amg_path_shape`` holds the times at the
-AMG path's shapes of a kernel whose row is timed at phase 3's.  It imports nothing of JAX or of the JAX
-package.  Without a CUDA device, or without the repository beside it, it
-exits non-zero before printing any result.
+sum over the four paths' counted runs (phases 4 to 7; phase 7 counts its
+four solves), each run counted from 0; ``launches_by_path`` gives each, and
+block_jacobi_apply's storage variants carry the same per storage dtype.
+``max_abs_err`` is the larger over the shapes the kernel was held at;
+``at_amg_path_shape`` / ``at_batch_path_shape`` hold the times at those
+paths' shapes of a kernel whose row is timed at phase 3's, and
+``at_bicgstab_shape`` / ``at_row_pieces_shape`` those of phase 7's second
+shapes.  It imports
+nothing of JAX or of the JAX package.  Without a CUDA device, or without the
+repository beside it, it exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -63,6 +86,13 @@ REPS = 30
 #: CG needs about 1,800 iterations there, AMG-CG about 15
 AMG_N_SIDE = 1024
 AMG_KW = dict(cycle="v", theta=0.08, tol=1e-6, max_iters=6000, iter_cut=5)
+#: the SELL-P path: Jacobi-CG on power_law_laplacian(2**21, seed=4) (about 70
+#: iterations; the longest row has 11,156 entries)
+SELLP_N = 2 ** 21
+SELLP_SEED = 4
+#: the batched path: batch_solve's CG runs and its BiCGSTAB run
+BATCH_ARGS = ["--batch", "16384", "--n", "1024"]
+BATCH_BICGSTAB_ARGS = ["--batch", "1024", "--n", "64", "--solver", "bicgstab"]
 
 
 def fail(msg: str) -> None:
@@ -154,6 +184,21 @@ def copy_bandwidth(torch) -> float:
     return bw
 
 
+def tree_tol_rows(terms):
+    """Tolerance of an f32 tree sum of each row of ``terms`` against the
+    row's sum in f64, as a tensor (see :func:`tree_tol`)."""
+    s = terms.double()
+    total = (s * s).sum(dim=1)
+    while s.shape[1] > 1:
+        if s.shape[1] % 2:  # pad to even with a zero leaf
+            padded = s.new_zeros(s.shape[0], s.shape[1] + 1)
+            padded[:, :-1] = s
+            s = padded
+        s = s[:, 0::2] + s[:, 1::2]
+        total = total + (s * s).sum(dim=1)
+    return 16 * 2.0 ** -24 * total.sqrt()
+
+
 def tree_tol(terms) -> float:
     """Tolerance of an f32 tree sum of ``terms`` against their sum in f64.
 
@@ -164,16 +209,7 @@ def tree_tol(terms) -> float:
     included; the tolerance is 16 u times that root-sum-square, over 25 times
     the spread.  For the random-sign w.y at m = 2M this is a few hundredths,
     so dropping a typical block partial (128 terms, tens in size) fails."""
-    s = terms.double().flatten()
-    total = float((s * s).sum())
-    while s.numel() > 1:
-        if s.numel() % 2:  # pad to even with a zero leaf
-            padded = s.new_zeros(s.numel() + 1)
-            padded[:-1] = s
-            s = padded
-        s = s[0::2] + s[1::2]
-        total += float((s * s).sum())
-    return 16 * 2.0 ** -24 * total ** 0.5
+    return float(tree_tol_rows(terms.flatten()[None])[0])
 
 
 def check(name: str, err: float, tol: float) -> None:
@@ -253,6 +289,73 @@ def held_block_jacobi(torch, ex, inv, vp, where: str = "") -> dict:
                 nbytes=nb * bs * bs * inv.element_size() + 2 * nb * bs * 4,
                 flops=2 * nb * bs * bs,
                 library_fn=lambda: torch.bmm(inv32, vcol))
+
+
+def held_batch_ell(torch, ex, A, X, where: str = "") -> dict:
+    """Holds ``spmv_batch_ell`` on the BatchEll ``A`` and ``X`` against its
+    plain version — within 8 k eps of max_b,i sum_j |a_bij x_bj| — with the
+    launch configuration the registry binding gives this shape, and returns
+    the rest of its ``kernel_row`` arguments (the library call is
+    ``torch.sparse.mm`` on the block-diagonal CSR of all systems, the ELL
+    padding stored as explicit zeros)."""
+    from repro_torch import kernels as K
+
+    eps = torch.finfo(torch.float32).eps
+    nb, m, k = A.values.shape
+    n = A.shape[1]
+    cfg = ex.launch_config("spmv_batch_ell", {"nb": nb, "m": m, "k": k})
+    geo = dict(block_threads=cfg["block_threads"], subgroup=cfg["subgroup"])
+    y = K.spmv_batch_ell(A.col_idx, A.values, X, **geo)
+    y_ref = K.spmv_batch_ell_plain(A.col_idx, A.values, X)
+    scale = float(K.spmv_batch_ell_plain(A.col_idx, A.values.abs(), X.abs()).max())
+    err = float((y - y_ref).abs().max())
+    check(f"spmv_batch_ell{where} at {nb} x {m} x k = {k}, subgroup "
+          f"{geo['subgroup']}", err, 8 * k * eps * scale)
+    crow = torch.arange(nb * m + 1, device="cuda") * k
+    ccol = (torch.arange(nb, device="cuda")[:, None, None] * n
+            + A.col_idx.long()[None]).reshape(-1)
+    A_bd = torch.sparse_csr_tensor(crow, ccol, A.values.reshape(-1),
+                                   size=(nb * m, nb * n))
+    Xc = X.reshape(-1, 1)
+    return dict(err=err,
+                kernel_fn=lambda: K.spmv_batch_ell(A.col_idx, A.values, X, **geo),
+                plain_fn=lambda: K.spmv_batch_ell_plain(A.col_idx, A.values, X),
+                nbytes=nb * m * k * 4 + m * k * 4 + nb * n * 4 + nb * m * 4,
+                flops=2 * nb * m * k,
+                library_fn=lambda: torch.sparse.mm(A_bd, Xc))
+
+
+def held_axpy_norm_rows(torch, ex, X, Y, gen, where: str = "") -> dict:
+    """Holds ``axpy_norm_rows(alpha, X, Y)`` against its plain version — Z
+    within 2 eps of |alpha x| + |y|, each row's Z.Z against its f64 sum
+    within tree_tol of that row — with the binding's launch configuration,
+    and returns the rest of its ``kernel_row`` arguments."""
+    from repro_torch import kernels as K
+    from repro_torch.kernels.axpy_norm.kernel import rows_chunks
+
+    eps = torch.finfo(torch.float32).eps
+    nb, n = X.shape
+    alpha = torch.randn(nb, generator=gen, device="cuda")
+    cfg = ex.launch_config("axpy_norm_rows", {"nb": nb, "n": n, "itemsize": 4})
+    geo = dict(block_threads=cfg["block_threads"], grid_blocks=cfg["grid_blocks"])
+    z, ss = K.axpy_norm_rows(alpha, X, Y, **geo)
+    z_ref = K.axpy_norm_plain(alpha, X, Y)[0]
+    z64 = alpha.double()[:, None] * X.double() + Y.double()
+    err_z = float((z - z_ref).abs().max())
+    check(f"axpy_norm_rows Z{where}", err_z, 2 * eps * float(
+        (alpha.abs()[:, None] * X.abs() + Y.abs()).max()))
+    err_s_rows = (ss.double() - (z64 * z64).sum(dim=1)).abs()
+    worst = float((err_s_rows / tree_tol_rows(z64 * z64)).max())
+    say(f"[kernels] axpy_norm_rows Z.Z{where} at {nb} x {n}, "
+        f"{rows_chunks(nb, n, **geo)} piece(s) per row: max_abs_err "
+        f"{float(err_s_rows.max()):.3e}; largest error {worst:.3f} of its "
+        "row's tolerance")
+    if not worst <= 1.0:
+        fail(f"axpy_norm_rows' norms{where} disagree with their f64 sums")
+    return dict(err=max(err_z, float(err_s_rows.max())),
+                kernel_fn=lambda: K.axpy_norm_rows(alpha, X, Y, **geo),
+                plain_fn=lambda: K.axpy_norm_plain(alpha, X, Y),
+                nbytes=3 * nb * n * 4 + 2 * nb * 4, flops=4 * nb * n)
 
 
 def phase_kernels(torch, A, A_host, P, ex, copy_bw) -> dict:
@@ -782,6 +885,409 @@ def phase_amg(torch, copy_bw):
     return launches, by_storage, summary, rows_out, held
 
 
+def phase_sellp(torch, copy_bw):
+    """The SELL-P path: Jacobi-CG on power_law_laplacian(2**21, seed=4) as
+    SELL-P through the CUDA executor (counted), then its checks, the torch
+    space on the card, the loop's profile, and spmv_sellp held and timed at
+    this matrix."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+    from repro_torch.solvers import Stop, cg, jacobi_preconditioner
+    from repro_torch.sparse import gallery, sellp_from_csr_host
+
+    t0 = time.perf_counter()
+    ip, ix, v, shape = gallery.power_law_laplacian(SELLP_N, seed=SELLP_SEED)
+    t_gallery = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = sellp_from_csr_host(ip, ix, v, shape, device="cuda")
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    m = shape[0]
+    row_nnz = np.diff(ip)
+    ell_entries = m * int(row_nnz.max())
+    say(f"[sellp] power_law_laplacian({m}, seed={SELLP_SEED}): {ix.size} "
+        f"nonzeros, longest row {int(row_nnz.max())}; gallery {t_gallery:.2f} s, "
+        f"SELL-P build {t_build:.2f} s")
+    say(f"[sellp] storage: SELL-P {A.nnz} entries ({A.memory_bytes} bytes, C = "
+        f"{A.slice_size}, stride {A.stride_factor}, widest slice "
+        f"{A.max_slice_cols}); ELL would store {ell_entries} entries "
+        f"({ell_entries * 8} bytes)")
+    b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(m)
+                         .astype(np.float32)).cuda()
+    stop = Stop(**STOP_KW)
+    ex = make_executor("cuda")
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    ex.dispatch_log.clear()
+    t0 = time.perf_counter()
+    res = cg(A, b, M="jacobi", stop=stop, executor=ex)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    launches = K.launch_counts()
+    log = dict(ex.dispatch_log)
+    k = res.iterations
+    say(f"[sellp] cuda: iterations {k}, converged {res.converged}, time to "
+        f"solution {t_total:.4f} s (Jacobi setup and symmetry probe included)")
+    say(f"[sellp] kernel launches {launches}; dispatch log {log}")
+    if not res.converged:
+        fail("the SELL-P CG solve did not converge")
+    x = res.x
+    if x.shape != b.shape or not bool(torch.isfinite(x).all()):
+        fail("SELL-P solution has the wrong shape or non-finite values")
+    # SELL-P has no fused SpMV: the unfused loop applies A once for the
+    # initial residual and once per iteration; the symmetry probe runs in
+    # host numpy and launches nothing
+    want = k + 1
+    if launches["spmv_sellp"] != want or log.get("spmv_sellp") != want:
+        fail(f"spmv_sellp: {launches['spmv_sellp']} launches, "
+             f"{log.get('spmv_sellp')} dispatches, expected {want}")
+    others = {n: c for n, c in launches.items() if c and n != "spmv_sellp"}
+    if others:
+        fail(f"the SELL-P path launched other kernels: {others}")
+
+    ax = K.spmv_sellp_plain(A.col_idx, A.values.double(), A.slice_sets,
+                            x.double(), m, A.slice_size)
+    rel = float((b.double() - ax).norm() / b.double().norm())
+    say(f"[sellp] true relative residual {rel:.4e}")
+    if not rel <= 1e-4:
+        fail(f"SELL-P true relative residual {rel} > 1e-4")
+
+    # the loop alone, twice: the repeat must be bitwise equal (no atomics
+    # on the cuda path: spmv_sellp writes each row once)
+    P = jacobi_preconditioner(A, executor=ex)
+    loops = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = cg(A, b, M=P, stop=stop, executor=ex, strict=False)
+        torch.cuda.synchronize()
+        loops.append(time.perf_counter() - t0)
+        if again.iterations != k or not torch.equal(again.x, x):
+            fail("a repeated SELL-P CG solve did not reproduce the first bit "
+                 "for bit")
+    t_loop = min(loops)
+    say(f"[sellp] loop alone {t_loop:.4f} s = {t_loop / k * 1e3:.4f} ms per "
+        f"iteration (repeat bitwise equal)")
+
+    ex_t = make_executor("torch", device="cuda")
+    t0 = time.perf_counter()
+    res_t = cg(A, b, M="jacobi", stop=stop, executor=ex_t)
+    torch.cuda.synchronize()
+    t_torch = time.perf_counter() - t0
+    Pt = jacobi_preconditioner(A, executor=ex_t)
+    t0 = time.perf_counter()
+    res_tl = cg(A, b, M=Pt, stop=stop, executor=ex_t, strict=False)
+    torch.cuda.synchronize()
+    t_torch_loop = time.perf_counter() - t0
+    dx = float((res_t.x - x).norm() / res_t.x.norm())
+    say(f"[sellp] torch space: iterations {res_t.iterations}, time to solution "
+        f"{t_torch:.4f} s, loop alone {t_torch_loop:.4f} s = "
+        f"{t_torch_loop / res_tl.iterations * 1e3:.4f} ms per iteration; "
+        f"relative difference of solutions {dx:.3e}")
+    if abs(res_t.iterations - k) > 2 or not dx <= 1e-3:
+        fail(f"torch-space SELL-P solve disagrees: {res_t.iterations} "
+             f"iterations against {k}, x differs by {dx}")
+    profile = phase_profile(torch, A, b, P, ex, iters=k, tag="profile sellp")
+
+    # spmv_sellp at this matrix against its plain version, per row within
+    # 2 (w + 1) eps of the row's magnitude (w its slice's width: both sums
+    # round at most w times)
+    eps = torch.finfo(torch.float32).eps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    xv = torch.randn(m, generator=gen, device="cuda")
+    C = A.slice_size
+    cfg = ex.launch_config("spmv_sellp", {"m": m, "slice_size": C, "itemsize": 4})
+    geo = dict(block_threads=cfg["block_threads"], wide_cols=cfg["wide_cols"])
+    args = (A.col_idx, A.values, A.slice_sets, xv, m, C)
+    y = K.spmv_sellp(*args, **geo)
+    y_ref = K.spmv_sellp_plain(*args)
+    mag = K.spmv_sellp_plain(A.col_idx, A.values.abs(), A.slice_sets,
+                             xv.abs(), m, C)
+    width = A.slice_cols.repeat_interleave(C)[:m].to(mag.dtype)
+    err_rows = (y - y_ref).abs()
+    ratio = float((err_rows / (2 * (width + 1) * eps * mag).clamp_min(1e-30)).max())
+    err = float(err_rows.max())
+    say(f"[kernels] spmv_sellp: max_abs_err {err:.3e}; largest error "
+        f"{ratio:.3f} of its row's tolerance")
+    if not ratio <= 1.0:
+        fail(f"spmv_sellp disagrees with its plain version ({ratio} of the "
+             "per-row tolerance)")
+    A_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(ip.astype(np.int32)).cuda(),
+        torch.from_numpy(ix).cuda(), torch.from_numpy(v).cuda(), size=shape)
+    xs = xv[:, None]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    total = A.nnz
+    row = kernel_row(
+        torch, flush, copy_bw, "spmv_sellp", "spmv_sellp.cu",
+        "src/repro/kernels/spmv_sellp/kernel.py:67", err,
+        lambda: K.spmv_sellp(*args, **geo),
+        lambda: K.spmv_sellp_plain(*args),
+        total * 8 + A.slice_sets.numel() * 4 + 2 * m * 4, 2 * total,
+        lambda: torch.sparse.mm(A_csr, xs))
+    row["shape"] = {"m": m, "stored": total, "nnz": int(ix.size),
+                    "widest_slice": A.max_slice_cols, **geo}
+    summary = {"rows": m, "nnz": int(ix.size), "sellp_entries": total,
+               "ell_entries": ell_entries, "iterations": k,
+               "time_to_solution_s": t_total, "loop_s": t_loop,
+               "ms_per_iteration": t_loop / k * 1e3,
+               "true_relative_residual": rel,
+               "torch_space_iterations": res_t.iterations,
+               "torch_space_time_to_solution_s": t_torch,
+               "torch_space_ms_per_iteration":
+                   t_torch_loop / res_tl.iterations * 1e3,
+               "profile": profile}
+    return launches, summary, {"spmv_sellp": row}
+
+
+def _batch_checks(torch, label, res, xstar, launches, want, res_t):
+    """One batched run's checks: every system converged, the error against
+    the known solutions, the kernels' launches, and the torch-space run on
+    the card (per-system iterations within 1, x within 1e-4)."""
+    import numpy as np
+
+    it = res.iterations.cpu().numpy()
+    err = float(np.abs(res.x.cpu().numpy() - xstar).max())
+    sweeps = int(it.max())
+    say(f"[batch] {label}: {res.num_batch} systems, iterations "
+        f"{it.min()}/{int(np.median(it))}/{sweeps} (min/median/max), error "
+        f"{err:.3e}; launches {({n: c for n, c in launches.items() if c})}")
+    if not bool(res.converged.all()):
+        fail(f"{label}: not every system converged")
+    if not err <= 1e-4:
+        fail(f"{label}: error against the known solutions {err} > 1e-4")
+    for name, count in want(sweeps).items():
+        if launches[name] != count:
+            fail(f"{label}: {name} launched {launches[name]} times, expected "
+                 f"{count} for {sweeps} sweeps")
+    others = {n: c for n, c in launches.items() if c and n not in want(sweeps)}
+    if others:
+        fail(f"{label}: unexpected kernel launches {others}")
+    it_t = res_t.iterations.cpu().numpy()
+    dx = float((res_t.x - res.x).abs().max())
+    say(f"[batch] {label}, torch space on the card: largest iteration "
+        f"difference {int(np.abs(it_t - it).max())}, largest x difference "
+        f"{dx:.3e}")
+    if np.abs(it_t - it).max() > 1 or not dx <= 1e-4:
+        fail(f"{label}: the torch space disagrees with the cuda space")
+    return sweeps, err
+
+
+def _chunked_equal(torch, A, B, M, solver, ex, stop) -> int:
+    """Advance the run in 4-sweep chunks and monolithically; fail unless the
+    two end bit for bit equal.  Returns the number of chunks."""
+    from repro_torch import batch as tb
+
+    thresh = stop.threshold(tb.batch_norm2(B, executor=ex))
+    X0 = torch.zeros_like(B)
+    if solver == "cg":
+        init = lambda: tb.batch_cg_init(A, B, X0, M=M, executor=ex)  # noqa: E731
+        adv = functools.partial(tb.batch_cg_advance, A, stop=stop, M=M,
+                                executor=ex)
+    else:
+        init = lambda: tb.batch_bicgstab_init(A, B, X0, executor=ex)  # noqa: E731
+        adv = functools.partial(tb.batch_bicgstab_advance, A, stop=stop, M=M,
+                                executor=ex)
+    mono = adv(init(), thresh)
+    state, chunks = init(), 0
+    while True:
+        nxt = adv(state, thresh, num_sweeps=4)
+        if nxt.k == state.k:
+            break
+        state, chunks = nxt, chunks + 1
+    if state.k != mono.k or not all(
+            torch.equal(getattr(state, f), getattr(mono, f))
+            for f in ("X", "R", "P", "iters", "rnorm")):
+        fail(f"batched {solver}: the 4-sweep chunked run differs from the "
+             "monolithic one")
+    return chunks
+
+
+def phase_batch(torch, copy_bw):
+    """The batched path: batch_solve's CG runs (no preconditioner, Jacobi),
+    batch_cg with block-Jacobi and batch_solve's BiCGSTAB run, each counted
+    from 0 and checked; then the kernels held and timed at its shapes."""
+    from repro_torch import batch as tb
+    from repro_torch import kernels as K
+    from repro_torch.kernels.axpy_norm.kernel import rows_chunks
+    from repro_torch.launch import batch_solve
+
+    launches_total = collections.Counter()
+    storage_total = collections.Counter()
+    summary = {}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = K.launch_counts()
+        launches_total.update(counts)
+        storage_total.update(K.block_jacobi_apply.launches_by_storage)
+        return out, counts, seconds
+
+    def torch_space(argv):
+        return batch_solve.run(argv + ["--executor", "torch"]).result
+
+    # CG through the entry point, no preconditioner and Jacobi: one SpMV for the
+    # initial residual and one per sweep, one fused update per sweep
+    cg_want = lambda s: {"spmv_batch_ell": s + 1, "axpy_norm_rows": s}  # noqa: E731
+    for precond in ("none", "jacobi"):
+        argv = BATCH_ARGS + ["--precond", precond]
+        r, counts, seconds = counted(lambda: batch_solve.run(argv))
+        if not r.ok or counts != r.launches:
+            fail(f"batch_solve {argv} failed or miscounted")
+        sweeps, err = _batch_checks(torch, f"cg/{precond}", r.result, r.xstar,
+                                    counts, cg_want, torch_space(argv))
+        M = (tb.batch_jacobi_preconditioner(r.A, executor=r.executor)
+             if precond == "jacobi" else None)
+        chunks = _chunked_equal(torch, r.A, r.B, M, "cg", r.executor, r.stop)
+        say(f"[batch] cg/{precond}: solve {r.seconds:.4f} s for {sweeps} "
+            f"sweeps (whole run {seconds:.4f} s, host build included); "
+            f"{chunks} chunks of 4 sweeps bit for bit equal to the monolithic "
+            "run")
+        summary[f"cg_{precond}"] = {"sweeps": sweeps, "error": err,
+                                    "seconds": r.seconds,
+                                    "run_seconds": seconds}
+    A, B, xstar, ex, stop = r.A, r.B, r.xstar, r.executor, r.stop
+
+    # batch_cg with 8-row block-Jacobi: block_jacobi_apply once per apply
+    def bj_solve(exe):
+        M = tb.batch_block_jacobi_preconditioner(A, 8, executor=exe)
+        return M, tb.batch_cg(A, B, M=M, stop=stop, executor=exe)
+
+    (Mbj, res), counts, seconds = counted(lambda: bj_solve(ex))
+    bj_storage = dict(K.block_jacobi_apply.launches_by_storage)
+    from repro_torch.core import make_executor
+    ex_t = make_executor("torch", device="cuda")
+    res_t = bj_solve(ex_t)[1]
+    sweeps, err = _batch_checks(
+        torch, "cg/block_jacobi", res, xstar, counts,
+        lambda s: {"spmv_batch_ell": s + 1, "axpy_norm_rows": s,
+                   "block_jacobi_apply": s + 1}, res_t)
+    if bj_storage != {"float32": sweeps + 1}:
+        fail(f"block_jacobi_apply by storage {bj_storage}, expected "
+             f"{{'float32': {sweeps + 1}}}")
+    chunks = _chunked_equal(torch, A, B, Mbj, "cg", ex, stop)
+    say(f"[batch] cg/block_jacobi: setup and solve {seconds:.4f} s for "
+        f"{sweeps} sweeps, {Mbj.precision_counts}; {chunks} chunks bit for "
+        "bit equal")
+    summary["cg_block_jacobi"] = {"sweeps": sweeps, "error": err,
+                                  "seconds": seconds}
+
+    # BiCGSTAB through the entry point: two SpMVs per sweep
+    r, counts, seconds = counted(lambda: batch_solve.run(BATCH_BICGSTAB_ARGS))
+    if not r.ok or counts != r.launches:
+        fail("batch_solve (bicgstab) failed or miscounted")
+    sweeps, err = _batch_checks(
+        torch, "bicgstab", r.result, r.xstar, counts,
+        lambda s: {"spmv_batch_ell": 2 * s + 1, "axpy_norm_rows": s},
+        torch_space(BATCH_BICGSTAB_ARGS))
+    A_bi = r.A
+    chunks = _chunked_equal(torch, r.A, r.B, None, "bicgstab", r.executor,
+                            r.stop)
+    say(f"[batch] bicgstab: solve {r.seconds:.4f} s for {sweeps} sweeps; "
+        f"{chunks} chunks bit for bit equal")
+    summary["bicgstab"] = {"sweeps": sweeps, "error": err, "seconds": r.seconds}
+    summary["profile"] = phase_batch_profile(torch, A, B, stop, ex)
+
+    # the kernels at this path's shapes
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    nb, m, k = A.values.shape
+    n = A.shape[1]
+    X = torch.randn(nb, n, generator=gen, device="cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    row = functools.partial(kernel_row, torch, flush, copy_bw)
+    rows = {"spmv_batch_ell": row(
+        "spmv_batch_ell", "spmv_batch_ell.cu",
+        "src/repro/kernels/spmv_batch_ell/kernel.py:51",
+        **held_batch_ell(torch, ex, A, X))}
+    rows["spmv_batch_ell"]["shape"] = {"nb": nb, "m": m, "k": k}
+    # and at the BiCGSTAB run's operator, whose k = n rows take a wider
+    # subgroup than the tridiagonal systems' one thread per row
+    X_bi = torch.randn(A_bi.values.shape[0], A_bi.shape[1], generator=gen,
+                       device="cuda")
+    at_bi = row("spmv_batch_ell", "spmv_batch_ell.cu",
+                "src/repro/kernels/spmv_batch_ell/kernel.py:51",
+                **held_batch_ell(torch, ex, A_bi, X_bi, " (bicgstab)"))
+    at_bi["shape"] = dict(zip(("nb", "m", "k"), A_bi.values.shape))
+    rows["spmv_batch_ell"]["at_bicgstab_shape"] = at_bi
+    rows["spmv_batch_ell"]["max_abs_err"] = max(
+        rows["spmv_batch_ell"]["max_abs_err"], at_bi["max_abs_err"])
+
+    # row-batched axpy_norm at the CG runs' (nb, n), where each row is one
+    # block, and at (256, 1024), where each row is cut into pieces whose
+    # partials a second launch adds
+    rows["axpy_norm_rows"] = row(
+        "axpy_norm_rows", "axpy_norm.cu",
+        "src/repro/kernels/axpy_norm/kernel.py:39",
+        **held_axpy_norm_rows(torch, ex, X, B, gen))
+    rows["axpy_norm_rows"]["shape"] = {"nb": nb, "n": n}
+    cfg = ex.launch_config("axpy_norm_rows", {"nb": 256, "n": 1024, "itemsize": 4})
+    if rows_chunks(256, 1024, cfg["block_threads"], cfg["grid_blocks"]) < 2:
+        fail("axpy_norm_rows keeps 256 x 1024 rows whole: its piece sum is "
+             "not held")
+    Xs = torch.randn(256, 1024, generator=gen, device="cuda")
+    Ys = torch.randn(256, 1024, generator=gen, device="cuda")
+    at_pieces = row("axpy_norm_rows", "axpy_norm.cu",
+                    "src/repro/kernels/axpy_norm/kernel.py:39",
+                    **held_axpy_norm_rows(torch, ex, Xs, Ys, gen, " (pieces)"))
+    at_pieces["shape"] = {"nb": 256, "n": 1024}
+    rows["axpy_norm_rows"]["at_row_pieces_shape"] = at_pieces
+    rows["axpy_norm_rows"]["max_abs_err"] = max(
+        rows["axpy_norm_rows"]["max_abs_err"], at_pieces["max_abs_err"])
+    say("[kernels] axpy_norm_rows library_ms: null — no single PyTorch call "
+        "writes Z = alpha X + Y and each row's Z.Z (a norm call needs Z first)")
+
+    # block_jacobi_apply at the block-Jacobi run's blocks (f32, 8 x 8)
+    inv = Mbj.inv_blocks[0]
+    vp = torch.randn(inv.shape[0], inv.shape[1], generator=gen, device="cuda")
+    held = {"block_jacobi_apply": [row(
+        "block_jacobi_apply", "block_jacobi.cu",
+        "src/repro/kernels/block_jacobi/kernel.py:36",
+        **held_block_jacobi(torch, ex, inv, vp, " (batch path)"))]}
+    held["block_jacobi_apply"][-1]["storage"] = \
+        str(inv.dtype).removeprefix("torch.")
+    return dict(launches_total), dict(storage_total), summary, rows, held
+
+
+def phase_batch_profile(torch, A, B, stop, ex) -> dict:
+    """Device time by kernel over one batched CG solve (torch.profiler) and
+    the device's busy share of its wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import batch as tb
+
+    tb.batch_cg(A, B, stop=stop, executor=ex)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = tb.batch_cg(A, B, stop=stop, executor=ex)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    sweeps = int(res.iterations.max())
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    say(f"[profile batch] batched CG, {sweeps} sweeps: wall {wall_us:.0f} us, "
+        f"device busy {busy:.0f} us ({busy / wall_us:.1%}); per sweep "
+        f"{wall_us / sweeps:.1f} us wall, {busy / sweeps:.1f} us device")
+    for dev, count, key in rows[:12]:
+        say(f"[profile batch]   {dev / sweeps:9.2f} us/sweep  {count:6d} calls  "
+            f"{key[:90]}")
+    return {"sweeps": sweeps, "wall_us": wall_us, "device_busy_us": busy,
+            "top": [{"name": key[:120], "calls": count, "us": dev}
+                    for dev, count, key in rows[:12]]}
+
+
 def phase_small_reference(torch) -> None:
     """A small solve in the cuda space against the port's reference space on
     the CPU: iterations within 1, solutions within 1e-4 (relative)."""
@@ -848,34 +1354,49 @@ def main() -> None:
     launches, by_storage, path = phase_path(torch, A, b)
     phase_small_reference(torch)
     del A, b
-    amg_launches, amg_storage, path["amg"], amg_rows, held = phase_amg(
+    amg_launches, amg_storage, path["amg"], amg_rows, held_amg = phase_amg(
         torch, copy_bw)
     rows.update(amg_rows)
+    sellp_launches, path["sellp"], sellp_rows = phase_sellp(torch, copy_bw)
+    rows.update(sellp_rows)
+    batch_launches, batch_storage, path["batch"], batch_rows, held_batch = \
+        phase_batch(torch, copy_bw)
+    rows.update(batch_rows)
 
-    # a kernel also held at the AMG path's shapes: that row, and the larger
-    # error of the two (for block_jacobi_apply, in the variant of its storage)
-    for name, extra in held.items():
-        for e in extra:
-            targets = [v for v in rows[name].get("storage_variants", ())
-                       if v["storage"] == e.get("storage")] or [rows[name]]
-            for t in targets:
-                t["at_amg_path_shape"] = e
-                t["max_abs_err"] = max(t["max_abs_err"], e["max_abs_err"])
-        variants = rows[name].get("storage_variants")
+    # a kernel also held at a later path's shapes: that row, and the larger
+    # error (for block_jacobi_apply, in the variant of its storage)
+    for key, held in (("at_amg_path_shape", held_amg),
+                      ("at_batch_path_shape", held_batch)):
+        for name, extra in held.items():
+            for e in extra:
+                targets = [v for v in rows[name].get("storage_variants", ())
+                           if v["storage"] == e.get("storage")] or [rows[name]]
+                for t in targets:
+                    t[key] = e
+                    t["max_abs_err"] = max(t["max_abs_err"], e["max_abs_err"])
+    for entry in rows.values():
+        variants = entry.get("storage_variants")
         if variants:
-            rows[name]["max_abs_err"] = max(v["max_abs_err"] for v in variants)
+            entry["max_abs_err"] = max(v["max_abs_err"] for v in variants)
 
-    # launches: the sum over the two paths' counted runs, and each path's;
+    # launches: the sum over the four paths' counted runs, and each path's;
     # block_jacobi_apply's storage variants likewise, per storage dtype
     for name, entry in rows.items():
         entry["launches_by_path"] = {"block_jacobi_cg": launches.get(name, 0),
-                                     "amg_check": amg_launches[name]}
+                                     "amg_check": amg_launches[name],
+                                     "sellp_cg": sellp_launches[name],
+                                     "batch_solve": batch_launches[name]}
         entry["launches"] = sum(entry["launches_by_path"].values())
         for var in entry.get("storage_variants", ()):
             var["launches_by_path"] = {
                 "block_jacobi_cg": by_storage.get(var["storage"], 0),
-                "amg_check": amg_storage.get(var["storage"], 0)}
+                "amg_check": amg_storage.get(var["storage"], 0),
+                "sellp_cg": 0,
+                "batch_solve": batch_storage.get(var["storage"], 0)}
             var["launches"] = sum(var["launches_by_path"].values())
+    for name, entry in rows.items():
+        if entry["launches"] <= 0:
+            fail(f"kernel {name} was launched on none of the paths")
     say(json.dumps({"card": card, "build_s": build_s,
                     "copy_gbs": copy_bw / 1e9, "path": path,
                     "total_s": time.perf_counter() - t_start}))

@@ -1,8 +1,9 @@
 """Carry the JAX package's state across: numpy arrays in, the port's objects out.
 
 Each function takes plain numpy arrays — what ``np.asarray`` gives from a JAX
-``Csr``/``Ell``/``BlockJacobi``/``Multigrid`` field — and builds the port's
-object on ``device`` (the card unless ``device="cpu"`` is asked for).
+``Coo``/``Csr``/``Ell``/``Sellp``/``BatchCsr``/``BatchEll``/``BlockJacobi``/
+``BatchBlockJacobi``/``Multigrid`` field — and builds the port's object on
+``device`` (the card unless ``device="cpu"`` is asked for).
 Nothing here imports JAX.
 
 A JAX bfloat16 array arrives as an ``ml_dtypes`` numpy array, which
@@ -19,11 +20,13 @@ from typing import Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.batch.formats import BatchCsr, BatchEll
 from repro_torch.precond.amg import AmgLevel, Multigrid
-from repro_torch.precond.block_jacobi import BlockJacobi
-from repro_torch.sparse.formats import Csr, Ell, _device, host_array
+from repro_torch.precond.block_jacobi import BatchBlockJacobi, BlockJacobi
+from repro_torch.sparse.formats import Coo, Csr, Ell, Sellp, _device, host_array
 
-__all__ = ["tensor", "csr", "ell", "block_jacobi", "multigrid", "host_array"]
+__all__ = ["tensor", "coo", "csr", "ell", "sellp", "batch_csr", "batch_ell",
+           "block_jacobi", "batch_block_jacobi", "multigrid", "host_array"]
 
 
 def tensor(a, *, device=None, dtype=None) -> torch.Tensor:
@@ -53,6 +56,64 @@ def ell(col_idx, values, shape: Tuple[int, int], *, device=None) -> Ell:
         col_idx=tensor(col_idx, device=device, dtype=torch.int32),
         values=tensor(values, device=device),
         shape=tuple(int(s) for s in shape),
+    )
+
+
+def coo(row_idx, col_idx, values, shape: Tuple[int, int], *, device=None) -> Coo:
+    return Coo(
+        row_idx=tensor(row_idx, device=device, dtype=torch.int32),
+        col_idx=tensor(col_idx, device=device, dtype=torch.int32),
+        values=tensor(values, device=device),
+        shape=tuple(int(s) for s in shape),
+    )
+
+
+def sellp(col_idx, values, slice_sets, slice_cols, shape: Tuple[int, int],
+          slice_size: int, stride_factor: int, max_slice_cols: int, *,
+          device=None) -> Sellp:
+    return Sellp(
+        col_idx=tensor(col_idx, device=device, dtype=torch.int32),
+        values=tensor(values, device=device),
+        slice_sets=tensor(slice_sets, device=device, dtype=torch.int32),
+        slice_cols=tensor(slice_cols, device=device, dtype=torch.int32),
+        shape=tuple(int(s) for s in shape),
+        slice_size=int(slice_size),
+        stride_factor=int(stride_factor),
+        max_slice_cols=int(max_slice_cols),
+    )
+
+
+def batch_csr(indptr, indices, values, shape: Tuple[int, int], *,
+              device=None) -> BatchCsr:
+    return BatchCsr(
+        indptr=tensor(indptr, device=device, dtype=torch.int32),
+        indices=tensor(indices, device=device, dtype=torch.int32),
+        values=tensor(values, device=device),
+        shape=tuple(int(s) for s in shape),
+    )
+
+
+def batch_ell(col_idx, values, shape: Tuple[int, int], *, device=None) -> BatchEll:
+    return BatchEll(
+        col_idx=tensor(col_idx, device=device, dtype=torch.int32),
+        values=tensor(values, device=device),
+        shape=tuple(int(s) for s in shape),
+    )
+
+
+def batch_block_jacobi(inv_blocks: Sequence, perm, inv_perm, gather_idx, n: int,
+                       num_blocks: int, block_size: int, *, device=None,
+                       executor=None) -> BatchBlockJacobi:
+    """A :class:`BatchBlockJacobi` from the JAX package's generated arrays."""
+    return BatchBlockJacobi(
+        inv_blocks=tuple(tensor(t, device=device) for t in inv_blocks),
+        perm=tensor(perm, device=device, dtype=torch.int64),
+        inv_perm=tensor(inv_perm, device=device, dtype=torch.int64),
+        gather_idx=tensor(gather_idx, device=device, dtype=torch.int64),
+        n=int(n),
+        num_blocks=int(num_blocks),
+        block_size=int(block_size),
+        executor=executor,
     )
 
 

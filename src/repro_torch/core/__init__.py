@@ -20,6 +20,7 @@ from repro_torch.core.linop import (
     MatrixFreeOp,
     ScaledIdentity,
     Sum,
+    Transpose,
     as_linop,
 )
 from repro_torch.core.params import H100, HardwareParams, TARGETS, get_target
@@ -43,6 +44,7 @@ __all__ = [
     "MatrixFreeOp",
     "ScaledIdentity",
     "Sum",
+    "Transpose",
     "as_linop",
     "H100",
     "HardwareParams",

@@ -23,6 +23,7 @@ __all__ = [
     "ScaledIdentity",
     "MatrixFreeOp",
     "Identity",
+    "Transpose",
     "as_linop",
 ]
 
@@ -183,6 +184,56 @@ class Identity(LinOp):
 
     def _apply(self, b, executor):
         return b
+
+
+class Transpose(LinOp):
+    """Lazy transpose of an operator whose concrete type supports it.
+
+    The wrapped operator must expose ``transpose()`` (every sparse format
+    does, at setup time on the host); compositions and sums distribute over
+    their operands.  Operators without a transpose (matrix-free, solvers)
+    raise ``NotImplementedError`` — Ginkgo's ``Transposable`` contract.
+    With no ``executor=`` the wrap inherits the wrapped operator's, so the
+    forward and transposed applies dispatch in the same kernel space.
+    """
+
+    def __init__(self, op, executor=None):
+        self.op = op
+        self.executor = (
+            executor if executor is not None else getattr(op, "executor", None)
+        )
+        self._t = _transpose(op)
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        m, n = self.op.shape
+        return (n, m)
+
+    @property
+    def dtype(self):
+        return getattr(self.op, "dtype", None)
+
+    def _apply(self, b, executor):
+        return _child_apply(self._t, b, executor)
+
+
+def _transpose(op):
+    if isinstance(op, Transpose):
+        return op.op
+    if isinstance(op, (ScaledIdentity, Identity)):
+        return op
+    if isinstance(op, Composition):
+        return Composition(
+            *[Transpose(o) for o in reversed(op.ops)], executor=op.executor
+        )
+    if isinstance(op, Sum):
+        return Sum(*[Transpose(o) for o in op.ops], executor=op.executor)
+    t = getattr(op, "transpose", None)
+    if callable(t):
+        return t()
+    raise NotImplementedError(
+        f"{type(op).__name__} is not transposable (no transpose() support)"
+    )
 
 
 class MatrixFreeOp(LinOp):

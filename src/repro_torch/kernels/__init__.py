@@ -11,7 +11,11 @@ first use); one directory per kernel family holds
 Importing this package registers the ``cuda`` implementations.
 """
 
-from repro_torch.kernels.axpy_norm.kernel import axpy_norm, axpy_norm_plain
+from repro_torch.kernels.axpy_norm.kernel import (
+    axpy_norm,
+    axpy_norm_plain,
+    axpy_norm_rows,
+)
 from repro_torch.kernels.block_jacobi.kernel import (
     block_jacobi_apply,
     block_jacobi_apply_plain,
@@ -23,23 +27,34 @@ from repro_torch.kernels.spgemm.kernel import (
     spgemm_expand_plain,
 )
 from repro_torch.kernels.spmv_dot.kernel import spmv_dot_ell, spmv_dot_ell_plain
+from repro_torch.kernels.spmv_batch_ell.kernel import (
+    spmv_batch_ell,
+    spmv_batch_ell_plain,
+)
 from repro_torch.kernels.spmv_ell.kernel import spmv_ell, spmv_ell_plain
+from repro_torch.kernels.spmv_sellp.kernel import spmv_sellp, spmv_sellp_plain
 
 import repro_torch.kernels.axpy_norm.ops  # noqa: E402,F401
 import repro_torch.kernels.block_jacobi.ops  # noqa: E402,F401
 import repro_torch.kernels.spgemm.ops  # noqa: E402,F401
 import repro_torch.kernels.spmv_dot.ops  # noqa: E402,F401
+import repro_torch.kernels.spmv_batch_ell.ops  # noqa: E402,F401
 import repro_torch.kernels.spmv_ell.ops  # noqa: E402,F401
+import repro_torch.kernels.spmv_sellp.ops  # noqa: E402,F401
 
 #: kernel name -> wrapper; each wrapper counts its launches in ``.launches``
 KERNELS = {
     "spmv_ell": spmv_ell,
     "spmv_dot_ell": spmv_dot_ell,
     "axpy_norm": axpy_norm,
+    "axpy_norm_rows": axpy_norm_rows,
     "block_jacobi_apply": block_jacobi_apply,
     "spgemm_expand": spgemm_expand,
     "csr_permute": csr_permute,
+    "spmv_sellp": spmv_sellp,
+    "spmv_batch_ell": spmv_batch_ell,
 }
+
 
 def launch_counts() -> dict:
     """Kernel launches counted by each wrapper since the last reset."""
@@ -58,14 +73,19 @@ __all__ = [
     "reset_launch_counts",
     "axpy_norm",
     "axpy_norm_plain",
+    "axpy_norm_rows",
     "block_jacobi_apply",
     "block_jacobi_apply_plain",
     "csr_permute",
     "csr_permute_plain",
     "spgemm_expand",
     "spgemm_expand_plain",
+    "spmv_batch_ell",
+    "spmv_batch_ell_plain",
     "spmv_dot_ell",
     "spmv_dot_ell_plain",
     "spmv_ell",
     "spmv_ell_plain",
+    "spmv_sellp",
+    "spmv_sellp_plain",
 ]

@@ -5,15 +5,17 @@ thing in both:
 
 * ``cap = capacity(history, stop)`` maps ``history=`` (``None``/``False`` -> 0,
   ``True`` -> ``stop.max_iters``, ``int`` -> that many slots) to a size;
-* ``hist = init(cap, ...)`` is a NaN-filled ``(cap,)`` tensor;
-* ``push(hist, k, rnorm)`` writes slot ``k % cap`` in place (no host read:
-  ``k`` is a Python int and ``rnorm`` stays on the device); a no-op at cap 0;
+* ``hist = init(cap, ...)`` is a NaN-filled ``(cap,)`` tensor, ``(cap, nb)``
+  with ``batch=nb`` for the batched solvers (one row per iteration);
+* ``push(hist, k, rnorm)`` writes slot (row) ``k % cap`` in place (no host
+  read: ``k`` is a Python int and ``rnorm`` stays on the device); a no-op at
+  cap 0;
 * ``finalize(hist)`` maps the size-0 buffer to ``None``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,9 +35,11 @@ def capacity(history, stop) -> int:
     return cap
 
 
-def init(cap: int, *, dtype=torch.float32, device=None) -> torch.Tensor:
-    """NaN-filled ``(cap,)`` ring buffer."""
-    return torch.full((cap,), float("nan"), dtype=dtype, device=device)
+def init(cap: int, *, batch: Optional[int] = None, dtype=torch.float32,
+         device=None) -> torch.Tensor:
+    """NaN-filled ring buffer: ``(cap,)``, or ``(cap, batch)``."""
+    shape: Tuple[int, ...] = (cap,) if batch is None else (cap, batch)
+    return torch.full(shape, float("nan"), dtype=dtype, device=device)
 
 
 def push(hist: torch.Tensor, k: int, value) -> torch.Tensor:
@@ -60,4 +64,4 @@ def trim(history, iterations: Optional[int] = None):
     h = history.detach().cpu().numpy()
     if iterations is not None:
         return h[: min(int(iterations), h.shape[0])]
-    return h[~np.isnan(h)]
+    return h[~np.isnan(h if h.ndim == 1 else h[:, 0])]

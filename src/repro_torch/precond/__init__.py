@@ -6,7 +6,14 @@ from __future__ import annotations
 
 from repro_torch.precond.block_jacobi import (
     ADAPTIVE_TAU,
+    BatchBlockJacobi,
+    BatchBlockJacobiPattern,
     BlockJacobi,
+    batch_block_jacobi,
+    batch_block_jacobi_blocks,
+    batch_block_jacobi_factors,
+    batch_block_jacobi_from_factors,
+    batch_block_jacobi_pattern,
     block_jacobi,
     extract_blocks,
     invert_blocks,
@@ -18,7 +25,14 @@ from repro_torch.precond.block_jacobi import (
 
 __all__ = [
     "ADAPTIVE_TAU",
+    "BatchBlockJacobi",
+    "BatchBlockJacobiPattern",
     "BlockJacobi",
+    "batch_block_jacobi",
+    "batch_block_jacobi_blocks",
+    "batch_block_jacobi_factors",
+    "batch_block_jacobi_from_factors",
+    "batch_block_jacobi_pattern",
     "block_jacobi",
     "extract_blocks",
     "invert_blocks",

@@ -17,6 +17,11 @@ entries to fit its range, bf16 is the wide-range fallback, else the block
 stays in the working precision.  Blocks are grouped into one stacked tensor
 per storage class and up-cast inside the apply kernel, so reduced precision
 shrinks storage and bandwidth, never the arithmetic.
+
+The batched variant (:class:`BatchBlockJacobi`, gko::batch::preconditioner::
+Jacobi with bs > 1) builds one slot table from the batch's shared pattern,
+gathers every system's blocks through it, inverts them all in one batch and
+applies them through the same ``block_jacobi_apply`` operation.
 """
 
 from __future__ import annotations
@@ -27,14 +32,22 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.batch.linop import BatchLinOp
 from repro_torch.core import registry
 from repro_torch.core.linop import LinOp
-from repro_torch.sparse.formats import csr_host_arrays
+from repro_torch.sparse.formats import csr_host_arrays, host_array
 
 __all__ = [
     "ADAPTIVE_TAU",
     "BlockJacobi",
+    "BatchBlockJacobi",
+    "BatchBlockJacobiPattern",
     "block_jacobi",
+    "batch_block_jacobi",
+    "batch_block_jacobi_pattern",
+    "batch_block_jacobi_blocks",
+    "batch_block_jacobi_factors",
+    "batch_block_jacobi_from_factors",
     "extract_blocks",
     "invert_blocks",
     "natural_blocks",
@@ -228,6 +241,18 @@ def _dtype_name(t: torch.Tensor) -> str:
 # =============================================================================
 
 
+def _apply_classes(inv_blocks, flat: torch.Tensor, executor) -> torch.Tensor:
+    """``block_jacobi_apply`` on consecutive class slices of ``flat``."""
+    outs = []
+    off = 0
+    for t in inv_blocks:
+        nbc = t.shape[0]
+        outs.append(block_jacobi_apply_op(t, flat[off:off + nbc],
+                                          executor=executor))
+        off += nbc
+    return torch.cat(outs)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class BlockJacobi(LinOp):
     """Generated block-Jacobi preconditioner: ``M^{-1} v`` via inverted blocks.
@@ -266,14 +291,8 @@ class BlockJacobi(LinOp):
         if not self.inv_blocks:  # degenerate 0-row system
             return v
         vp = torch.cat([v, v.new_zeros(1)])[self.gather_idx]  # (nb, bs)
-        outs = []
-        off = 0
-        for t in self.inv_blocks:
-            nbc = t.shape[0]
-            outs.append(block_jacobi_apply_op(t, vp[off:off + nbc],
-                                              executor=executor))
-            off += nbc
-        return torch.cat(outs).reshape(-1)[self.scatter_idx]
+        y = _apply_classes(self.inv_blocks, vp, executor)
+        return y.reshape(-1)[self.scatter_idx]
 
 
 def block_jacobi(
@@ -345,5 +364,226 @@ def block_jacobi(
         n=n,
         block_size=bs,
         num_blocks=nb,
+        executor=executor,
+    )
+
+
+# =============================================================================
+# Batched variant — gko::batch::preconditioner::Jacobi with bs > 1
+# =============================================================================
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BatchBlockJacobi(BatchLinOp):
+    """Per-system block-Jacobi over a shared-pattern batch — a BatchLinOp.
+
+    The blocks of all systems form one class-ordered stack (each storage
+    class's sub-batch spans the whole batch), so the apply is the same
+    ``block_jacobi_apply`` as the single-system path: one launch per class.
+    """
+
+    inv_blocks: Tuple[torch.Tensor, ...]  # per class, (count, bs, bs)
+    perm: torch.Tensor  # (ns*nblocks,) int64: class order -> (system, block)
+    inv_perm: torch.Tensor  # its inverse
+    gather_idx: torch.Tensor  # (nblocks, bs) int64 into a padded system row
+    n: int
+    num_blocks: int  # per system
+    block_size: int
+    executor: Optional[object] = None
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.n, self.n)
+
+    @property
+    def num_batch(self) -> int:
+        return self.perm.shape[0] // max(self.num_blocks, 1)
+
+    @property
+    def dtype(self):
+        return self.inv_blocks[0].dtype if self.inv_blocks else None
+
+    @property
+    def storage_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.inv_blocks)
+
+    @property
+    def precision_counts(self) -> Tuple[Tuple[str, int], ...]:
+        return tuple((_dtype_name(t), int(t.shape[0])) for t in self.inv_blocks)
+
+    def _apply(self, V: torch.Tensor, executor) -> torch.Tensor:
+        ns = V.shape[0]
+        vp = torch.cat([V, V.new_zeros(ns, 1)], dim=1)[:, self.gather_idx]
+        flat = vp.reshape(ns * self.num_blocks, self.block_size)[self.perm]
+        y = _apply_classes(self.inv_blocks, flat, executor)[self.inv_perm]
+        return y.reshape(ns, self.num_blocks * self.block_size)[:, :self.n]
+
+
+def _batch_slot_table(A, block_ptrs: np.ndarray, bs: int) -> np.ndarray:
+    """``(nblocks, bs, bs)`` table of flat value slots, +1 (0: structurally
+    absent), built once from the shared pattern.  An ELL padding slot
+    (column 0 past the row's first slot) never claims a table entry."""
+    from repro_torch.batch.formats import BatchCsr, BatchEll
+
+    nb = len(block_ptrs) - 1
+    table = np.zeros((nb, bs, bs), np.int64)
+    if isinstance(A, BatchCsr):
+        indptr = host_array(A.indptr).astype(np.int64)
+        cols = host_array(A.indices).astype(np.int64)
+        rows = _entry_rows(indptr)
+        slots = np.arange(1, rows.size + 1, dtype=np.int64)
+    elif isinstance(A, BatchEll):
+        c = host_array(A.col_idx).astype(np.int64)
+        m, k = c.shape
+        rows = np.repeat(np.arange(m, dtype=np.int64), k)
+        q = np.tile(np.arange(k, dtype=np.int64), m)
+        cols = c.reshape(-1)
+        slots = rows * k + q + 1
+        real = (cols != 0) | (q == 0)
+        rows, cols, slots = rows[real], cols[real], slots[real]
+    else:
+        raise TypeError(f"unknown batched format {type(A)}")
+    blk = np.searchsorted(block_ptrs, rows, side="right") - 1
+    lo, hi = block_ptrs[blk], block_ptrs[blk + 1]
+    inb = (cols >= lo) & (cols < hi)
+    table[blk[inb], (rows - lo)[inb], (cols - lo)[inb]] = slots[inb]
+    return table
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BatchBlockJacobiPattern:
+    """The values-independent half of batched block-Jacobi generation, built
+    once per sparsity pattern."""
+
+    block_ptrs: np.ndarray  # (nblocks+1,) host
+    sizes: np.ndarray  # (nblocks,) true block sizes
+    slot_table: torch.Tensor  # (nblocks, bs, bs) int64 value slots (+1)
+    pad_add: torch.Tensor  # (nblocks, bs, bs) f32 identity on the padding
+    gather_idx: torch.Tensor  # (nblocks, bs) int64 into a padded system row
+    n: int
+    num_blocks: int
+    block_size: int
+
+
+def batch_block_jacobi_pattern(A, block_size: Optional[int] = None, *,
+                               executor=None) -> BatchBlockJacobiPattern:
+    """Pattern tier: uniform blocks, the slot table, the gather map — on A's
+    device, no value read."""
+    n = A.shape[0]
+    if block_size is None:
+        from repro_torch.core.executor import current_executor
+
+        ex = executor if executor is not None else current_executor()
+        block_size = ex.hw.subgroup_size
+    block_ptrs = uniform_block_ptrs(n, block_size)
+    sizes = np.diff(block_ptrs)
+    nb = len(sizes)
+    bs = int(sizes.max()) if nb else 1
+    dev = A.values.device
+    table = _batch_slot_table(A, block_ptrs, bs)
+    local = np.arange(bs)
+    pad = (local[None, :] >= sizes[:, None]).astype(np.float32)  # (nb, bs)
+    pad_add = pad[:, :, None] * np.eye(bs, dtype=np.float32)
+    rows = block_ptrs[:-1, None] + local[None, :]
+    gather = np.where(local[None, :] < sizes[:, None], rows, n)
+    return BatchBlockJacobiPattern(
+        block_ptrs=block_ptrs,
+        sizes=sizes,
+        slot_table=torch.as_tensor(table, device=dev),
+        pad_add=torch.as_tensor(pad_add, device=dev),
+        gather_idx=torch.as_tensor(gather.astype(np.int64), device=dev),
+        n=n,
+        num_blocks=nb,
+        block_size=bs,
+    )
+
+
+def batch_block_jacobi_blocks(values: torch.Tensor,
+                              pattern: BatchBlockJacobiPattern) -> torch.Tensor:
+    """Per-system diagonal blocks ``(ns*nblocks, bs, bs)`` gathered from an
+    ``(ns, ...)`` value tensor through the pattern's slot table.
+
+    A block row that gathered only zeros (a structurally empty row, or a
+    system whose stored entries there are zero) gets a 1 on the diagonal, the
+    single-system extraction's rule; the check looks at the gathered values,
+    since an ELL padding slot at the row's first position looks like a real
+    column-0 entry.
+    """
+    ns = values.shape[0]
+    nb, bs = pattern.num_blocks, pattern.block_size
+    flat = values.reshape(ns, -1)
+    padded = torch.cat([flat.new_zeros(ns, 1), flat], dim=1)
+    blocks = padded[:, pattern.slot_table.reshape(-1)].reshape(ns, nb, bs, bs)
+    blocks = blocks + pattern.pad_add.to(blocks.dtype)[None]
+    row_zero = (blocks == 0).all(dim=3)  # (ns, nb, bs)
+    eye = torch.eye(bs, dtype=blocks.dtype, device=blocks.device)
+    blocks = blocks + row_zero[..., None] * eye
+    return blocks.reshape(ns * nb, bs, bs)
+
+
+def batch_block_jacobi_factors(values: torch.Tensor,
+                               pattern: BatchBlockJacobiPattern) -> torch.Tensor:
+    """Values tier: gather the blocks and invert them in one batch."""
+    return invert_blocks(batch_block_jacobi_blocks(values, pattern))
+
+
+def batch_block_jacobi_from_factors(inv: torch.Tensor, ns: int,
+                                    pattern: BatchBlockJacobiPattern, *,
+                                    executor=None) -> BatchBlockJacobi:
+    """The BatchLinOp over precomputed inverted blocks: one storage class,
+    the identity permutation (what :func:`batch_block_jacobi` builds with
+    ``adaptive=False``)."""
+    ar = torch.arange(ns * pattern.num_blocks, device=inv.device)
+    return BatchBlockJacobi(
+        inv_blocks=(inv,),
+        perm=ar,
+        inv_perm=ar,
+        gather_idx=pattern.gather_idx,
+        n=pattern.n,
+        num_blocks=pattern.num_blocks,
+        block_size=pattern.block_size,
+        executor=executor,
+    )
+
+
+def batch_block_jacobi(
+    A,
+    block_size: Optional[int] = None,
+    *,
+    adaptive: Union[bool, str, torch.dtype] = False,
+    tau: float = ADAPTIVE_TAU,
+    executor=None,
+) -> BatchBlockJacobi:
+    """Per-system block-Jacobi for a shared-pattern batched matrix: the
+    pattern tier, then the values tier; ``adaptive`` as in
+    :func:`block_jacobi`, per (system, block)."""
+    ns = A.num_batch
+    pattern = batch_block_jacobi_pattern(A, block_size, executor=executor)
+    flat_blocks = batch_block_jacobi_blocks(A.values.reshape(ns, -1), pattern)
+    inv = invert_blocks(flat_blocks)
+    if adaptive is False or adaptive is None:
+        return batch_block_jacobi_from_factors(inv, ns, pattern,
+                                               executor=executor)
+    inv_np = inv.cpu().numpy()
+    class_id = _class_ids(adaptive, flat_blocks.cpu().numpy(), inv_np,
+                          np.tile(pattern.sizes, ns), tau, inv.dtype)
+    order = np.argsort(class_id, kind="stable")
+    inv_perm = np.empty_like(order)
+    inv_perm[order] = np.arange(len(order))
+    dev = inv.device
+    tensors = []
+    sorted_ids = class_id[order]
+    for cid, dtype in enumerate(_storage_classes(inv.dtype)):
+        members = order[sorted_ids == cid]
+        if len(members):
+            tensors.append(inv[torch.as_tensor(members, device=dev)].to(dtype))
+    return BatchBlockJacobi(
+        inv_blocks=tuple(tensors),
+        perm=torch.as_tensor(order.astype(np.int64), device=dev),
+        inv_perm=torch.as_tensor(inv_perm.astype(np.int64), device=dev),
+        gather_idx=pattern.gather_idx,
+        n=pattern.n,
+        num_blocks=pattern.num_blocks,
+        block_size=pattern.block_size,
         executor=executor,
     )

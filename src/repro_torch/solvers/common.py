@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.core import registry
 from repro_torch.core.linop import Identity, LinOp
-from repro_torch.sparse.formats import Csr, Dense, Ell, csr_host_arrays
+from repro_torch.sparse.formats import Coo, Csr, Dense, Ell, Sellp, csr_host_arrays
 
 __all__ = [
     "SolveResult",
@@ -68,6 +68,14 @@ class Stop:
 extract_diag_op = registry.operation("extract_diagonal")
 
 
+def _diag_of_entries(A, rows, cols, n: int) -> torch.Tensor:
+    """Sum of the entries with row == col < n, by row (COO, CSR, SELL-P)."""
+    hit = (rows == cols) & (rows < n)
+    return torch.zeros(n, dtype=A.values.dtype, device=A.values.device
+                       ).index_add_(0, torch.where(hit, rows, 0),
+                                    torch.where(hit, A.values, 0.0))
+
+
 @extract_diag_op.register("reference")
 def _extract_diag(ex, A):
     if isinstance(A, Dense):
@@ -77,10 +85,14 @@ def _extract_diag(ex, A):
         counts = (A.indptr[1:] - A.indptr[:-1]).long()
         rows = torch.repeat_interleave(
             torch.arange(A.shape[0], device=A.values.device), counts)
-        hit = (rows == A.indices) & (rows < n)
-        return torch.zeros(n, dtype=A.values.dtype, device=A.values.device
-                           ).index_add_(0, torch.where(hit, rows, 0),
-                                        torch.where(hit, A.values, 0.0))
+        return _diag_of_entries(A, rows, A.indices, n)
+    if isinstance(A, Coo):
+        return _diag_of_entries(A, A.row_idx.long(), A.col_idx, n)
+    if isinstance(A, Sellp):
+        # read from the slice layout (the JAX package densifies, n² entries)
+        from repro_torch.sparse.ops import sellp_rows
+
+        return _diag_of_entries(A, sellp_rows(A), A.col_idx, n)
     if isinstance(A, Ell):
         m = A.values.shape[0]
         rows = torch.arange(m, device=A.values.device)[:, None]

@@ -13,7 +13,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["HostCsr", "anisotropic_2d", "poisson_2d", "poisson_3d", "spd_banded"]
+__all__ = ["HostCsr", "anisotropic_2d", "poisson_2d", "poisson_3d",
+           "power_law_laplacian", "spd_banded"]
 
 #: (indptr, indices, values, shape) — the host-side CSR quadruple
 HostCsr = Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]
@@ -101,6 +102,50 @@ def anisotropic_2d(n_side: int, epsilon: float = 0.01) -> HostCsr:
     return _coo_to_csr(
         np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
     )
+
+
+def power_law_laplacian(
+    n: int,
+    *,
+    exponent: float = 2.5,
+    min_degree: int = 2,
+    shift: float = 1e-2,
+    seed: int = 0,
+) -> HostCsr:
+    """Shifted graph Laplacian ``L + shift·I`` of a seeded power-law graph.
+
+    Degrees come from a Pareto tail with index ``exponent - 1`` and are wired
+    by a configuration model (stub pairing; self-loops and duplicate edges
+    dropped), so row lengths are wildly irregular: a few hub rows with O(√n)
+    entries beside degree-2 leaves.  ``L = D - A`` is positive semi-definite;
+    the shift makes it SPD.  Deterministic for a given ``seed``.
+    """
+    if n < 2:
+        raise ValueError(f"need at least 2 vertices, got {n}")
+    rng = np.random.default_rng(seed)
+    deg = min_degree + np.floor(rng.pareto(exponent - 1.0, size=n)).astype(
+        np.int64
+    )
+    deg = np.minimum(deg, n - 1)
+    stubs = np.repeat(np.arange(n, dtype=np.int64), deg)
+    if stubs.size % 2:
+        stubs = stubs[:-1]
+    rng.shuffle(stubs)
+    u, v = stubs[0::2], stubs[1::2]
+    keep = u != v  # drop self-loops
+    u, v = u[keep], v[keep]
+    # canonical (lo, hi) pairs, parallel edges of the pairing merged
+    lo, hi = np.minimum(u, v), np.maximum(u, v)
+    edges = np.unique(lo * n + hi)
+    lo, hi = edges // n, edges % n
+    rows = np.concatenate([lo, hi, np.arange(n, dtype=np.int64)])
+    cols = np.concatenate([hi, lo, np.arange(n, dtype=np.int64)])
+    final_deg = np.bincount(np.concatenate([lo, hi]), minlength=n)
+    vals = np.concatenate([
+        np.full(lo.size * 2, -1.0, np.float64),
+        final_deg.astype(np.float64) + float(shift),
+    ])
+    return _coo_to_csr(rows, cols, vals, n)
 
 
 def spd_banded(

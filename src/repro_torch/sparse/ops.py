@@ -3,10 +3,11 @@
 * ``reference`` space — sequential-semantics formulations (scatter-add CSR);
 * ``torch`` space     — portable torch formulations (the JAX package's XLA);
 * ``cuda`` space      — registered by :mod:`repro_torch.kernels` for the ops
-  that have a Pallas kernel in the JAX package: ``spmv_ell``,
+  that have a Pallas kernel in the JAX package: ``spmv_ell``, ``spmv_sellp``,
   ``spmv_dot_ell``, ``axpy_norm``, ``spgemm``, ``sptranspose`` (and
-  ``block_jacobi_apply``).  The other ops here have no kernel there either,
-  and a CUDA executor serves them from the torch space on CUDA tensors.
+  ``block_jacobi_apply``, ``spmv_batch_ell``).  The other ops here have no
+  kernel there either, and a CUDA executor serves them from the torch space
+  on CUDA tensors.
 
 ``apply(A, x)`` mirrors ``gko::LinOp::apply``: dispatch on the format, then on
 the executor's kernel space.
@@ -27,12 +28,18 @@ from repro_torch.core import registry
 from repro_torch.kernels.axpy_norm.kernel import axpy_norm_plain
 from repro_torch.kernels.spgemm.kernel import csr_permute_plain, spgemm_expand_plain
 from repro_torch.kernels.spmv_ell.kernel import spmv_ell_plain
+from repro_torch.kernels.spmv_sellp.kernel import (
+    sellp_slice_of_column,
+    spmv_sellp_plain,
+)
 from repro_torch.observability.trace import span
 from repro_torch.sparse.formats import (
+    Coo,
     Csr,
     Dense,
     Ell,
     MatrixLinOp,
+    Sellp,
     csr_from_arrays,
     host_array,
 )
@@ -55,9 +62,29 @@ __all__ = [
 # SpMV
 # =============================================================================
 
+spmv_coo = registry.operation("spmv_coo", "y = A @ x for sorted COO")
 spmv_csr = registry.operation("spmv_csr", "y = A @ x for CSR")
 spmv_ell = registry.operation("spmv_ell", "y = A @ x for ELLPACK")
+spmv_sellp = registry.operation("spmv_sellp", "y = A @ x for SELL-P")
 spmv_dense = registry.operation("spmv_dense", "y = A @ x (dense)")
+
+
+def _scatter_rows(A, rows, cols, x):
+    """y[rows[t]] += values[t] * x[cols[t]]: the scatter-add SpMV of COO and
+    CSR (one or several right-hand sides)."""
+    y = torch.zeros((A.shape[0],) + tuple(x.shape[1:]),
+                    dtype=torch.promote_types(A.values.dtype, x.dtype),
+                    device=x.device)
+    vals = A.values[:, None] if x.ndim == 2 else A.values
+    return y.index_add_(0, rows, vals * x[cols])
+
+
+def _spmv_coo_plain(ex, A: Coo, x):
+    return _scatter_rows(A, A.row_idx.long(), A.col_idx, x)
+
+
+spmv_coo.register("reference")(_spmv_coo_plain)
+spmv_coo.register("torch")(_spmv_coo_plain)
 
 
 def _csr_row_ids(A: Csr) -> torch.Tensor:
@@ -68,11 +95,7 @@ def _csr_row_ids(A: Csr) -> torch.Tensor:
 
 
 def _spmv_csr_plain(ex, A: Csr, x):
-    y = torch.zeros((A.shape[0],) + tuple(x.shape[1:]),
-                    dtype=torch.promote_types(A.values.dtype, x.dtype),
-                    device=x.device)
-    vals = A.values[:, None] if x.ndim == 2 else A.values
-    return y.index_add_(0, _csr_row_ids(A), vals * x[A.indices])
+    return _scatter_rows(A, _csr_row_ids(A), A.indices, x)
 
 
 spmv_csr.register("reference")(_spmv_csr_plain)
@@ -89,6 +112,31 @@ spmv_ell.register("reference")(_spmv_ell_plain)
 spmv_ell.register("torch")(_spmv_ell_plain)
 
 
+@spmv_sellp.register("reference")
+def _spmv_sellp_ref(ex, A: Sellp, x):
+    """Oracle: the slice layout read back one slice at a time (Ginkgo's
+    reference kernel)."""
+    if x.ndim != 1:
+        raise NotImplementedError("SELL-P spmv takes one right-hand side")
+    C = A.slice_size
+    y = torch.zeros(A.num_slices * C, dtype=torch.promote_types(A.dtype, x.dtype),
+                    device=x.device)
+    sets = host_array(A.slice_sets).tolist()
+    for s, (lo, hi) in enumerate(zip(sets[:-1], sets[1:])):
+        block_v = A.values[lo * C:hi * C].view(hi - lo, C)
+        block_c = A.col_idx[lo * C:hi * C].view(hi - lo, C)
+        y[s * C:(s + 1) * C] = (block_v * x[block_c]).sum(dim=0)
+    return y[:A.shape[0]]
+
+
+@spmv_sellp.register("torch")
+def _spmv_sellp_torch(ex, A: Sellp, x):
+    if x.ndim != 1:
+        raise NotImplementedError("SELL-P spmv takes one right-hand side")
+    return spmv_sellp_plain(A.col_idx, A.values, A.slice_sets, x, A.shape[0],
+                            A.slice_size)
+
+
 def _spmv_dense_plain(ex, A: Dense, x):
     return A.values @ x
 
@@ -97,7 +145,13 @@ spmv_dense.register("reference")(_spmv_dense_plain)
 spmv_dense.register("torch")(_spmv_dense_plain)
 
 
-_FORMAT_OP = {Csr: spmv_csr, Ell: spmv_ell, Dense: spmv_dense}
+_FORMAT_OP = {
+    Coo: spmv_coo,
+    Csr: spmv_csr,
+    Ell: spmv_ell,
+    Sellp: spmv_sellp,
+    Dense: spmv_dense,
+}
 
 
 def apply(A, x: torch.Tensor, *, executor=None) -> torch.Tensor:
@@ -122,16 +176,33 @@ def apply(A, x: torch.Tensor, *, executor=None) -> torch.Tensor:
     return op(A, x, executor=executor)
 
 
-to_dense_op = registry.operation("sparse_to_dense", "densify Dense, CSR or ELL")
+to_dense_op = registry.operation("sparse_to_dense", "densify any format")
+
+
+def sellp_rows(A: Sellp) -> torch.Tensor:
+    """``(total,)`` int64: the row of every entry of A's flat buffer (rows
+    past ``m`` in the last slice hold only padding)."""
+    C = A.slice_size
+    slice_of = sellp_slice_of_column(A.slice_sets, A.values.numel() // C)
+    lanes = torch.arange(C, device=A.values.device)
+    return (slice_of[:, None] * C + lanes[None, :]).reshape(-1)
 
 
 def _to_dense(ex, A):
     if isinstance(A, Dense):
         return A.values
     out = torch.zeros(A.shape, dtype=A.values.dtype, device=A.values.device)
+    if isinstance(A, Coo):
+        return out.index_put_((A.row_idx.long(), A.col_idx.long()), A.values,
+                              accumulate=True)
     if isinstance(A, Csr):
         return out.index_put_((_csr_row_ids(A), A.indices.long()), A.values,
                               accumulate=True)
+    if isinstance(A, Sellp):
+        rows = sellp_rows(A)
+        keep = rows < A.shape[0]
+        return out.index_put_((rows[keep], A.col_idx[keep].long()),
+                              A.values[keep], accumulate=True)
     if isinstance(A, Ell):
         m, k = A.values.shape
         rows = torch.arange(m, device=A.values.device).repeat_interleave(k)
@@ -145,7 +216,7 @@ to_dense_op.register("torch")(_to_dense)
 
 
 def to_dense(A, *, executor=None) -> torch.Tensor:
-    """The dense ``(m, n)`` tensor of a Dense, CSR or ELL matrix."""
+    """The dense ``(m, n)`` tensor of a matrix in any format."""
     if 0 in A.shape:
         return torch.zeros(A.shape, dtype=A.dtype, device=A.values.device)
     return to_dense_op(A, executor=executor)
@@ -226,8 +297,10 @@ def _spmv_dot_ell(ex, A, x, w):
 
 
 def _axpy_norm(ex, alpha, x, y):
-    if x.ndim != 1:
-        raise NotImplementedError("axpy_norm takes 1-D vectors")
+    # 1-D vectors, or (nb, n) batches with one alpha and one z·z per row:
+    # the batched solvers share this op with the single-system loops
+    if x.ndim not in (1, 2):
+        raise NotImplementedError("axpy_norm takes 1-D vectors or (nb, n) batches")
     return axpy_norm_plain(alpha, x, y)
 
 

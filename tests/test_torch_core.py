@@ -41,6 +41,11 @@ from repro_torch.sparse import ops as blas
 SRC = Path(__file__).resolve().parents[1] / "src"
 SLICE_MODULES = [
     "repro_torch",
+    "repro_torch.batch",
+    "repro_torch.batch.formats",
+    "repro_torch.batch.linop",
+    "repro_torch.batch.ops",
+    "repro_torch.batch.solvers",
     "repro_torch.convert",
     "repro_torch.core.executor",
     "repro_torch.core.linop",
@@ -52,12 +57,18 @@ SLICE_MODULES = [
     "repro_torch.kernels.axpy_norm.ops",
     "repro_torch.kernels.block_jacobi.ops",
     "repro_torch.kernels.loader_check",
+    "repro_torch.kernels.sellp_probe",
     "repro_torch.kernels.spgemm.kernel",
     "repro_torch.kernels.spgemm.ops",
+    "repro_torch.kernels.spmv_batch_ell.kernel",
+    "repro_torch.kernels.spmv_batch_ell.ops",
     "repro_torch.kernels.spmv_dot.ops",
     "repro_torch.kernels.spmv_ell.ops",
+    "repro_torch.kernels.spmv_sellp.kernel",
+    "repro_torch.kernels.spmv_sellp.ops",
     "repro_torch.launch",
     "repro_torch.launch.amg_check",
+    "repro_torch.launch.batch_solve",
     "repro_torch.observability.convergence",
     "repro_torch.observability.events",
     "repro_torch.observability.metrics",
