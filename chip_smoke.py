@@ -47,12 +47,31 @@ Phases, each of which exits non-zero on failure:
             256 x 1,024, rows cut into pieces) and block_jacobi_apply held
             and timed at this path's shapes (torch.sparse.mm on the
             block-diagonal CSR of all systems as spmv_batch_ell's library
-            call).
+            call);
+8. lm     — Zamba2-2.7B serving at full width and depth (54 Mamba2 layers,
+            bf16, 2,646,049,440 random parameters from seed 0):
+            (a) repro_torch.launch.serve on the CUDA executor, 8 prompts of
+            2,048 tokens and 64 greedy tokens each: prefill ms, decode ms
+            per step, tokens/s, peak memory, and the launches exactly
+            (rmsnorm 19 per prefill and per decode step, flash_attention 9
+            and ssd_scan 54 per prefill); (d) prefill(2,044) + 4 decode
+            steps against prefill(2,048), each stage's launches counted,
+            then torch.profiler over 4 decode steps and over one prefill
+            (device busy share, kernels by time); (b) the same path in the
+            torch space on the card, teacher-forced with (a)'s tokens:
+            logits against (a)'s, top-1 agreement, no LM kernel launched;
+            (c) full width at 12 layers in f32 (TF32 off), the cuda space
+            against the torch space; then rmsnorm (d = 5,120 and 2,560),
+            flash_attention (the path's shape, a GQA, an offset and an f32
+            shape) and ssd_scan held against their plain versions at the
+            path's shapes and timed (F.rms_norm and
+            F.scaled_dot_product_attention as library calls).
 
 It then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
-sum over the four paths' counted runs (phases 4 to 7; phase 7 counts its
-four solves), each run counted from 0; ``launches_by_path`` gives each, and
+sum over the five paths' counted runs (phases 4 to 8; phase 7 counts its
+four solves, phase 8 the serve call), each run counted from 0;
+``launches_by_path`` gives each, and
 block_jacobi_apply's storage variants carry the same per storage dtype.
 ``max_abs_err`` is the larger over the shapes the kernel was held at;
 ``at_amg_path_shape`` / ``at_batch_path_shape`` hold the times at those
@@ -93,6 +112,21 @@ SELLP_SEED = 4
 #: the batched path: batch_solve's CG runs and its BiCGSTAB run
 BATCH_ARGS = ["--batch", "16384", "--n", "1024"]
 BATCH_BICGSTAB_ARGS = ["--batch", "1024", "--n", "64", "--solver", "bicgstab"]
+#: the serving path: Zamba2-2.7B at full width and depth (54 Mamba2 layers,
+#: bf16), 8 prompts of 2,048 tokens, 64 greedy tokens each
+LM_ARCH = "zamba2-2.7b"
+LM_BATCH, LM_PROMPT, LM_GEN = 8, 2048, 64
+LM_KERNELS = ("rmsnorm", "flash_attention", "ssd_scan")
+#: the cuda and torch spaces, and prefill + decode against prefill, agree on
+#: bf16 logits within this share of max |logit|: each of the 63 residual
+#: blocks rounds its output to bf16 (2^-8 relative), at other places on the
+#: two routes, so the stream drifts by about sqrt(63) 2^-8 = 3.1e-2 of its
+#: size; 0.1 is three times that
+LM_BF16_TOL = 0.1
+#: full width at 12 layers (2 groups) in f32, cuda against torch space:
+#: f32 sums in another order only
+LM_F32_LAYERS, LM_F32_BATCH, LM_F32_PROMPT = 12, 2, 1024
+LM_F32_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -126,14 +160,16 @@ def device_ms(torch, fn, flush) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
-def bounds(nbytes: float, flops: float, copy_bw: float) -> dict:
+def bounds(nbytes: float, flops: float, copy_bw: float,
+           peak_flops: float = None) -> dict:
     """Least time for the work at the H100's published rates (HBM bytes/s,
-    f32 flop/s; ``repro_torch.core.params.H100``), and at the measured copy
-    bandwidth."""
+    and f32 flop/s unless ``peak_flops`` names another rate, such as the
+    bf16 tensor cores'; ``repro_torch.core.params.H100``), and at the
+    measured copy bandwidth."""
     from repro_torch.core.params import H100
 
     t_bytes = nbytes / H100.hbm_bandwidth * 1e3
-    t_ops = flops / H100.peak_flops_f32 * 1e3
+    t_ops = flops / (peak_flops or H100.peak_flops_f32) * 1e3
     return {
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -219,7 +255,8 @@ def check(name: str, err: float, tol: float) -> None:
 
 
 def kernel_row(torch, flush, copy_bw, name, src, line, err, kernel_fn,
-               plain_fn, nbytes, flops, library_fn=None) -> dict:
+               plain_fn, nbytes, flops, library_fn=None,
+               peak_flops=None) -> dict:
     """One entry of the ``kernels`` line: the kernel's, its plain version's
     and (where one exists) a library call's device time, and the bounds."""
     entry = {
@@ -233,7 +270,7 @@ def kernel_row(torch, flush, copy_bw, name, src, line, err, kernel_fn,
         "library_ms": (device_ms(torch, library_fn, flush)
                        if library_fn is not None else None),
     }
-    entry.update(bounds(nbytes, flops, copy_bw))
+    entry.update(bounds(nbytes, flops, copy_bw, peak_flops))
     say(f"[kernels] {name}: {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}, "
         f"library {entry['library_ms']}, bound {entry['bound_ms']:.4f} "
         f"by {entry['bound_by']}, copy bound {entry['copy_bound_ms']:.4f})")
@@ -1313,6 +1350,366 @@ def phase_small_reference(torch) -> None:
         fail("the small cuda solve disagrees with the reference space")
 
 
+# -- phase 8: Zamba2-2.7B serving -----------------------------------------------------
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def _lm_counts(torch, K, want: dict, where: str) -> dict:
+    """The LM kernels' launches since the last reset, held to ``want``."""
+    counts = {n: K.launch_counts()[n] for n in LM_KERNELS}
+    if counts != want:
+        fail(f"{where}: LM kernel launches {counts}, expected {want}")
+    return counts
+
+
+def _device_profile(torch, run, label: str, per: int, unit: str) -> dict:
+    """Device time by kernel over ``run()`` (torch.profiler) and the device's
+    busy share of its wall time; ``per`` divides the totals (steps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events only: an operator's CPU event also carries its
+    # kernels' time and would count it twice
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    say(f"[profile lm] {label}: wall {wall_us:.0f} us, device busy {busy:.0f} us "
+        f"({busy / wall_us:.1%}); per {unit} {wall_us / per:.1f} us wall, "
+        f"{busy / per:.1f} us device")
+    for dev, count, key in rows[:12]:
+        say(f"[profile lm]   {dev / per:10.2f} us/{unit}  {count:6d} calls  "
+            f"{key[:90]}")
+    return {unit + "s": per, "wall_us": wall_us, "device_busy_us": busy,
+            "busy_share": busy / wall_us,
+            "top": [{"name": key[:120], "calls": count, "us": dev}
+                    for dev, count, key in rows[:12]]}
+
+
+def _held(torch, name, got, want, tol_rel, tol_abs) -> float:
+    """Holds ``got`` to ``want`` elementwise within tol_rel |want| + tol_abs
+    max |want|; returns max |got - want|."""
+    diff = (got.float() - want.float()).abs()
+    bound = tol_rel * want.float().abs() + tol_abs * float(want.float().abs().max())
+    worst = float((diff / bound).max())
+    err = float(diff.max())
+    say(f"[kernels] {name}: max_abs_err {err:.3e}; largest error {worst:.3f} of "
+        f"its tolerance ({tol_rel:.2e} |plain| + {tol_abs:.0e} max |plain|)")
+    if not worst <= 1.0 or not _finite(torch, got):
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def _finite(torch, t) -> bool:
+    return bool(torch.isfinite(t.float()).all())
+
+
+def phase_lm_kernels(torch, copy_bw) -> dict:
+    """The three LM kernels at the serving path's shapes against their plain
+    versions, timed (phase 3's protocol), with their bounds."""
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+    from repro_torch.core.params import H100
+
+    ex = make_executor("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    row = functools.partial(kernel_row, torch, flush, copy_bw)
+    bf16 = torch.bfloat16
+    B, S = LM_BATCH, LM_PROMPT
+    out = {}
+
+    # rmsnorm: the shared block's norms (d = 5,120) and the final norm (2,560)
+    # over B * S rows, bf16 x and f32 scale.  Both sides round one f32 result
+    # to bf16: one bf16 ulp (2^-7 relative) apart at most, plus f32 order.
+    held = {}
+    for d in (2 * 2560, 2560):
+        x = torch.randn(B * S, d, generator=gen, device="cuda").to(bf16)
+        w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+        rpb = ex.launch_config("nn_rmsnorm", {"rows": B * S, "d": d,
+                                              "itemsize": 2})["rows_per_block"]
+        err = _held(torch, f"rmsnorm at {B * S} x {d}", K.rmsnorm(x, w, 1e-5,
+                                                           rows_per_block=rpb),
+                    K.rmsnorm_plain(x, w, 1e-5), 2.0 ** -7, 1e-6)
+        w_lib = w.to(bf16)
+        held[d] = row(
+            "rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:27",
+            err, lambda: K.rmsnorm(x, w, 1e-5, rows_per_block=rpb),
+            lambda: K.rmsnorm_plain(x, w, 1e-5),
+            2 * B * S * d * 2 + d * 4, 4 * B * S * d,
+            lambda: torch.nn.functional.rms_norm(x, (d,), w_lib, 1e-5))
+        held[d]["shape"] = {"rows": B * S, "d": d}
+        del x
+    out["rmsnorm"] = held[5120]
+    out["rmsnorm"]["at_final_norm_shape"] = held[2560]
+    out["rmsnorm"]["max_abs_err"] = max(held[5120]["max_abs_err"],
+                                        held[2560]["max_abs_err"])
+    say("[kernels] rmsnorm library_ms: torch.nn.functional.rms_norm with the "
+        "scale cast to bf16 (it takes one dtype)")
+
+    # flash_attention at the path's shape, then GQA, offset and f32 cases.
+    # bf16: one output ulp plus f32 softmax order; f32: 1e-5 of max |out|.
+    def qkv(Bq, Hq, Hkv, Sq, Skv, D, dtype):
+        return (torch.randn(Bq, Hq, Sq, D, generator=gen, device="cuda").to(dtype),
+                torch.randn(Bq, Hkv, Skv, D, generator=gen, device="cuda").to(dtype),
+                torch.randn(Bq, Hkv, Skv, D, generator=gen, device="cuda").to(dtype))
+
+    H, D = 32, 160
+    bkv = ex.launch_config("nn_attention", {"S": S, "Skv": S, "D": D,
+                                            "itemsize": 2})["block_kv"]
+    q, k, v = qkv(B, H, H, S, S, D, bf16)
+    errs = [_held(torch, f"flash_attention at B {B}, H {H}, S = Skv = {S}, D {D}",
+                  K.flash_attention(q, k, v),
+                  K.flash_attention_plain(q, k, v), 2.0 ** -7, 1e-5)]
+    shapes = {}
+    for label, args, tol in (
+            ("gqa", (2, 32, 8, S, S, 128, bf16), (2.0 ** -7, 1e-5)),
+            ("offset", (2, 32, 32, S // 2, S, D, bf16), (2.0 ** -7, 1e-5)),
+            ("f32", (2, 32, 32, 512, 512, D, torch.float32), (0.0, 1e-5))):
+        qq, kk, vv = qkv(*args)
+        errs.append(_held(torch, f"flash_attention {label} {args[:6]}",
+                          K.flash_attention(qq, kk, vv),
+                          K.flash_attention_plain(qq, kk, vv), *tol))
+        shapes[label] = dict(zip(("B", "Hq", "Hkv", "S", "Skv", "D"), args[:6]),
+                             dtype=str(args[6]).removeprefix("torch."),
+                             max_abs_err=errs[-1])
+        del qq, kk, vv
+    pairs = S * (S + 1) // 2  # causal (query, key) pairs of one head
+    out["flash_attention"] = row(
+        "flash_attention", "flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:118", max(errs),
+        lambda: K.flash_attention(q, k, v),
+        lambda: K.flash_attention_plain(q, k, v),
+        4 * B * H * S * D * 2, 4 * D * B * H * pairs,
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True),
+        peak_flops=H100.peak_flops_bf16)
+    out["flash_attention"]["shape"] = {"B": B, "Hq": H, "Hkv": H, "S": S,
+                                       "Skv": S, "D": D, "block_kv": bkv}
+    out["flash_attention"]["held_at"] = shapes
+    say("[kernels] flash_attention library_ms: "
+        "F.scaled_dot_product_attention(is_causal=True), S = Skv")
+    del q, k, v
+
+    # ssd_scan at the path's shape: y within one bf16 ulp plus 1e-4 of max |y|
+    # (chunk sums in another order), the f32 state within 1e-4 of its max
+    Hs, P, G, N = 80, 64, 2, 64
+    x = torch.randn(B, S, Hs, P, generator=gen, device="cuda").to(bf16)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, Hs, generator=gen, device="cuda") - 1)
+    A = -torch.exp(0.5 * torch.randn(Hs, generator=gen, device="cuda"))
+    Bm = (0.3 * torch.randn(B, S, G, N, generator=gen, device="cuda")).to(bf16)
+    Cm = (0.3 * torch.randn(B, S, G, N, generator=gen, device="cuda")).to(bf16)
+    y, h = K.ssd_scan(x, dt, A, Bm, Cm)
+    yp, hp = K.ssd_scan_plain(x, dt, A, Bm, Cm)
+    err = max(_held(torch, f"ssd_scan y at B {B}, S {S}, H {Hs}, P {P}, G {G}, N {N}",
+                    y, yp, 2.0 ** -7, 1e-4),
+              _held(torch, "ssd_scan final state", h, hp, 0.0, 1e-4))
+    L = 64
+    chunks = -(-S // L)
+    flops = 2 * L * (L * N + L * P + 2 * N * P) * B * Hs * chunks
+    nbytes = (2 * B * S * Hs * P * 2 + B * S * Hs * 4 + 2 * B * S * G * N * 2
+              + Hs * 4 + B * Hs * N * P * 4)
+    out["ssd_scan"] = row(
+        "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd/kernel.py:98", err,
+        lambda: K.ssd_scan(x, dt, A, Bm, Cm),
+        lambda: K.ssd_scan_plain(x, dt, A, Bm, Cm), nbytes, flops,
+        peak_flops=H100.peak_flops_bf16)
+    out["ssd_scan"]["shape"] = {"B": B, "S": S, "H": Hs, "P": P, "G": G, "N": N,
+                                "chunk": L}
+    say("[kernels] ssd_scan library_ms: null — no single PyTorch call computes "
+        "the SSD scan")
+    return out
+
+
+def phase_lm(torch, copy_bw):
+    """Zamba2-2.7B serving at full width and depth (bf16) through
+    ``repro_torch.launch.serve`` on the CUDA executor, then the checks."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_executor
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config(LM_ARCH)
+    G = cfg.n_layers // cfg.shared_attn_every
+    per_step = {"rmsnorm": 2 * G + 1, "flash_attention": 0, "ssd_scan": 0}
+    per_prefill = {"rmsnorm": 2 * G + 1, "flash_attention": G,
+                   "ssd_scan": cfg.n_layers}
+    ex = make_executor("cuda")
+    ex_t = make_executor("torch", device=dev)
+    B, S, gen_len = LM_BATCH, LM_PROMPT, LM_GEN
+    summary = {"arch": cfg.name, "batch": B, "prompt_len": S, "gen_len": gen_len}
+
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    summary["init_s"] = time.perf_counter() - t0
+    summary["params"] = n_params
+    say(f"[lm] {cfg.name}: {cfg.n_layers} Mamba2 layers, d_model {cfg.d_model}, "
+        f"shared block at {2 * cfg.d_model} every {cfg.shared_attn_every}; "
+        f"{n_params} parameters ({n_params * 2 / 1e9:.3f} GB bf16), init "
+        f"{summary['init_s']:.2f} s")
+
+    # (a) the counted run: the user's entry point
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    res = serve_lib.serve(cfg, batch=B, prompt_len=S, gen_len=gen_len,
+                          seed=SEED, executor=ex, device=dev, params=params)
+    launches = K.launch_counts()
+    want = {n: per_prefill[n] + (gen_len - 1) * per_step[n] for n in LM_KERNELS}
+    for name in K.KERNELS:
+        if launches[name] != want.get(name, 0):
+            fail(f"serve: {name} launched {launches[name]} times, expected "
+                 f"{want.get(name, 0)}")
+    if res.tokens.shape != (B, gen_len) or not (
+            0 <= int(res.tokens.min()) and int(res.tokens.max()) < cfg.vocab):
+        fail(f"serve produced tokens of shape {tuple(res.tokens.shape)} or out "
+             "of the vocabulary")
+    if not _finite(torch, res.prefill_logits) or not all(
+            _finite(torch, lg) for lg in res.step_logits):
+        fail("serve produced non-finite logits")
+    decode_ms = res.decode_s / (gen_len - 1) * 1e3
+    summary.update(prefill_ms=res.prefill_s * 1e3, decode_ms_per_step=decode_ms,
+                   decode_tokens_per_s=res.tokens_per_s,
+                   prefill_tokens_per_s=B * S / res.prefill_s,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches={n: launches[n] for n in LM_KERNELS})
+    say(f"[lm] (a) serve {B} x {S} + {gen_len} greedy tokens: prefill "
+        f"{res.prefill_s * 1e3:.1f} ms ({B * S / res.prefill_s:.0f} tokens/s), "
+        f"decode {decode_ms:.2f} ms per step ({res.tokens_per_s:.1f} tokens/s); "
+        f"peak memory {summary['peak_memory_gb']:.2f} GB; launches "
+        f"{summary['launches']}")
+
+    # (d) cache and state offsets: prefill(S - 4) + 4 decode steps against the
+    # full prefill, each stage counted; then the decode profile continues
+    cache = lm.init_cache(cfg, B, S + 8, device=dev)
+    K.reset_launch_counts()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm.prefill(params, cfg, res.prompt[:, :S - 4], cache=cache, executor=ex)
+        torch.cuda.synchronize()
+        summary["warm_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        _lm_counts(torch, K, per_prefill, "prefill")
+        say(f"[lm] warm prefill of {B} x {S - 4} tokens: "
+            f"{summary['warm_prefill_ms']:.1f} ms (the serve call's prefill "
+            "is the process's first)")
+        for j in range(4):
+            K.reset_launch_counts()
+            logits, cache = lm.decode_step(
+                params, cfg, res.prompt[:, S - 4 + j:S - 3 + j],
+                length=S - 4 + j, cache=cache, executor=ex)
+            _lm_counts(torch, K, per_step, f"decode step {j}")
+        err_d = _rel_err(logits[:, -1], res.prefill_logits)
+        say(f"[lm] (d) prefill({S - 4}) + 4 decode steps against prefill({S}): "
+            f"error {err_d:.3e} of max |logit| (tolerance {LM_BF16_TOL})")
+        if not err_d <= LM_BF16_TOL:
+            fail("the cache / state offsets disagree with the full prefill")
+        summary["offsets_error"] = err_d
+
+        def decode4(tokens=res.tokens[:, 0]):
+            for j in range(4):
+                logits, _ = lm.decode_step(params, cfg, tokens[:, None],
+                                           length=S + j, cache=cache,
+                                           executor=ex)
+                tokens = torch.argmax(logits[:, -1], dim=-1)
+
+        summary["profile_decode"] = _device_profile(
+            torch, decode4, "4 decode steps", 4, "step")
+        del cache
+        cache_p = lm.init_cache(cfg, B, S, device=dev)
+        summary["profile_prefill"] = _device_profile(
+            torch, lambda: lm.prefill(params, cfg, res.prompt, cache=cache_p,
+                                      executor=ex),
+            f"prefill of {B} x {S}", 1, "prefill")
+        del cache_p
+
+        # (b) the same path in the torch space on the card, teacher-forced
+        K.reset_launch_counts()
+        cache_t = lm.init_cache(cfg, B, S + gen_len, device=dev)
+        prefill_t = steps_lib.make_prefill_step(cfg, executor=ex_t)
+        decode_t = steps_lib.make_decode_step(cfg, executor=ex_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lt, cache_t = prefill_t(params, {"tokens": res.prompt}, cache_t)
+        torch.cuda.synchronize()
+        t_prefill_t = time.perf_counter() - t0
+        errs = [_rel_err(lt, res.prefill_logits)]
+        agree = [(lt.argmax(-1) == res.prefill_logits.argmax(-1)).float().mean()]
+        for j, ref in enumerate(res.step_logits):
+            lt, cache_t = decode_t(params, {"tokens": res.tokens[:, j:j + 1]},
+                                   S + j, cache_t)
+            errs.append(_rel_err(lt, ref))
+            agree.append((lt.argmax(-1) == ref.argmax(-1)).float().mean())
+        counts_t = {n: K.launch_counts()[n] for n in LM_KERNELS}
+    del cache_t
+    top1 = float(torch.stack(agree).mean())
+    say(f"[lm] (b) torch space on the card: prefill {t_prefill_t * 1e3:.1f} ms; "
+        f"prefill logits error {errs[0]:.3e}, decode steps' largest "
+        f"{max(errs[1:]):.3e} of max |logit| (tolerance {LM_BF16_TOL}); top-1 "
+        f"agreement {top1:.4f}; LM kernel launches {counts_t}")
+    if any(counts_t.values()):
+        fail("the torch space launched an LM kernel")
+    if not max(errs) <= LM_BF16_TOL:
+        fail("the cuda and torch spaces disagree on the serving path")
+    summary.update(torch_space_prefill_ms=t_prefill_t * 1e3,
+                   torch_space_prefill_error=errs[0],
+                   torch_space_decode_error=max(errs[1:]), top1_agreement=top1)
+    del params, res
+    torch.cuda.empty_cache()
+
+    # (c) full width, 12 layers, f32: the kernels cannot hide in bf16 noise
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, n_layers=LM_F32_LAYERS, dtype="float32")
+    p32 = lm.init_model(cfg32, torch.Generator(dev).manual_seed(SEED + 1), dev)
+    toks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, size=(LM_F32_BATCH, LM_F32_PROMPT)), device=dev)
+    out32 = {}
+    with torch.inference_mode():
+        for space, exe in (("cuda", ex), ("torch", ex_t)):
+            c32 = lm.init_cache(cfg32, LM_F32_BATCH, LM_F32_PROMPT + 2, device=dev)
+            lg, c32 = lm.prefill(p32, cfg32, toks, cache=c32, executor=exe)
+            nxt = lg[:, -1].argmax(-1)[:, None]
+            ld, c32 = lm.decode_step(p32, cfg32, nxt, length=LM_F32_PROMPT,
+                                     cache=c32, executor=exe)
+            out32[space] = (lg, ld)
+    err_c = _rel_err(out32["cuda"][0], out32["torch"][0])
+    err_cd = _rel_err(out32["cuda"][1], out32["torch"][1])
+    say(f"[lm] (c) f32, {LM_F32_LAYERS} layers, {LM_F32_BATCH} x "
+        f"{LM_F32_PROMPT}: prefill logits error {err_c:.3e}, decode step "
+        f"{err_cd:.3e} of max |logit| (tolerance {LM_F32_TOL})")
+    if not max(err_c, err_cd) <= LM_F32_TOL:
+        fail("the f32 serving path disagrees between the cuda and torch spaces")
+    summary.update(f32_prefill_error=err_c, f32_decode_error=err_cd)
+    del p32, out32
+    torch.cuda.empty_cache()
+
+    rows = phase_lm_kernels(torch, copy_bw)
+    return {n: launches[n] for n in K.KERNELS}, summary, rows
+
+
 def main() -> None:
     import torch
 
@@ -1362,6 +1759,8 @@ def main() -> None:
     batch_launches, batch_storage, path["batch"], batch_rows, held_batch = \
         phase_batch(torch, copy_bw)
     rows.update(batch_rows)
+    lm_launches, path["zamba2_serve"], lm_rows = phase_lm(torch, copy_bw)
+    rows.update(lm_rows)
 
     # a kernel also held at a later path's shapes: that row, and the larger
     # error (for block_jacobi_apply, in the variant of its storage)
@@ -1385,14 +1784,16 @@ def main() -> None:
         entry["launches_by_path"] = {"block_jacobi_cg": launches.get(name, 0),
                                      "amg_check": amg_launches[name],
                                      "sellp_cg": sellp_launches[name],
-                                     "batch_solve": batch_launches[name]}
+                                     "batch_solve": batch_launches[name],
+                                     "zamba2_serve": lm_launches[name]}
         entry["launches"] = sum(entry["launches_by_path"].values())
         for var in entry.get("storage_variants", ()):
             var["launches_by_path"] = {
                 "block_jacobi_cg": by_storage.get(var["storage"], 0),
                 "amg_check": amg_storage.get(var["storage"], 0),
                 "sellp_cg": 0,
-                "batch_solve": batch_storage.get(var["storage"], 0)}
+                "batch_solve": batch_storage.get(var["storage"], 0),
+                "zamba2_serve": 0}
             var["launches"] = sum(var["launches_by_path"].values())
     for name, entry in rows.items():
         if entry["launches"] <= 0:

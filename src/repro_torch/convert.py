@@ -2,8 +2,9 @@
 
 Each function takes plain numpy arrays — what ``np.asarray`` gives from a JAX
 ``Coo``/``Csr``/``Ell``/``Sellp``/``BatchCsr``/``BatchEll``/``BlockJacobi``/
-``BatchBlockJacobi``/``Multigrid`` field — and builds the port's object on
-``device`` (the card unless ``device="cpu"`` is asked for).
+``BatchBlockJacobi``/``Multigrid`` field, or a language model's parameter
+tree — and builds the port's object on ``device`` (the card unless
+``device="cpu"`` is asked for).
 Nothing here imports JAX.
 
 A JAX bfloat16 array arrives as an ``ml_dtypes`` numpy array, which
@@ -26,7 +27,8 @@ from repro_torch.precond.block_jacobi import BatchBlockJacobi, BlockJacobi
 from repro_torch.sparse.formats import Coo, Csr, Ell, Sellp, _device, host_array
 
 __all__ = ["tensor", "coo", "csr", "ell", "sellp", "batch_csr", "batch_ell",
-           "block_jacobi", "batch_block_jacobi", "multigrid", "host_array"]
+           "block_jacobi", "batch_block_jacobi", "multigrid", "host_array",
+           "lm_params"]
 
 
 def tensor(a, *, device=None, dtype=None) -> torch.Tensor:
@@ -161,3 +163,75 @@ def multigrid(levels: Sequence[Mapping], coarse_A, coarse_inv, *,
         tensor(coarse_inv, device=device), cycle=cycle, omega=omega,
         pre_sweeps=pre_sweeps, post_sweeps=post_sweeps, executor=executor,
     )
+
+
+def lm_params(cfg, params: Mapping, *, device=None):
+    """The JAX package's ``lm.init_model`` parameters (nested dicts of numpy
+    arrays: ``jax.tree_util.tree_map(np.asarray, params)``) as the port's
+    :class:`~repro_torch.nn.common.ParamTree` for ``cfg``.
+
+    The stacked layers are unstacked: ``mamba`` leaves ``(G, per, ...)``
+    become ``G`` lists of ``per`` layers, ``lora`` leaves ``(G, ...)`` ``G``
+    layers.  Every leaf's shape and dtype is checked against the port's own
+    init for ``cfg``, and a missing or left-over key raises."""
+    from repro_torch.models import lm
+    from repro_torch.nn.common import ParamTree
+
+    expected = lm.init_model(cfg, device="meta")
+    G, per = lm._zamba_groups(cfg)
+    src = dict(params)
+
+    def unstack(tree, dims, where):
+        """Split the leading ``dims`` axes of every leaf into nested lists."""
+        if not isinstance(tree, Mapping):
+            raise ValueError(f"{where}: expected a mapping of stacked leaves")
+        n = dims[0]
+        out = []
+        for j in range(n):
+            layer = {}
+            for key, leaf in tree.items():
+                if isinstance(leaf, Mapping):
+                    raise ValueError(f"{where}.{key}: nested stacked trees are "
+                                     "not expected")
+                a = np.asarray(leaf)
+                if a.shape[:1] != (n,):
+                    raise ValueError(f"{where}.{key}: stacked shape "
+                                     f"{a.shape} does not lead with {n}")
+                layer[key] = a[j]
+            out.append(unstack(layer, dims[1:], f"{where}[{j}]")
+                       if len(dims) > 1 else layer)
+        return out
+
+    if "mamba" in src:
+        src["mamba"] = unstack(src["mamba"], (G, per), "mamba")
+    if "lora" in src:
+        src["lora"] = unstack(src["lora"], (G,), "lora")
+
+    def build(node, ref, where):
+        if isinstance(ref, torch.Tensor):
+            if isinstance(node, (Mapping, list)):
+                raise ValueError(f"{where}: expected an array")
+            a = np.asarray(node)
+            if tuple(a.shape) != tuple(ref.shape):
+                raise ValueError(f"{where}: shape {tuple(a.shape)} != "
+                                 f"{tuple(ref.shape)} of {cfg.name}")
+            t = tensor(a, device=device)
+            if t.dtype != ref.dtype:
+                raise ValueError(f"{where}: dtype {t.dtype} != {ref.dtype}")
+            return t
+        if isinstance(ref, torch.nn.ModuleList):
+            if not isinstance(node, list) or len(node) != len(ref):
+                raise ValueError(f"{where}: expected {len(ref)} layers")
+            return [build(n, r, f"{where}[{i}]")
+                    for i, (n, r) in enumerate(zip(node, ref))]
+        if not isinstance(node, Mapping):
+            raise ValueError(f"{where}: expected a mapping")
+        missing = sorted(set(ref.keys()) - set(node))
+        extra = sorted(set(node) - set(ref.keys()))
+        if missing or extra:
+            raise ValueError(f"{where or 'params'}: missing keys {missing}, "
+                             f"left-over keys {extra}")
+        return {k: build(node[k], ref[k], f"{where}.{k}" if where else k)
+                for k in ref.keys()}
+
+    return ParamTree(build(src, expected, ""))

@@ -36,9 +36,11 @@ class HardwareParams:
     smem_per_block_bytes: int = 48 * 1024
     sm_count: Optional[int] = None
 
-    #: roofline constants: HBM bytes/s and f32 (non-tensor-core) flop/s
+    #: roofline constants: HBM bytes/s, f32 (non-tensor-core) flop/s and the
+    #: dense bf16 tensor-core flop/s
     hbm_bandwidth: Optional[float] = None
     peak_flops_f32: Optional[float] = None
+    peak_flops_bf16: Optional[float] = None
 
 
 H100 = HardwareParams(
@@ -51,6 +53,7 @@ H100 = HardwareParams(
     sm_count=132,
     hbm_bandwidth=3.35e12,
     peak_flops_f32=67e12,
+    peak_flops_bf16=989e12,
 )
 
 CPU_TORCH = HardwareParams(name="cpu_torch", kernel_space="torch")

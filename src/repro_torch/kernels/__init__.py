@@ -6,7 +6,8 @@ first use); one directory per kernel family holds
 * ``kernel.py`` — the wrapper (checks, launch, launch count) and the plain
   PyTorch version it is held against;
 * ``ops.py``    — the registry binding for the ``cuda`` space and the
-  family's tuning spec.
+  family's tuning spec (for the LM kernels ``rmsnorm``, ``flash_attention``
+  and ``ssd``, also their ``reference`` and ``torch`` spaces).
 
 Importing this package registers the ``cuda`` implementations.
 """
@@ -20,6 +21,11 @@ from repro_torch.kernels.block_jacobi.kernel import (
     block_jacobi_apply,
     block_jacobi_apply_plain,
 )
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention,
+    flash_attention_plain,
+)
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm, rmsnorm_plain
 from repro_torch.kernels.spgemm.kernel import (
     csr_permute,
     csr_permute_plain,
@@ -33,14 +39,18 @@ from repro_torch.kernels.spmv_batch_ell.kernel import (
 )
 from repro_torch.kernels.spmv_ell.kernel import spmv_ell, spmv_ell_plain
 from repro_torch.kernels.spmv_sellp.kernel import spmv_sellp, spmv_sellp_plain
+from repro_torch.kernels.ssd.kernel import ssd_scan, ssd_scan_plain
 
 import repro_torch.kernels.axpy_norm.ops  # noqa: E402,F401
 import repro_torch.kernels.block_jacobi.ops  # noqa: E402,F401
+import repro_torch.kernels.flash_attention.ops  # noqa: E402,F401
+import repro_torch.kernels.rmsnorm.ops  # noqa: E402,F401
 import repro_torch.kernels.spgemm.ops  # noqa: E402,F401
 import repro_torch.kernels.spmv_dot.ops  # noqa: E402,F401
 import repro_torch.kernels.spmv_batch_ell.ops  # noqa: E402,F401
 import repro_torch.kernels.spmv_ell.ops  # noqa: E402,F401
 import repro_torch.kernels.spmv_sellp.ops  # noqa: E402,F401
+import repro_torch.kernels.ssd.ops  # noqa: E402,F401
 
 #: kernel name -> wrapper; each wrapper counts its launches in ``.launches``
 KERNELS = {
@@ -53,6 +63,9 @@ KERNELS = {
     "csr_permute": csr_permute,
     "spmv_sellp": spmv_sellp,
     "spmv_batch_ell": spmv_batch_ell,
+    "rmsnorm": rmsnorm,
+    "flash_attention": flash_attention,
+    "ssd_scan": ssd_scan,
 }
 
 
@@ -78,6 +91,10 @@ __all__ = [
     "block_jacobi_apply_plain",
     "csr_permute",
     "csr_permute_plain",
+    "flash_attention",
+    "flash_attention_plain",
+    "rmsnorm",
+    "rmsnorm_plain",
     "spgemm_expand",
     "spgemm_expand_plain",
     "spmv_batch_ell",
@@ -88,4 +105,6 @@ __all__ = [
     "spmv_ell_plain",
     "spmv_sellp",
     "spmv_sellp_plain",
+    "ssd_scan",
+    "ssd_scan_plain",
 ]

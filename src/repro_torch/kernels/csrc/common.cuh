@@ -78,4 +78,24 @@ __global__ void sum_partials_kernel(const T* __restrict__ partials, int count,
   if (threadIdx.x == 0) *out = acc;
 }
 
+// Element conversions of the LM kernels: storage type <-> f32 arithmetic.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as PyTorch's cast
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float v) {
+  return __float2half(v);
+}
+
 }  // namespace

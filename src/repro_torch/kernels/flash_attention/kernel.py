@@ -1,0 +1,117 @@
+"""Causal GQA flash attention: the wrapper of the CUDA kernel
+``csrc/flash_attention.cu`` and its plain PyTorch version.
+
+``flash_attention`` launches the kernel for CUDA tensors and counts the
+launch in ``flash_attention.launches``; for CPU tensors it returns the plain
+version.  There is no fallback from a failed build or launch: the error
+propagates.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._check import on_cuda, require
+
+__all__ = ["flash_attention", "flash_attention_plain", "flash_smem_bytes",
+           "flash_block_kv", "BLOCK_Q"]
+
+_P = ctypes.c_void_p
+_ENTRY = {torch.float32: "repro_flash_attention_f32",
+          torch.bfloat16: "repro_flash_attention_bf16",
+          torch.float16: "repro_flash_attention_f16"}
+_I = ctypes.c_int
+_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P)
+
+#: query rows a block (kBQ) and the kv tile the source compiles: kMmaBKV for
+#: the tensor-core kernel (2-byte inputs), kFmaBKV for the f32 one
+BLOCK_Q = 64
+MAX_HEAD_DIM = 256
+
+
+def flash_block_kv(itemsize: int) -> int:
+    return 64 if itemsize == 2 else 32
+
+
+def flash_smem_bytes(D: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block: the tensor-core kernel's
+    (``mma_smem_bytes`` in the source) for 2-byte inputs, the f32 kernel's
+    (``smem_bytes``) for 4-byte ones."""
+    bkv = flash_block_kv(itemsize)
+    if itemsize == 2:
+        return 2 * ((BLOCK_Q + bkv) * (D + 8) + D * (bkv + 8))
+    return 4 * (BLOCK_Q * (D + 1) + bkv * (D + 1) + bkv * D
+                + BLOCK_Q * (bkv + 1) + 3 * BLOCK_Q)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Dense softmax attention with GQA head sharing, in f32, with the flash
+    kernel's semantics at the edges: query i sits at position i + Skv - S,
+    and a row that sees no key (Skv < S) is 0, where a plain softmax would
+    give NaN."""
+    B, Hq, S, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    kf = torch.repeat_interleave(k, group, dim=1).to(torch.float32)
+    vf = torch.repeat_interleave(v, group, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kf) * scale
+    if causal:
+        q_idx = torch.arange(S, device=q.device)[:, None] + (Skv - S)
+        kv_idx = torch.arange(Skv, device=q.device)[None, :]
+        s = s.masked_fill(~(q_idx >= kv_idx), float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(m == float("-inf"), torch.zeros_like(m), m)
+    p = torch.exp(s - m)  # exp(-inf) = 0 on masked entries
+    l = p.sum(dim=-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vf) / l
+    return out.to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Softmax attention of q (B, Hq, S, D) over k, v (B, Hkv, Skv, D), Hkv
+    dividing Hq; causal with ``kv_offset = Skv - S``; out in q's dtype.
+    bf16 / fp16 run on the tensor cores, f32 on the CUDA cores."""
+    name = "flash_attention"
+    require(q.ndim == 4 and k.ndim == 4 and v.ndim == 4, name,
+            "q, k, v must be (B, H, S, D)")
+    B, Hq, S, D = q.shape
+    require(k.shape == v.shape and k.shape[0] == B and k.shape[3] == D, name,
+            f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q "
+            f"{tuple(q.shape)}")
+    Hkv, Skv = k.shape[1], k.shape[2]
+    require(Hkv >= 1 and Hq % Hkv == 0, name, f"Hq={Hq} not divisible by Hkv={Hkv}")
+    require(q.dtype in _ENTRY and k.dtype == q.dtype and v.dtype == q.dtype,
+            name, f"q/k/v dtypes ({q.dtype}, {k.dtype}, {v.dtype}) must be one "
+            f"of {sorted(map(str, _ENTRY))}")
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    if not on_cuda(name, q, k, v):
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+    require(D % 16 == 0 and 16 <= D <= MAX_HEAD_DIM, name,
+            f"head dim {D} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]")
+    require(Hq <= 65535 and B <= 65535, name, f"grid ({Hq} heads, {B} "
+            "batch) exceeds the launch limits")
+    require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), name,
+            "q, k, v must start on 16-byte boundaries (16-byte loads)")
+    out = torch.empty_like(q)
+    if out.numel():
+        fn = _build.function(_ENTRY[q.dtype], _ARGS)
+        _build.check(name, fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Hq,
+            Hkv, S, Skv, D, float(scale), int(causal), _build.stream_of(q)))
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

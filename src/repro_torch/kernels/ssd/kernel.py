@@ -1,0 +1,129 @@
+"""Mamba2 SSD chunked scan: the wrapper of the CUDA kernel
+``csrc/ssd_scan.cu`` and its plain PyTorch version.
+
+``ssd_scan`` launches the kernel for CUDA tensors and counts the launch in
+``ssd_scan.launches``; for CPU tensors it returns the plain version, the
+chunked formulation of the JAX package's ``ssd_chunked_xla``.  There is no
+fallback from a failed build or launch: the error propagates.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._check import on_cuda, require
+
+__all__ = ["ssd_scan", "ssd_scan_plain", "ssd_smem_bytes", "CHUNK", "MAX_DIM"]
+
+_P = ctypes.c_void_p
+_ENTRY = {torch.float32: "repro_ssd_scan_f32",
+          torch.bfloat16: "repro_ssd_scan_bf16",
+          torch.float16: "repro_ssd_scan_f16"}
+_I = ctypes.c_int
+_ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+
+#: the chunk length the source compiles (kL) and the largest N and P (kW)
+CHUNK = 64
+MAX_DIM = 64
+
+
+def ssd_smem_bytes() -> int:
+    """Dynamic shared memory of one block (``smem_bytes`` in the source)."""
+    L, W = CHUNK, MAX_DIM
+    return 4 * (L * W + 2 * L * (W + 1) + L * (L + 1) + W * W + 3 * L)
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B_mat: torch.Tensor, C: torch.Tensor, *,
+                   chunk: int = CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chunked scan in batched products, one chunk at a time (the port
+    of ``repro/kernels/ssd/xla.py``): zero-padded to whole chunks (dt = 0
+    leaves the state unchanged), y in x's dtype, the final state f32."""
+    Bsz, S, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    group = H // G
+    chunk = min(chunk, S)
+    pad = -S % chunk
+    xf = torch.nn.functional.pad(x.to(torch.float32), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.to(torch.float32), (0, 0, 0, pad))
+    Bf = torch.nn.functional.pad(B_mat.to(torch.float32), (0, 0, 0, 0, 0, pad))
+    Cf = torch.nn.functional.pad(C.to(torch.float32), (0, 0, 0, 0, 0, pad))
+    Sp = S + pad
+    nc, L = Sp // chunk, chunk
+    xf = xf.reshape(Bsz, nc, L, H, P)
+    dtf = dtf.reshape(Bsz, nc, L, H)
+    Bf = Bf.reshape(Bsz, nc, L, G, N)
+    Cf = Cf.reshape(Bsz, nc, L, G, N)
+    Af = A.to(torch.float32)
+    lower = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
+
+    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xc, dtc, Bc, Cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]
+        acum = torch.cumsum(dtc * Af, dim=1)  # (B, L, H), <= 0
+        diff = acum[:, :, None, :] - acum[:, None, :, :]  # (B, L, L, H)
+        # masked before the exp: diff > 0 above the diagonal can overflow
+        diff = diff.masked_fill(~lower[None, :, :, None], float("-inf"))
+        Ldec = torch.exp(diff)
+        CB = torch.einsum("blgn,bsgn->blsg", Cc, Bc)
+        CBh = torch.repeat_interleave(CB, group, dim=-1)  # (B, L, L, H)
+        Gmat = CBh * Ldec * dtc[:, None, :, :]
+        y_intra = torch.einsum("blsh,bshp->blhp", Gmat, xc)
+        Ch = torch.repeat_interleave(Cc, group, dim=2)  # (B, L, H, N)
+        Cs = Ch * torch.exp(acum)[..., None]
+        y_inter = torch.einsum("blhn,bhnp->blhp", Cs, h)
+        chunk_decay = torch.exp(acum[:, -1, :])  # (B, H)
+        Bh = torch.repeat_interleave(Bc, group, dim=2)
+        Bs = Bh * (torch.exp(acum[:, -1:, :] - acum) * dtc)[..., None]
+        h = chunk_decay[..., None, None] * h + torch.einsum("blhn,blhp->bhnp",
+                                                            Bs, xc)
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(Bsz, Sp, H, P)[:, :S]
+    return y.to(x.dtype), h
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B_mat: torch.Tensor, C: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, final state) of the SSD scan from a zero state: x (Bsz, S, H, P),
+    dt (Bsz, S, H) f32, A (H,) f32, B/C (Bsz, S, G, N) in x's dtype."""
+    name = "ssd_scan"
+    require(x.ndim == 4 and dt.ndim == 3 and A.ndim == 1 and B_mat.ndim == 4
+            and C.ndim == 4, name, "expected x (B,S,H,P), dt (B,S,H), A (H,), "
+            "B/C (B,S,G,N)")
+    Bsz, S, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    require(dt.shape == (Bsz, S, H) and A.shape == (H,), name,
+            f"dt {tuple(dt.shape)} / A {tuple(A.shape)} do not match x "
+            f"{tuple(x.shape)}")
+    require(B_mat.shape[:2] == (Bsz, S) and C.shape == B_mat.shape, name,
+            f"B {tuple(B_mat.shape)} / C {tuple(C.shape)} do not match x")
+    require(G >= 1 and H % G == 0, name, f"H={H} not divisible by G={G}")
+    require(x.dtype in _ENTRY and B_mat.dtype == x.dtype and C.dtype == x.dtype,
+            name, f"x/B/C dtypes ({x.dtype}, {B_mat.dtype}, {C.dtype}) must be "
+            f"one of {sorted(map(str, _ENTRY))}, all alike")
+    require(dt.dtype == torch.float32 and A.dtype == torch.float32, name,
+            f"dt and A must be float32, got {dt.dtype}, {A.dtype}")
+    if not on_cuda(name, x, dt, A, B_mat, C):
+        return ssd_scan_plain(x, dt, A, B_mat, C)
+    require(1 <= N <= MAX_DIM and 1 <= P <= MAX_DIM, name,
+            f"N={N} and P={P} must be in [1, {MAX_DIM}]")
+    require(Bsz <= 65535, name, f"batch {Bsz} exceeds the grid limit")
+    y = torch.empty_like(x)
+    state = torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    if S == 0:
+        return y, state.zero_()
+    fn = _build.function(_ENTRY[x.dtype], _ARGS)
+    _build.check(name, fn(
+        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
+        C.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, S, H, P, G, N,
+        _build.stream_of(x)))
+    ssd_scan.launches += 1
+    return y, state
+
+
+ssd_scan.launches = 0

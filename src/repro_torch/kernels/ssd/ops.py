@@ -1,0 +1,55 @@
+"""Registry bindings for the Mamba2 SSD scan (operation ``nn_ssd_scan``).
+
+``reference`` runs the sequential recurrence (``ref.ssd_ref``), ``torch`` the
+chunked formulation in batched products (the kernel's plain version, at the
+kernel's chunk), ``cuda`` the kernel.  The ``cuda`` registration is
+unconditional: a failed build or launch raises and is never re-dispatched.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core import registry, tuning
+from repro_torch.kernels._check import require_cuda
+from repro_torch.kernels.ssd.kernel import (
+    CHUNK,
+    ssd_scan,
+    ssd_scan_plain,
+    ssd_smem_bytes,
+)
+from repro_torch.kernels.ssd.ref import ssd_ref
+
+
+def _constrain(hw, shapes, block):
+    # the source compiles one chunk length
+    return {"chunk": CHUNK}
+
+
+SSD_SPEC = tuning.register_spec(
+    tuning.TuningSpec(
+        op="nn_ssd_scan",
+        params=("chunk",),
+        seed=lambda hw: {"chunk": CHUNK},
+        smem_bytes=lambda shapes, block: ssd_smem_bytes(),
+        constrain=_constrain,
+    )
+)
+
+
+@registry.register("nn_ssd_scan", "reference")
+def _ssd_reference(ex, x, dt, A, B_mat, C):
+    return ssd_ref(x, dt, A, B_mat, C)
+
+
+@registry.register("nn_ssd_scan", "torch")
+def _ssd_torch(ex, x, dt, A, B_mat, C):
+    return ssd_scan_plain(x, dt, A, B_mat, C, chunk=CHUNK)
+
+
+@registry.register("nn_ssd_scan", "cuda")
+def _ssd_cuda(ex, x, dt, A, B_mat, C):
+    require_cuda("nn_ssd_scan", x, dt, A, B_mat, C)
+    # the chunk is compiled; resolving checks the block's shared memory
+    ex.launch_config("nn_ssd_scan", {"S": x.shape[1], "N": B_mat.shape[-1],
+                                     "P": x.shape[-1]})
+    return ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
+                    B_mat.contiguous(), C.contiguous())

@@ -1,0 +1,33 @@
+"""Serving steps: the port of ``make_prefill_step`` / ``make_decode_step``
+of ``repro/launch/steps.py`` (the training steps are not ported yet).
+
+Each step returns the last position's logits (the next-token distribution)
+and the cache, which the model updates in place.
+"""
+
+from __future__ import annotations
+
+from repro_torch.models import lm
+
+__all__ = ["make_prefill_step", "make_decode_step"]
+
+
+def make_prefill_step(cfg, executor=None):
+    def prefill_step(params, batch, cache):
+        logits, cache = lm.prefill(params, cfg, tokens=batch.get("tokens"),
+                                   embeds=batch.get("embeds"), cache=cache,
+                                   executor=executor)
+        return logits[:, -1, :], cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg, executor=None):
+    def decode_step(params, batch, length, cache):
+        logits, cache = lm.decode_step(params, cfg, tokens=batch.get("tokens"),
+                                       embeds=batch.get("embeds"),
+                                       length=length, cache=cache,
+                                       executor=executor)
+        return logits[:, -1, :], cache
+
+    return decode_step

@@ -1,0 +1,118 @@
+"""Basic layers: linear, RMSNorm, rotary embeddings, SwiGLU, embeddings.
+
+The port of ``repro/nn/layers.py`` for the families the port carries.  The
+norm goes through the registered ``nn_rmsnorm`` operation (reference / torch
+/ cuda); matrix products are plain ``@`` on the JAX layout (``(d_in, d_out)``
+weights, ``x @ W``), which PyTorch sends to cuBLAS on the card as the JAX
+package left them to XLA.  LayerNorm, GELU and group norm wait for the
+families that use them (ROADMAP A15).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import registry
+from repro_torch.nn.common import Initializer, ones, zeros
+
+# make sure the kernel spaces are populated
+import repro_torch.kernels  # noqa: F401
+
+__all__ = ["linear_init", "linear", "rmsnorm_init", "rmsnorm",
+           "rope_frequencies", "apply_rope", "swiglu_init", "swiglu",
+           "embedding_init", "embed", "unembed"]
+
+_rmsnorm_op = registry.operation("nn_rmsnorm")
+
+
+# -- linear ---------------------------------------------------------------------
+
+
+def linear_init(ini: Initializer, d_in: int, d_out: int, *,
+                std: Optional[float] = None, bias: bool = False) -> dict:
+    p = {"w": ini.param((d_in, d_out), std=std if std is not None else d_in ** -0.5)}
+    if bias:
+        p["b"] = ini.param((d_out,), init=zeros)
+    return p
+
+
+def linear(p, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"]
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
+# -- norms ------------------------------------------------------------------------
+
+
+def rmsnorm_init(ini: Initializer, d: int) -> dict:
+    """The scale is f32 whatever the model's dtype, as in the JAX package."""
+    return {"scale": ini.param((d,), init=ones, dtype=torch.float32)}
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6, *, executor=None) -> torch.Tensor:
+    return _rmsnorm_op(x, p["scale"], eps, executor=executor)
+
+
+# -- rotary embeddings -------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float = 10000.0, *,
+                     device=None) -> torch.Tensor:
+    """(head_dim/2,) inverse frequencies (f32)."""
+    if head_dim % 2:
+        raise ValueError(f"rope head_dim must be even, got {head_dim}")
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Llama-style interleaved-half rotary embedding of ``x`` (B, S, H, D) or
+    (B, S, D) at ``positions`` (B, S), computed in f32."""
+    d = x.shape[-1]
+    inv_freq = rope_frequencies(d, theta, device=x.device)
+    angles = positions[..., None].to(torch.float32) * inv_freq  # (B, S, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if x.ndim == 4:
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x2 * cos + x1 * sin
+    return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
+
+
+# -- MLPs -------------------------------------------------------------------------
+
+
+def swiglu_init(ini: Initializer, d: int, d_ff: int) -> dict:
+    return {
+        "gate": ini.param((d, d_ff), std=d ** -0.5),
+        "up": ini.param((d, d_ff), std=d ** -0.5),
+        "down": ini.param((d_ff, d), std=d_ff ** -0.5),
+    }
+
+
+def swiglu(p, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+
+
+# -- embedding ----------------------------------------------------------------------
+
+
+def embedding_init(ini: Initializer, vocab: int, d: int, *, std: float = 0.02) -> dict:
+    return {"table": ini.param((vocab, d), std=std)}
+
+
+def embed(p, tokens: torch.Tensor) -> torch.Tensor:
+    return p["table"][tokens]
+
+
+def unembed(p, h: torch.Tensor) -> torch.Tensor:
+    """logits = h @ table^T (tied embeddings)."""
+    return h @ p["table"].T

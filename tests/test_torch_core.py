@@ -46,6 +46,9 @@ SLICE_MODULES = [
     "repro_torch.batch.linop",
     "repro_torch.batch.ops",
     "repro_torch.batch.solvers",
+    "repro_torch.configs",
+    "repro_torch.configs.base",
+    "repro_torch.configs.zamba2_2_7b",
     "repro_torch.convert",
     "repro_torch.core.executor",
     "repro_torch.core.linop",
@@ -56,7 +59,11 @@ SLICE_MODULES = [
     "repro_torch.kernels._build",
     "repro_torch.kernels.axpy_norm.ops",
     "repro_torch.kernels.block_jacobi.ops",
+    "repro_torch.kernels.flash_attention.kernel",
+    "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.loader_check",
+    "repro_torch.kernels.rmsnorm.kernel",
+    "repro_torch.kernels.rmsnorm.ops",
     "repro_torch.kernels.sellp_probe",
     "repro_torch.kernels.spgemm.kernel",
     "repro_torch.kernels.spgemm.ops",
@@ -66,9 +73,21 @@ SLICE_MODULES = [
     "repro_torch.kernels.spmv_ell.ops",
     "repro_torch.kernels.spmv_sellp.kernel",
     "repro_torch.kernels.spmv_sellp.ops",
+    "repro_torch.kernels.ssd.kernel",
+    "repro_torch.kernels.ssd.ops",
+    "repro_torch.kernels.ssd.ref",
     "repro_torch.launch",
     "repro_torch.launch.amg_check",
     "repro_torch.launch.batch_solve",
+    "repro_torch.launch.serve",
+    "repro_torch.launch.steps",
+    "repro_torch.models",
+    "repro_torch.models.lm",
+    "repro_torch.nn",
+    "repro_torch.nn.attention",
+    "repro_torch.nn.common",
+    "repro_torch.nn.layers",
+    "repro_torch.nn.mamba",
     "repro_torch.observability.convergence",
     "repro_torch.observability.events",
     "repro_torch.observability.metrics",

@@ -1,0 +1,282 @@
+"""The port's three LM kernels (rmsnorm, flash_attention, ssd_scan) against the
+JAX package's Pallas kernels, run in interpret mode as its own tests run them.
+
+On the CPU each CUDA kernel's wrapper takes its plain PyTorch version (the
+CUDA code runs only on the card, where ``chip_smoke.py`` holds it against
+the same plain version).  Here the plain versions, reached through the
+wrappers, and the ``torch`` / ``reference`` spaces of the registry ops
+``nn_rmsnorm`` / ``nn_attention`` / ``nn_ssd_scan`` are held against the
+Pallas kernels and their ops under ``PallasInterpretExecutor``, on
+numpy-seeded inputs with ragged shapes.
+
+Tolerances, f32: rmsnorm 1e-6 relative (one f32 reduction in another
+order); flash_attention 1e-5 of max |out| (softmax sums in another order and
+tiling); ssd_scan 1e-4 relative to max |y| (the chunked sums run in another
+order than the kernel's, and the reference space is the sequential
+recurrence).  bf16: both sides round the same f32 result to bf16, so an
+output may differ by one bf16 ulp (2^-7 relative); the Pallas flash kernel
+also rounds its probabilities to bf16 before the PV product (the port keeps
+them f32), so attention in bf16 is held to 1e-2 of max |out|.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import make_executor as jax_make_executor
+from repro.core import registry as jax_registry
+from repro.kernels.flash_attention.kernel import flash_attention as jax_flash
+from repro.kernels.rmsnorm.kernel import rmsnorm as jax_rmsnorm
+from repro.kernels.ssd.kernel import ssd_scan as jax_ssd
+from repro_torch import kernels as K
+from repro_torch.core import make_executor, registry
+from repro_torch.kernels.flash_attention.kernel import flash_smem_bytes
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_geometry
+
+BF16_ULP = 2.0 ** -7
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX and a torch array of ``dtype``."""
+    if dtype == "bfloat16":
+        return (jnp.asarray(a, jnp.bfloat16),
+                torch.from_numpy(a).to(torch.bfloat16))
+    return jnp.asarray(a, jnp.float32), torch.from_numpy(a)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.to(torch.float32).numpy()
+
+
+def _jnp(a) -> np.ndarray:
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+# -- rmsnorm --------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rows,d,dtype", [(37, 40, "float32"), (5, 130, "float32"),
+                                          (16, 64, "bfloat16"),
+                                          (9, 1000, "bfloat16")])
+def test_rmsnorm_plain_matches_pallas(rows, d, dtype):
+    rng = np.random.default_rng(rows * d)
+    x = (3 * rng.standard_normal((rows, d))).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(d)).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    want = _jnp(jax_rmsnorm(jx, jnp.asarray(w), eps=1e-5, block_rows=8,
+                            interpret=True))
+    got = K.rmsnorm(tx, torch.from_numpy(w), 1e-5)  # CPU: the plain version
+    assert got.dtype == tx.dtype
+    rtol = 1e-6 if dtype == "float32" else BF16_ULP
+    np.testing.assert_allclose(_np(got), want, rtol=rtol, atol=rtol * 1e-3)
+
+
+@pytest.mark.parametrize("space", ["torch", "reference"])
+def test_rmsnorm_op_spaces_match_pallas_executor(space):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 7, 48)).astype(np.float32)
+    w = rng.standard_normal(48).astype(np.float32)
+    want = _jnp(jax_registry.operation("nn_rmsnorm")(
+        jnp.asarray(x), jnp.asarray(w), 1e-6,
+        executor=jax_make_executor("pallas_interpret")))
+    got = registry.operation("nn_rmsnorm")(
+        torch.from_numpy(x), torch.from_numpy(w), 1e-6,
+        executor=make_executor(space))
+    np.testing.assert_allclose(_np(got), want, rtol=1e-6, atol=1e-7)
+
+
+def test_rmsnorm_geometry():
+    # the path's widths: 16-byte vectors, at most 8 a thread
+    assert rmsnorm_geometry(5120, 2, True, 4) == (True, 96, 1)
+    assert rmsnorm_geometry(2560, 2, True, 4) == (True, 64, 1)
+    assert rmsnorm_geometry(1024, 2, True, 4) == (True, 32, 4)  # a warp a row
+    assert rmsnorm_geometry(1000, 4, True, 4) == (True, 32, 4)
+    assert rmsnorm_geometry(77, 2, True, 4) == (False, 32, 4)  # not a vector multiple
+    assert rmsnorm_geometry(64, 2, False, 4) == (False, 32, 4)  # unaligned base
+    with pytest.raises(ValueError, match="registers"):
+        rmsnorm_geometry(40000, 4, True, 4)
+
+
+# -- flash attention --------------------------------------------------------------
+
+FLASH_CASES = [
+    # B, Hq, Hkv, S, Skv, D, dtype, causal
+    (1, 4, 4, 50, 50, 16, "float32", True),     # S not a tile multiple
+    (2, 4, 2, 40, 40, 20, "float32", True),     # Hkv < Hq, D = 20
+    (1, 4, 1, 24, 56, 16, "float32", True),     # Skv > S: kv_offset 32
+    (1, 4, 2, 56, 24, 20, "float32", True),     # Skv < S: 32 rows see nothing
+    (1, 4, 2, 40, 40, 16, "bfloat16", True),
+    (1, 4, 4, 33, 70, 20, "bfloat16", True),
+    (1, 2, 1, 30, 45, 16, "float32", False),
+]
+
+
+def _qkv(B, Hq, Hkv, S, Skv, D, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hq, S, D)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, Skv, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, Skv, D)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,S,Skv,D,dtype,causal", FLASH_CASES)
+def test_flash_attention_plain_matches_pallas(B, Hq, Hkv, S, Skv, D, dtype,
+                                              causal):
+    q, k, v = _qkv(B, Hq, Hkv, S, Skv, D, seed=S * Skv + D)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    want = _jnp(jax_flash(jq, jk, jv, causal=causal, block_q=16, block_kv=16,
+                          interpret=True))
+    got = K.flash_attention(tq, tk, tv, causal=causal)  # CPU: the plain version
+    assert got.dtype == tq.dtype and got.shape == (B, Hq, S, D)
+    scale = np.abs(want).max()
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=tol * scale)
+    if causal and Skv < S:  # rows before the first key are exactly 0
+        dead = S - Skv
+        assert not _np(got)[:, :, :dead].any()
+        assert not want[:, :, :dead].any()
+
+
+@pytest.mark.parametrize("space", ["torch", "reference"])
+def test_attention_op_spaces_match_pallas_executor(space):
+    q, k, v = _qkv(2, 4, 2, 37, 37, 16, seed=5)
+    want = _jnp(jax_registry.operation("nn_attention")(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        executor=jax_make_executor("pallas_interpret")))
+    got = registry.operation("nn_attention")(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True, executor=make_executor(space))
+    np.testing.assert_allclose(_np(got), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+# -- ssd scan ---------------------------------------------------------------------
+
+SSD_CASES = [
+    # B, S, H, P, G, N, Pallas chunk, dtype
+    (2, 100, 4, 16, 2, 16, 32, "float32"),   # S not a chunk multiple
+    (1, 128, 4, 20, 1, 16, 64, "float32"),
+    (1, 70, 4, 16, 2, 16, 64, "bfloat16"),
+]
+
+
+def _ssd_inputs(B, S, H, P, G, N, seed, dt_shift=-1.0, a_scale=0.5):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, H)) + dt_shift)).astype(np.float32)
+    A = (-np.exp(a_scale * rng.standard_normal(H))).astype(np.float32)
+    Bm = (0.5 * rng.standard_normal((B, S, G, N))).astype(np.float32)
+    C = (0.5 * rng.standard_normal((B, S, G, N))).astype(np.float32)
+    return x, dt, A, Bm, C
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,dtype", SSD_CASES)
+def test_ssd_scan_plain_and_reference_match_pallas(B, S, H, P, G, N, chunk,
+                                                   dtype):
+    x, dt, A, Bm, C = _ssd_inputs(B, S, H, P, G, N, seed=S + H)
+    (jx, tx), (jB, tB), (jC, tC) = (_pair(a, dtype) for a in (x, Bm, C))
+    jy, jh = jax_ssd(jx, jnp.asarray(dt), jnp.asarray(A), jB, jC, chunk=chunk,
+                     interpret=True)
+    want_y, want_h = _jnp(jy), np.asarray(jh)
+    tdt, tA = torch.from_numpy(dt), torch.from_numpy(A)
+    rtol = 1e-4 if dtype == "float32" else BF16_ULP
+    for space in ("wrapper", "torch", "reference"):
+        if space == "wrapper":  # CPU: the plain (chunked) version
+            y, h = K.ssd_scan(tx, tdt, tA, tB, tC)
+        else:
+            y, h = registry.operation("nn_ssd_scan")(
+                tx, tdt, tA, tB, tC, executor=make_executor(space))
+        assert y.dtype == tx.dtype and h.dtype == torch.float32
+        assert h.shape == (B, H, N, P)
+        np.testing.assert_allclose(_np(y), want_y, rtol=rtol,
+                                   atol=1e-4 * np.abs(want_y).max(),
+                                   err_msg=space)
+        np.testing.assert_allclose(h.numpy(), want_h, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want_h).max(),
+                                   err_msg=space)
+
+
+def test_ssd_scan_strong_decay_stays_finite():
+    """exp(acum_t - acum_s) above the diagonal overflows f32 when the decay
+    is strong; the chunked version masks before the exp, so nothing turns
+    NaN, and it still agrees with the sequential recurrence."""
+    x, dt, A, Bm, C = _ssd_inputs(1, 96, 2, 16, 1, 16, seed=3, dt_shift=4.0,
+                                  a_scale=0.0)
+    A = A * 30.0  # dt A about -150 a step: 64 steps reach exp(+9600)
+    args = [torch.from_numpy(a) for a in (x, dt, A, Bm, C)]
+    y, h = K.ssd_scan(*args)
+    yr, hr = registry.operation("nn_ssd_scan")(
+        *args, executor=make_executor("reference"))
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    np.testing.assert_allclose(y.numpy(), yr.numpy(), rtol=1e-4,
+                               atol=1e-4 * float(yr.abs().max()))
+
+
+# -- the cuda space and the wrappers' checks -----------------------------------------
+
+
+def test_cuda_space_refuses_cpu_tensors():
+    """The cuda space launches its kernel or raises; it never hands CPU
+    tensors to the plain version."""
+    ex = make_executor("cuda")
+    x = torch.ones(4, 16)
+    with pytest.raises(ValueError, match="cuda kernel space needs CUDA"):
+        registry.operation("nn_rmsnorm")(x, torch.ones(16), 1e-6, executor=ex)
+    q = torch.ones(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="cuda kernel space needs CUDA"):
+        registry.operation("nn_attention")(q, q, q, executor=ex)
+    xs, dt, A, Bm, C = (torch.from_numpy(a) for a in
+                        _ssd_inputs(1, 8, 2, 16, 1, 16, seed=0))
+    with pytest.raises(ValueError, match="cuda kernel space needs CUDA"):
+        registry.operation("nn_ssd_scan")(xs, dt, A, Bm, C, executor=ex)
+
+
+def test_wrappers_check_their_arguments():
+    with pytest.raises(ValueError, match="w shape"):
+        K.rmsnorm(torch.ones(3, 8), torch.ones(7))
+    with pytest.raises(ValueError, match="dtypes"):
+        K.rmsnorm(torch.ones(3, 8), torch.ones(8, dtype=torch.float64))
+    q = torch.ones(1, 3, 8, 16)
+    with pytest.raises(ValueError, match="not divisible"):
+        K.flash_attention(q, torch.ones(1, 2, 8, 16), torch.ones(1, 2, 8, 16))
+    xs, dt, A, Bm, C = (torch.from_numpy(a) for a in
+                        _ssd_inputs(1, 8, 2, 16, 1, 16, seed=0))
+    with pytest.raises(ValueError, match="float32"):
+        K.ssd_scan(xs, dt.double(), A, Bm, C)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.rmsnorm(torch.ones(8, 3).T, torch.ones(8))
+
+
+def test_lm_kernels_count_no_launch_on_the_cpu():
+    K.reset_launch_counts()
+    K.rmsnorm(torch.ones(3, 8), torch.ones(8))
+    q = torch.ones(1, 2, 8, 16)
+    K.flash_attention(q, q, q)
+    K.ssd_scan(*(torch.from_numpy(a) for a in
+                 _ssd_inputs(1, 8, 2, 16, 1, 16, seed=0)))
+    counts = K.launch_counts()
+    assert counts["rmsnorm"] == counts["flash_attention"] == counts["ssd_scan"] == 0
+
+
+def test_h100_launch_configs_fit_shared_memory():
+    ex = make_executor("h100")
+    assert ex.launch_config("nn_rmsnorm", {"rows": 16384, "d": 5120,
+                                           "itemsize": 2})["rows_per_block"] == 4
+    cfg = ex.launch_config("nn_attention", {"S": 2048, "Skv": 2048, "D": 160,
+                                            "itemsize": 2})
+    assert cfg["block_kv"] == 64 and cfg.smem_bytes == flash_smem_bytes(160, 2) == 66_048
+    cfg = ex.launch_config("nn_attention", {"S": 512, "Skv": 512, "D": 256,
+                                            "itemsize": 4})
+    assert cfg["block_kv"] == 32
+    assert cfg.smem_bytes == flash_smem_bytes(256, 4) <= ex.hw.smem_per_block_bytes
+    cfg = ex.launch_config("nn_ssd_scan", {"S": 2048, "N": 64, "P": 64})
+    assert cfg["chunk"] == 64 and cfg.smem_bytes == 83_456
