@@ -65,12 +65,32 @@ Phases, each of which exits non-zero on failure:
             flash_attention (the path's shape, a GQA, an offset and an f32
             shape) and ssd_scan held against their plain versions at the
             path's shapes and timed (F.rms_norm and
-            F.scaled_dot_product_attention as library calls).
+            F.scaled_dot_product_attention as library calls);
+9. rwkv6  — RWKV6-3B serving at full width and depth (32 layers, bf16,
+            3,094,374,400 random parameters from seed 0):
+            (a) repro_torch.launch.serve on the CUDA executor, 8 prompts of
+            2,048 tokens and 64 greedy tokens each, on the JAX package's
+            init: prefill ms, decode ms per step, tokens/s, peak memory, and
+            the launches exactly (rwkv6_scan_log 32 per prefill, 0 per
+            decode step, every other kernel 0); then (b)-(d) on parameters
+            whose w0, w_lora_b and mix_lora_b (zero at init) are seeded
+            draws, so the decay depends on the data: (b) the cuda space
+            against the torch space on the card (last-position prefill
+            logits and 8 teacher-forced decode steps within 0.1 of max
+            |logit|, top-1 agreement), and both bf16 routes against the f32
+            result of the same weights (the cuda space's per-position error
+            at the median and 99th percentile within 1.25 times the torch
+            space's);
+            (d) prefill(2,044) + 4 decode steps against prefill(2,048);
+            torch.profiler over one prefill and over 4 decode steps; (c)
+            full width at 8 layers in f32, the cuda space against the torch
+            space; then rwkv6_scan_log held against its plain version at the
+            path's shape (timed), a strong decay, a ragged tail and f32.
 
 It then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
-sum over the five paths' counted runs (phases 4 to 8; phase 7 counts its
-four solves, phase 8 the serve call), each run counted from 0;
+sum over the six paths' counted runs (phases 4 to 9; phase 7 counts its
+four solves, phases 8 and 9 the serve call), each run counted from 0;
 ``launches_by_path`` gives each, and
 block_jacobi_apply's storage variants carry the same per storage dtype.
 ``max_abs_err`` is the larger over the shapes the kernel was held at;
@@ -127,6 +147,21 @@ LM_BF16_TOL = 0.1
 #: f32 sums in another order only
 LM_F32_LAYERS, LM_F32_BATCH, LM_F32_PROMPT = 12, 2, 1024
 LM_F32_TOL = 1e-3
+#: the RWKV6 serving path: RWKV6-3B at full width and depth (32 layers,
+#: bf16), phase 8's size.  LM_BF16_TOL holds there too: 32 blocks of two
+#: residual adds each round the stream to bf16 at other places on the two
+#: routes, sqrt(64) 2^-8 = 3.1e-2 of its size, and 0.1 is three times that
+RWKV_ARCH = "rwkv6-3b"
+#: (b): teacher-forced decode steps compared; (c): f32 at 8 layers
+RWKV_CMP_STEPS = 8
+#: (b) also holds both bf16 routes to the f32 result of the same weights: at
+#: the median and 99th percentile over positions, the cuda space's error
+#: may exceed the torch space's by at most this factor.  Two bf16 routes
+#: that round at other places sit equally far from f32 (the spread of a
+#: median or p99 over 16,384 positions is a few per cent); a fault that
+#: added error of the size of the bf16 noise would double it
+RWKV_F32_REF_MARGIN = 1.25
+RWKV_F32_LAYERS, RWKV_F32_BATCH, RWKV_F32_PROMPT = 8, 2, 1024
 
 
 def fail(msg: str) -> None:
@@ -1710,6 +1745,336 @@ def phase_lm(torch, copy_bw):
     return {n: launches[n] for n in K.KERNELS}, summary, rows
 
 
+# -- phase 9: RWKV6-3B serving ---------------------------------------------------------
+
+
+def _perturb_rwkv(torch, params, seed: int) -> None:
+    """Replace each layer's w0, w_lora_b and mix_lora_b (zero in the JAX
+    package's init, which makes every decay e^-1 and every token-shift mix
+    data-independent) by seeded draws, in place: w0 uniform in (-3, 1.5)
+    per channel (decays e^(-e^w0) from 0.95 to 0.01), LoRA outputs of order
+    0.5, so the decay moves with the token."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for bp in params["blocks"]:
+            tm = bp["time_mix"]
+            r = tm["w_lora_b"].shape[0]
+            tm["w0"].copy_(torch.rand(tm["w0"].shape, generator=gen,
+                                      device="cuda") * 4.5 - 3.0)
+            for key, scale in (("w_lora_b", 0.8), ("mix_lora_b", 0.5)):
+                tm[key].copy_(scale / r ** 0.5 * torch.randn(
+                    tm[key].shape, generator=gen, device="cuda"))
+
+
+def _position_quantiles(torch, x, ref) -> dict:
+    """max |x - ref| over the vocabulary at each position, over max |ref|:
+    its median, 99th percentile and max; and top-1 agreement with ref."""
+    err = ((x - ref).abs().amax(-1).flatten() / float(ref.abs().max())).double()
+    q = torch.quantile(err, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                         device=err.device))
+    return {"median": float(q[0]), "p99": float(q[1]), "max": float(err.max()),
+            "top1": float((x.argmax(-1) == ref.argmax(-1)).float().mean())}
+
+
+def _rwkv_counts(torch, K, n: int, where: str) -> None:
+    """Every kernel's launches since the last reset: rwkv6_scan_log ``n``,
+    every other kernel 0."""
+    counts = K.launch_counts()
+    want = {name: (n if name == "rwkv6_scan_log" else 0) for name in counts}
+    if counts != want:
+        bad = {k: v for k, v in counts.items() if v != want[k]}
+        fail(f"{where}: kernel launches {bad}, expected rwkv6_scan_log {n} "
+             "and no other")
+
+
+def phase_rwkv_kernel(torch, copy_bw) -> dict:
+    """rwkv6_scan_log at the serving path's shape against its plain version,
+    timed (phase 3's protocol), with its bound; then a strong decay, a
+    ragged tail and f32 at smaller shapes."""
+    from repro_torch import kernels as K
+    from repro_torch.core.params import H100
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    B, S, H, D = LM_BATCH, LM_PROMPT, 40, 64
+
+    def inputs(Bq, Sq, Hq, dtype, mu):
+        r, k, v = (torch.randn(Bq, Sq, Hq, D, generator=gen,
+                               device="cuda").to(dtype) for _ in range(3))
+        logw = -torch.exp(mu + torch.randn(Bq, Sq, Hq, D, generator=gen,
+                                           device="cuda"))
+        u = (0.5 * torch.randn(Hq, D, generator=gen, device="cuda")).to(dtype)
+        return r, k, v, logw, u
+
+    def held(label, args, tol_rel):
+        """y: both sides round one f32 result to the inputs' type (one ulp,
+        tol_rel of |plain|), beside 1e-4 of max |y| for chunk sums in
+        another order; the f32 state within 1e-4 of its max."""
+        y, s = K.rwkv6_scan_log(*args)
+        yp, sp = K.rwkv6_scan_plain(*args)
+        return max(_held(torch, f"rwkv6_scan_log y {label}", y, yp, tol_rel, 1e-4),
+                   _held(torch, f"rwkv6_scan_log state {label}", s, sp, 0.0, 1e-4))
+
+    bf16 = torch.bfloat16
+    args = inputs(B, S, H, bf16, -1.0)
+    errs = [held(f"at B {B}, S {S}, H {H}, K = V = {D}, bf16", args, 2.0 ** -7)]
+    shapes = {}
+    for label, shape, mu in (("strong_decay", (2, S, 8, bf16), 2.5),
+                             ("ragged_tail", (2, S - 4, 8, bf16), -1.0),
+                             ("f32", (2, 300, 8, torch.float32), -1.0)):
+        tol = 2.0 ** -7 if shape[3] == bf16 else 0.0
+        errs.append(held(f"{label} {shape[:3]}", inputs(*shape, mu), tol))
+        shapes[label] = dict(zip(("B", "S", "H"), shape[:3]), K=D, V=D,
+                             dtype=str(shape[3]).removeprefix("torch."),
+                             logw_mu=mu, max_abs_err=errs[-1])
+    y1, s1 = K.rwkv6_scan_log(*args)
+    y2, s2 = K.rwkv6_scan_log(*args)
+    if not (torch.equal(y1, y2) and torch.equal(s1, s2)):
+        fail("rwkv6_scan_log: a repeat is not bitwise equal")
+    del y1, s1, y2, s2
+    # bytes: r, k, v, u read and y written in bf16, logw read in f32, the
+    # state written in f32; operations: the chunk products of the ratio form
+    L = 32
+    chunks = -(-S // L)
+    lower = L * (L - 1) // 2  # pairs s < t of a chunk
+    nbytes = 4 * B * S * H * D * 2 + B * S * H * D * 4 + B * H * D * D * 4 + H * D * 2
+    flops = B * H * chunks * (4 * L * D * D + 2 * lower * D + 4 * lower * D)
+    row = kernel_row(torch, flush, copy_bw, "rwkv6_scan_log", "rwkv6_scan.cu",
+                     "src/repro/kernels/rwkv6/kernel.py:124", max(errs),
+                     lambda: K.rwkv6_scan_log(*args),
+                     lambda: K.rwkv6_scan_plain(*args), nbytes, flops,
+                     peak_flops=H100.peak_flops_bf16)
+    row["shape"] = {"B": B, "S": S, "H": H, "K": D, "V": D, "chunk": L,
+                    "dtype": "bfloat16", "logw_mu": -1.0}
+    row["held_at"] = shapes
+    row["exponentials"] = B * H * chunks * (lower * D + 2 * L * D + D)
+    say("[kernels] rwkv6_scan_log library_ms: null — no single PyTorch call "
+        "computes the WKV6 scan")
+    return {"rwkv6_scan_log": row}
+
+
+def phase_rwkv(torch, copy_bw):
+    """RWKV6-3B serving at full width and depth (bf16) through
+    ``repro_torch.launch.serve`` on the CUDA executor, then the checks."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_executor
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.models import lm
+
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config(RWKV_ARCH)
+    ex = make_executor("cuda")
+    ex_t = make_executor("torch", device=dev)
+    B, S, gen_len = LM_BATCH, LM_PROMPT, LM_GEN
+    summary = {"arch": cfg.name, "batch": B, "prompt_len": S, "gen_len": gen_len}
+
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    summary.update(init_s=time.perf_counter() - t0, params=n_params,
+                   param_bytes=n_bytes)
+    say(f"[rwkv6] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.d_model // cfg.rwkv_head_dim} heads of {cfg.rwkv_head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
+        f"({n_bytes / 1e9:.3f} GB), init {summary['init_s']:.2f} s")
+
+    # (a) the counted run: the user's entry point, on the JAX package's init
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    res = serve_lib.serve(cfg, batch=B, prompt_len=S, gen_len=gen_len,
+                          seed=SEED, executor=ex, device=dev, params=params)
+    launches = K.launch_counts()
+    _rwkv_counts(torch, K, cfg.n_layers, "serve")
+    if res.tokens.shape != (B, gen_len) or not (
+            0 <= int(res.tokens.min()) and int(res.tokens.max()) < cfg.vocab):
+        fail(f"serve produced tokens of shape {tuple(res.tokens.shape)} or out "
+             "of the vocabulary")
+    if not _finite(torch, res.prefill_logits) or not all(
+            _finite(torch, lg) for lg in res.step_logits):
+        fail("serve produced non-finite logits")
+    decode_ms = res.decode_s / (gen_len - 1) * 1e3
+    summary.update(prefill_ms=res.prefill_s * 1e3, decode_ms_per_step=decode_ms,
+                   decode_tokens_per_s=res.tokens_per_s,
+                   prefill_tokens_per_s=B * S / res.prefill_s,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches={"rwkv6_scan_log": launches["rwkv6_scan_log"]})
+    say(f"[rwkv6] (a) serve {B} x {S} + {gen_len} greedy tokens: prefill "
+        f"{res.prefill_s * 1e3:.1f} ms ({B * S / res.prefill_s:.0f} tokens/s), "
+        f"decode {decode_ms:.2f} ms per step ({res.tokens_per_s:.1f} tokens/s); "
+        f"peak memory {summary['peak_memory_gb']:.2f} GB; launches "
+        f"{summary['launches']}")
+    prompt = res.prompt
+    del res
+
+    # (b)-(d) on parameters whose decay and mix depend on the data
+    _perturb_rwkv(torch, params, SEED + 9)
+    with torch.inference_mode():
+        # (b) the cuda space: prefill (counted, timed warm) and greedy steps
+        cache = lm.init_cache(cfg, B, S + RWKV_CMP_STEPS, device=dev)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lc, cache = lm.prefill(params, cfg, prompt, cache=cache, executor=ex)
+        torch.cuda.synchronize()
+        summary["warm_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        _rwkv_counts(torch, K, cfg.n_layers, "prefill")
+        tokens = [lc[:, -1].argmax(-1)]
+        steps_c = []
+        for j in range(RWKV_CMP_STEPS):
+            K.reset_launch_counts()
+            lg, cache = lm.decode_step(params, cfg, tokens[-1][:, None],
+                                       length=S + j, cache=cache, executor=ex)
+            _rwkv_counts(torch, K, 0, f"decode step {j}")
+            steps_c.append(lg[:, -1])
+            tokens.append(lg[:, -1].argmax(-1))
+        del cache
+        if not _finite(torch, lc) or not all(_finite(torch, x) for x in steps_c):
+            fail("the perturbed model produced non-finite logits")
+        say(f"[rwkv6] warm prefill of {B} x {S} (perturbed decays): "
+            f"{summary['warm_prefill_ms']:.1f} ms")
+
+        # (d) prefill(S - 4) + 4 decode steps against the full prefill
+        cache = lm.init_cache(cfg, B, S, device=dev)
+        K.reset_launch_counts()
+        lm.prefill(params, cfg, prompt[:, :S - 4], cache=cache, executor=ex)
+        _rwkv_counts(torch, K, cfg.n_layers, f"prefill({S - 4})")
+        errs_d = []
+        for j in range(4):
+            K.reset_launch_counts()
+            lg, cache = lm.decode_step(params, cfg, prompt[:, S - 4 + j:S - 3 + j],
+                                       length=S - 4 + j, cache=cache, executor=ex)
+            _rwkv_counts(torch, K, 0, f"split decode step {j}")
+            errs_d.append(_rel_err(lg[:, -1], lc[:, S - 4 + j]))
+        err_d = max(errs_d)
+        say(f"[rwkv6] (d) prefill({S - 4}) + 4 decode steps against "
+            f"prefill({S}): error {err_d:.3e} of max |logit| (tolerance "
+            f"{LM_BF16_TOL}; per step {[f'{e:.3e}' for e in errs_d]})")
+        if not err_d <= LM_BF16_TOL:
+            fail("the split prefill disagrees with the full prefill")
+        summary["split_prefill_error"] = err_d
+
+        def decode4(tokens=tokens[0]):
+            for j in range(4):
+                logits, _ = lm.decode_step(params, cfg, tokens[:, None],
+                                           length=S + j, cache=cache,
+                                           executor=ex)
+                tokens = torch.argmax(logits[:, -1], dim=-1)
+
+        summary["profile_decode"] = _device_profile(
+            torch, decode4, "rwkv6 4 decode steps", 4, "step")
+        del cache
+        cache_p = lm.init_cache(cfg, B, S, device=dev)
+        summary["profile_prefill"] = _device_profile(
+            torch, lambda: lm.prefill(params, cfg, prompt, cache=cache_p,
+                                      executor=ex),
+            f"rwkv6 prefill of {B} x {S}", 1, "prefill")
+        del cache_p
+
+        # (b) the torch space on the card, teacher-forced with (b)'s tokens
+        K.reset_launch_counts()
+        cache_t = lm.init_cache(cfg, B, S + RWKV_CMP_STEPS, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lt, cache_t = lm.prefill(params, cfg, prompt, cache=cache_t,
+                                 executor=ex_t)
+        torch.cuda.synchronize()
+        t_prefill_t = time.perf_counter() - t0
+        err_all = _rel_err(lt, lc)
+        err_p = _rel_err(lt[:, -1], lc[:, -1])
+        agree = [(lt.argmax(-1) == lc.argmax(-1)).float().mean()]
+        # both bf16 routes against the f32 result of the same parameters
+        # (the torch space in f32, TF32 off), position by position
+        pf = copy.deepcopy(params).float()
+        cfg_f = dataclasses.replace(cfg, dtype="float32")
+        lf, _ = lm.prefill(pf, cfg_f, prompt, executor=ex_t,
+                           cache=lm.init_cache(cfg_f, B, S, device=dev))
+        del pf
+        to_f32 = {space: _position_quantiles(torch, x, lf)
+                  for space, x in (("cuda", lc), ("torch", lt))}
+        del lf, lt, lc
+        errs = []
+        for j in range(RWKV_CMP_STEPS):
+            lg, cache_t = lm.decode_step(params, cfg, tokens[j][:, None],
+                                         length=S + j, cache=cache_t,
+                                         executor=ex_t)
+            errs.append(_rel_err(lg[:, -1], steps_c[j]))
+            agree.append((lg[:, -1].argmax(-1) == steps_c[j].argmax(-1))
+                         .float().mean())
+        counts_t = K.launch_counts()
+        del cache_t
+    top1 = float(torch.stack(agree).mean())
+    say(f"[rwkv6] (b) torch space on the card: prefill {t_prefill_t * 1e3:.1f} "
+        f"ms; last-position prefill logits error {err_p:.3e}, decode steps' "
+        f"largest {max(errs):.3e} of max |logit| (tolerance {LM_BF16_TOL}); "
+        f"every position {err_all:.3e}; top-1 agreement {top1:.4f}")
+    for space, q in to_f32.items():
+        say(f"[rwkv6] (b) {space} space bf16 against f32, per position: "
+            f"median {q['median']:.3e}, p99 {q['p99']:.3e}, max {q['max']:.3e} "
+            f"of max |logit|; top-1 agreement {q['top1']:.4f}")
+    if any(counts_t.values()):
+        fail(f"the torch space launched a kernel: {counts_t}")
+    if not max(err_p, *errs) <= LM_BF16_TOL:
+        fail("the cuda and torch spaces disagree on the RWKV6 serving path")
+    for key in ("median", "p99"):
+        if not to_f32["cuda"][key] <= RWKV_F32_REF_MARGIN * to_f32["torch"][key]:
+            fail(f"the cuda space is farther from f32 than the torch space "
+                 f"({key} {to_f32['cuda'][key]:.3e} against "
+                 f"{to_f32['torch'][key]:.3e})")
+    summary.update(torch_space_prefill_ms=t_prefill_t * 1e3,
+                   torch_space_prefill_error=err_p,
+                   torch_space_all_positions_error=err_all,
+                   torch_space_decode_error=max(errs), top1_agreement=top1,
+                   bf16_against_f32=to_f32)
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) full width, 8 layers, f32: the kernel cannot hide in bf16 noise
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, n_layers=RWKV_F32_LAYERS, dtype="float32")
+    p32 = lm.init_model(cfg32, torch.Generator(dev).manual_seed(SEED + 1), dev)
+    _perturb_rwkv(torch, p32, SEED + 2)
+    toks = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        0, cfg.vocab, size=(RWKV_F32_BATCH, RWKV_F32_PROMPT)), device=dev)
+    out32 = {}
+    with torch.inference_mode():
+        for space, exe in (("cuda", ex), ("torch", ex_t)):
+            c32 = lm.init_cache(cfg32, RWKV_F32_BATCH, RWKV_F32_PROMPT + 1,
+                                device=dev)
+            lg, c32 = lm.prefill(p32, cfg32, toks, cache=c32, executor=exe)
+            ld, c32 = lm.decode_step(p32, cfg32, toks[:, -1:],
+                                     length=RWKV_F32_PROMPT, cache=c32,
+                                     executor=exe)
+            out32[space] = (lg, ld, c32.wkv.clone())
+    err_c = _rel_err(out32["cuda"][0], out32["torch"][0])
+    err_cd = _rel_err(out32["cuda"][1], out32["torch"][1])
+    err_cs = _rel_err(out32["cuda"][2], out32["torch"][2])
+    say(f"[rwkv6] (c) f32, {RWKV_F32_LAYERS} layers, {RWKV_F32_BATCH} x "
+        f"{RWKV_F32_PROMPT}: prefill logits error {err_c:.3e}, decode step "
+        f"{err_cd:.3e} of max |logit|, WKV states {err_cs:.3e} of their max "
+        f"(tolerance {LM_F32_TOL})")
+    if not max(err_c, err_cd, err_cs) <= LM_F32_TOL:
+        fail("the f32 RWKV6 path disagrees between the cuda and torch spaces")
+    summary.update(f32_prefill_error=err_c, f32_decode_error=err_cd,
+                   f32_state_error=err_cs)
+    del p32, out32
+    torch.cuda.empty_cache()
+
+    rows = phase_rwkv_kernel(torch, copy_bw)
+    return {n: launches[n] for n in K.KERNELS}, summary, rows
+
+
 def main() -> None:
     import torch
 
@@ -1761,6 +2126,8 @@ def main() -> None:
     rows.update(batch_rows)
     lm_launches, path["zamba2_serve"], lm_rows = phase_lm(torch, copy_bw)
     rows.update(lm_rows)
+    rwkv_launches, path["rwkv6_serve"], rwkv_rows = phase_rwkv(torch, copy_bw)
+    rows.update(rwkv_rows)
 
     # a kernel also held at a later path's shapes: that row, and the larger
     # error (for block_jacobi_apply, in the variant of its storage)
@@ -1778,14 +2145,15 @@ def main() -> None:
         if variants:
             entry["max_abs_err"] = max(v["max_abs_err"] for v in variants)
 
-    # launches: the sum over the four paths' counted runs, and each path's;
+    # launches: the sum over the six paths' counted runs, and each path's;
     # block_jacobi_apply's storage variants likewise, per storage dtype
     for name, entry in rows.items():
         entry["launches_by_path"] = {"block_jacobi_cg": launches.get(name, 0),
                                      "amg_check": amg_launches[name],
                                      "sellp_cg": sellp_launches[name],
                                      "batch_solve": batch_launches[name],
-                                     "zamba2_serve": lm_launches[name]}
+                                     "zamba2_serve": lm_launches[name],
+                                     "rwkv6_serve": rwkv_launches[name]}
         entry["launches"] = sum(entry["launches_by_path"].values())
         for var in entry.get("storage_variants", ()):
             var["launches_by_path"] = {
@@ -1793,7 +2161,8 @@ def main() -> None:
                 "amg_check": amg_storage.get(var["storage"], 0),
                 "sellp_cg": 0,
                 "batch_solve": batch_storage.get(var["storage"], 0),
-                "zamba2_serve": 0}
+                "zamba2_serve": 0,
+                "rwkv6_serve": 0}
             var["launches"] = sum(var["launches_by_path"].values())
     for name, entry in rows.items():
         if entry["launches"] <= 0:

@@ -33,8 +33,8 @@ ARCH_IDS = (
     "pixtral_12b",
 )
 
-#: architectures whose family the port runs (the hybrid family so far)
-PORTED_ARCHS = ("zamba2_2_7b",)
+#: architectures whose family the port runs (the hybrid and rwkv6 families)
+PORTED_ARCHS = ("zamba2_2_7b", "rwkv6_3b")
 
 ARCH_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

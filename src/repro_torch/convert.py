@@ -170,16 +170,29 @@ def lm_params(cfg, params: Mapping, *, device=None):
     arrays: ``jax.tree_util.tree_map(np.asarray, params)``) as the port's
     :class:`~repro_torch.nn.common.ParamTree` for ``cfg``.
 
-    The stacked layers are unstacked: ``mamba`` leaves ``(G, per, ...)``
-    become ``G`` lists of ``per`` layers, ``lora`` leaves ``(G, ...)`` ``G``
-    layers.  Every leaf's shape and dtype is checked against the port's own
-    init for ``cfg``, and a missing or left-over key raises."""
+    The stacked layers are unstacked: for the hybrid family ``mamba`` leaves
+    ``(G, per, ...)`` become ``G`` lists of ``per`` layers and ``lora``
+    leaves ``(G, ...)`` ``G`` layers; for RWKV6 the nested ``blocks`` tree
+    (``ln1``, ``time_mix``, ``ln2``, ``channel_mix``), whose leaves are
+    ``(n_layers, ...)``, becomes ``n_layers`` layers of the same tree.  Every
+    leaf's shape and dtype is checked against the port's own init for
+    ``cfg``, and a missing or left-over key raises."""
     from repro_torch.models import lm
     from repro_torch.nn.common import ParamTree
 
     expected = lm.init_model(cfg, device="meta")
-    G, per = lm._zamba_groups(cfg)
     src = dict(params)
+
+    def take(node, j, n, where):
+        """Layer ``j`` of a stacked (sub)tree whose leaves lead with ``n``."""
+        if isinstance(node, Mapping):
+            return {key: take(leaf, j, n, f"{where}.{key}")
+                    for key, leaf in node.items()}
+        a = np.asarray(node)
+        if a.shape[:1] != (n,):
+            raise ValueError(f"{where}: stacked shape {a.shape} does not lead "
+                             f"with {n}")
+        return a[j]
 
     def unstack(tree, dims, where):
         """Split the leading ``dims`` axes of every leaf into nested lists."""
@@ -188,24 +201,20 @@ def lm_params(cfg, params: Mapping, *, device=None):
         n = dims[0]
         out = []
         for j in range(n):
-            layer = {}
-            for key, leaf in tree.items():
-                if isinstance(leaf, Mapping):
-                    raise ValueError(f"{where}.{key}: nested stacked trees are "
-                                     "not expected")
-                a = np.asarray(leaf)
-                if a.shape[:1] != (n,):
-                    raise ValueError(f"{where}.{key}: stacked shape "
-                                     f"{a.shape} does not lead with {n}")
-                layer[key] = a[j]
+            layer = take(tree, j, n, where)
             out.append(unstack(layer, dims[1:], f"{where}[{j}]")
                        if len(dims) > 1 else layer)
         return out
 
-    if "mamba" in src:
-        src["mamba"] = unstack(src["mamba"], (G, per), "mamba")
-    if "lora" in src:
-        src["lora"] = unstack(src["lora"], (G,), "lora")
+    if cfg.family == "rwkv6":
+        if "blocks" in src:
+            src["blocks"] = unstack(src["blocks"], (cfg.n_layers,), "blocks")
+    else:
+        G, per = lm._zamba_groups(cfg)
+        if "mamba" in src:
+            src["mamba"] = unstack(src["mamba"], (G, per), "mamba")
+        if "lora" in src:
+            src["lora"] = unstack(src["lora"], (G,), "lora")
 
     def build(node, ref, where):
         if isinstance(ref, torch.Tensor):

@@ -6,8 +6,8 @@ first use); one directory per kernel family holds
 * ``kernel.py`` — the wrapper (checks, launch, launch count) and the plain
   PyTorch version it is held against;
 * ``ops.py``    — the registry binding for the ``cuda`` space and the
-  family's tuning spec (for the LM kernels ``rmsnorm``, ``flash_attention``
-  and ``ssd``, also their ``reference`` and ``torch`` spaces).
+  family's tuning spec (for the LM kernels ``rmsnorm``, ``flash_attention``,
+  ``ssd`` and ``rwkv6``, also their ``reference`` and ``torch`` spaces).
 
 Importing this package registers the ``cuda`` implementations.
 """
@@ -26,6 +26,11 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_plain,
 )
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rwkv6.kernel import (
+    rwkv6_scan,
+    rwkv6_scan_log,
+    rwkv6_scan_plain,
+)
 from repro_torch.kernels.spgemm.kernel import (
     csr_permute,
     csr_permute_plain,
@@ -45,6 +50,7 @@ import repro_torch.kernels.axpy_norm.ops  # noqa: E402,F401
 import repro_torch.kernels.block_jacobi.ops  # noqa: E402,F401
 import repro_torch.kernels.flash_attention.ops  # noqa: E402,F401
 import repro_torch.kernels.rmsnorm.ops  # noqa: E402,F401
+import repro_torch.kernels.rwkv6.ops  # noqa: E402,F401
 import repro_torch.kernels.spgemm.ops  # noqa: E402,F401
 import repro_torch.kernels.spmv_dot.ops  # noqa: E402,F401
 import repro_torch.kernels.spmv_batch_ell.ops  # noqa: E402,F401
@@ -66,6 +72,7 @@ KERNELS = {
     "rmsnorm": rmsnorm,
     "flash_attention": flash_attention,
     "ssd_scan": ssd_scan,
+    "rwkv6_scan_log": rwkv6_scan_log,
 }
 
 
@@ -95,6 +102,9 @@ __all__ = [
     "flash_attention_plain",
     "rmsnorm",
     "rmsnorm_plain",
+    "rwkv6_scan",
+    "rwkv6_scan_log",
+    "rwkv6_scan_plain",
     "spgemm_expand",
     "spgemm_expand_plain",
     "spmv_batch_ell",

@@ -8,13 +8,14 @@ random prompts from ``--seed``, one prefill that fills the cache, then
 ``--device cpu`` is given, and raises without a card::
 
     python -m repro_torch.launch.serve --arch zamba2-2.7b            # the card
-    python -m repro_torch.launch.serve --arch zamba2-2.7b --batch 8 \\
+    python -m repro_torch.launch.serve --arch rwkv6-3b --batch 8 \\
         --prompt-len 2048 --gen-len 64
-    python -m repro_torch.launch.serve --arch zamba2-2.7b --smoke \\
+    python -m repro_torch.launch.serve --arch rwkv6-3b --smoke \\
         --device cpu --executor torch
 
-Only the hybrid family (Zamba2) is ported; other archs raise
-``NotImplementedError`` (ROADMAP A15).
+This entry point is family-neutral: it runs every family ``models.lm``
+ports, the hybrid (Zamba2) and RWKV6 (Finch) families so far; other archs
+raise ``NotImplementedError`` (ROADMAP A15).
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 of ``repro/launch/steps.py`` (the training steps are not ported yet).
 
 Each step returns the last position's logits (the next-token distribution)
-and the cache, which the model updates in place.
+and the cache, which the model updates in place.  The steps are
+family-neutral: they serve whatever family ``models.lm`` ports.
 """
 
 from __future__ import annotations

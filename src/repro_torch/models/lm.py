@@ -1,4 +1,5 @@
-"""Language models: the port of ``repro/models/lm.py`` for the hybrid family.
+"""Language models: the port of ``repro/models/lm.py`` for the hybrid and
+RWKV6 families.
 
 One contract, as in the JAX package:
 
@@ -10,20 +11,24 @@ One contract, as in the JAX package:
 
 The hybrid family is Zamba2: groups of Mamba2 layers, each group followed by
 a shared attention + MLP block at width 2 d over concat(hidden, original
-embedding), with per-group LoRA deltas on the shared q/k/v.  The JAX
-package's ``lax.scan`` over stacked layers is a Python loop over
-``nn.ModuleList``s here (``params["mamba"][g][i]``, ``params["lora"][g]``).
-Every hot op dispatches through the registry (``nn_rmsnorm``,
-``nn_attention``, ``nn_ssd_scan``), so the same model runs on the
-reference, torch and cuda executors.
+embedding), with per-group LoRA deltas on the shared q/k/v.  The RWKV6
+family is Finch: a layernorm on the embedding (``ln0``), then blocks of
+layernorm, time-mix (the WKV scan), layernorm, channel-mix, and a layernorm
+before the head.  The JAX package's ``lax.scan`` over stacked layers is a
+Python loop over ``nn.ModuleList``s here (``params["mamba"][g][i]``,
+``params["lora"][g]``, ``params["blocks"][i]``).  Every hot op dispatches
+through the registry (``nn_rmsnorm``, ``nn_attention``, ``nn_ssd_scan``,
+``nn_rwkv6_scan``), so the same model runs on the reference, torch and cuda
+executors.
 
 The cache keeps the JAX package's stacked layout (``(G, per, B, ...)`` for
-the Mamba state, ``(G, B, Hkv, Smax, D)`` for the KV cache); ``prefill`` and
-``decode_step`` write it in place and return it.
+the Mamba state, ``(G, B, Hkv, Smax, D)`` for the KV cache, ``(n_layers, B,
+H, K, V)`` f32 for the WKV state and ``(n_layers, B, d)`` for the token
+shifts); ``prefill`` and ``decode_step`` write it in place and return it.
 
-The transformer (dense / MLA / MoE) and RWKV6 families, the stub-embedding
-frontend and sinusoidal positions, and the loss (training) are not ported
-yet (ROADMAP A15); asking for them raises ``NotImplementedError``.
+The transformer (dense / MLA / MoE) families, the stub-embedding frontend
+and sinusoidal positions, and the loss (training) are not ported yet
+(ROADMAP A15); asking for them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,11 +41,14 @@ import torch
 from repro_torch.core.executor import default_device
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import mamba as mamba_lib
+from repro_torch.nn import rwkv as rwkv_lib
 from repro_torch.nn.attention import KVCache
 from repro_torch.nn.common import Initializer, ParamTree
 from repro_torch.nn.layers import (
     embed,
     embedding_init,
+    layernorm,
+    layernorm_init,
     rmsnorm,
     rmsnorm_init,
     swiglu,
@@ -48,6 +56,7 @@ from repro_torch.nn.layers import (
     unembed,
 )
 from repro_torch.nn.mamba import MambaState
+from repro_torch.nn.rwkv import RWKVState
 
 __all__ = ["init_model", "forward", "init_cache", "prefill", "decode_step"]
 
@@ -59,22 +68,62 @@ def _dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+#: the families the port runs, each with the norm its configuration uses
+_PORTED_NORMS = {"hybrid": "rmsnorm", "rwkv6": "layernorm"}
+
+
 def _require_ported(cfg) -> None:
-    if cfg.family != "hybrid":
+    if cfg.family not in _PORTED_NORMS:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            "repro_torch yet (ROADMAP A15); the hybrid family is")
+            "repro_torch yet (ROADMAP A15); the hybrid and rwkv6 families are")
     if cfg.frontend != "tokens" or cfg.pos_kind != "rope":
         raise NotImplementedError(
             f"{cfg.name}: frontend {cfg.frontend!r} / positions "
             f"{cfg.pos_kind!r} are not ported yet (ROADMAP A15)")
-    if cfg.norm_kind != "rmsnorm":
+    if cfg.norm_kind != _PORTED_NORMS[cfg.family]:
         raise NotImplementedError(f"{cfg.name}: norm {cfg.norm_kind!r} is not "
-                                  "ported yet (ROADMAP A15)")
+                                  f"ported yet for the {cfg.family!r} family "
+                                  "(ROADMAP A15)")
 
 
 def _norm(p, x, cfg, executor=None):
+    if cfg.norm_kind == "layernorm":
+        return layernorm(p, x, cfg.norm_eps)
     return rmsnorm(p, x, cfg.norm_eps, executor=executor)
+
+
+# =============================================================================
+# rwkv6 family
+# =============================================================================
+
+
+def _rwkv_block_init(ini: Initializer, cfg) -> dict:
+    return {
+        "ln1": layernorm_init(ini, cfg.d_model),
+        "time_mix": rwkv_lib.time_mix_init(ini, cfg),
+        "ln2": layernorm_init(ini, cfg.d_model),
+        "channel_mix": rwkv_lib.channel_mix_init(ini, cfg),
+    }
+
+
+def _rwkv_block_forward(bp, x, cfg, state=None, executor=None):
+    h = layernorm(bp["ln1"], x, cfg.norm_eps)
+    a, state = rwkv_lib.time_mix_forward(bp["time_mix"], h, cfg, state,
+                                         executor=executor)
+    x = x + a
+    h = layernorm(bp["ln2"], x, cfg.norm_eps)
+    c, state = rwkv_lib.channel_mix_forward(bp["channel_mix"], h, cfg, state)
+    return x + c, state
+
+
+def _rwkv_block_step(bp, x, cfg, state):
+    h = layernorm(bp["ln1"], x, cfg.norm_eps)
+    a, state = rwkv_lib.time_mix_step(bp["time_mix"], h, cfg, state)
+    x = x + a
+    h = layernorm(bp["ln2"], x, cfg.norm_eps)
+    c, state = rwkv_lib.channel_mix_forward(bp["channel_mix"], h, cfg, state)
+    return x + c, state
 
 
 # =============================================================================
@@ -166,15 +215,20 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
     if generator is None and dev.type != "meta":
         generator = torch.Generator(dev).manual_seed(0)
     ini = Initializer(generator, _dtype(cfg), dev)
-    G, per = _zamba_groups(cfg)
     params: Dict[str, Any] = {
-        "embedding": embedding_init(ini, cfg.vocab, cfg.d_model),
-        "mamba": [[mamba_lib.mamba_init(ini, cfg) for _ in range(per)]
-                  for _ in range(G)],
-        "shared": _zamba_shared_init(ini, cfg),
-        "lora": [_zamba_lora_init(ini, cfg) for _ in range(G)],
-        "final_norm": rmsnorm_init(ini, cfg.d_model),
-    }
+        "embedding": embedding_init(ini, cfg.vocab, cfg.d_model)}
+    if cfg.family == "rwkv6":
+        params["ln0"] = layernorm_init(ini, cfg.d_model)  # rwkv normalises the embedding
+        params["blocks"] = [_rwkv_block_init(ini, cfg)
+                            for _ in range(cfg.n_layers)]
+        params["final_norm"] = layernorm_init(ini, cfg.d_model)
+    else:
+        G, per = _zamba_groups(cfg)
+        params["mamba"] = [[mamba_lib.mamba_init(ini, cfg) for _ in range(per)]
+                           for _ in range(G)]
+        params["shared"] = _zamba_shared_init(ini, cfg)
+        params["lora"] = [_zamba_lora_init(ini, cfg) for _ in range(G)]
+        params["final_norm"] = rmsnorm_init(ini, cfg.d_model)
     if not cfg.tie_embeddings:
         params["lm_head"] = ini.param((cfg.d_model, cfg.vocab),
                                       std=cfg.d_model ** -0.5)
@@ -214,8 +268,13 @@ def forward(params, cfg, tokens: torch.Tensor, embeds=None, *,
         raise NotImplementedError("the stub-embedding frontend is not ported "
                                   "yet (ROADMAP A15)")
     B, S = tokens.shape
-    positions = _positions(B, S, 0, tokens.device)
     h = _inputs_to_h(params, cfg, tokens)
+    if cfg.family == "rwkv6":
+        h = layernorm(params["ln0"], h, cfg.norm_eps)
+        for bp in params["blocks"]:
+            h, _ = _rwkv_block_forward(bp, h, cfg, executor=executor)
+        return _head(params, cfg, h, executor), {}
+    positions = _positions(B, S, 0, tokens.device)
     emb0 = h
     G, per = _zamba_groups(cfg)
     for g in range(G):
@@ -235,13 +294,24 @@ def forward(params, cfg, tokens: torch.Tensor, embeds=None, *,
 # =============================================================================
 
 
-def init_cache(cfg, batch: int, s_max: int, device=None) -> Dict[str, Any]:
-    """Zeroed Mamba state ``(G, per, B, ...)`` and KV cache
-    ``(G, B, Hkv, s_max, D)`` on ``device`` (the card unless asked
-    otherwise)."""
+def init_cache(cfg, batch: int, s_max: int, device=None):
+    """The zeroed cache on ``device`` (the card unless asked otherwise):
+    for the hybrid family the Mamba state ``(G, per, B, ...)`` and KV cache
+    ``(G, B, Hkv, s_max, D)``; for RWKV6 an :class:`RWKVState` of WKV states
+    ``(n_layers, B, H, K, V)`` f32 and token shifts ``(n_layers, B, d)``
+    (no position axis: ``s_max`` is not used)."""
     _require_ported(cfg)
     dev = torch.device(device) if device is not None else default_device()
     dt = _dtype(cfg)
+    if cfg.family == "rwkv6":
+        H, K = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        shift = (cfg.n_layers, batch, cfg.d_model)
+        return RWKVState(
+            wkv=torch.zeros((cfg.n_layers, batch, H, K, K),
+                            dtype=torch.float32, device=dev),
+            shift_tm=torch.zeros(shift, dtype=dt, device=dev),
+            shift_cm=torch.zeros(shift, dtype=dt, device=dev),
+        )
     G, per = _zamba_groups(cfg)
     d_inner = cfg.ssm_expand * cfg.d_model
     H = d_inner // cfg.ssm_head_dim
@@ -274,6 +344,17 @@ def _group_kv(cache, g: int) -> KVCache:
     return KVCache(k=cache["kv"].k[g], v=cache["kv"].v[g])
 
 
+def _rwkv_layer(cache: RWKVState, i: int) -> RWKVState:
+    return RWKVState(wkv=cache.wkv[i], shift_tm=cache.shift_tm[i],
+                     shift_cm=cache.shift_cm[i])
+
+
+def _rwkv_store(cache: RWKVState, i: int, st: RWKVState) -> None:
+    cache.wkv[i].copy_(st.wkv)
+    cache.shift_tm[i].copy_(st.shift_tm)
+    cache.shift_cm[i].copy_(st.shift_cm)
+
+
 def prefill(params, cfg, tokens: torch.Tensor = None, embeds=None, cache=None,
             *, executor=None):
     """Process a prompt, fill the cache at offset 0 (in place), return the
@@ -283,8 +364,16 @@ def prefill(params, cfg, tokens: torch.Tensor = None, embeds=None, cache=None,
         raise NotImplementedError("the stub-embedding frontend is not ported "
                                   "yet (ROADMAP A15)")
     B, S = tokens.shape
-    positions = _positions(B, S, 0, tokens.device)
     h = _inputs_to_h(params, cfg, tokens)
+    if cfg.family == "rwkv6":
+        # the WKV scan starts from zero, whatever the cache holds (C5)
+        h = layernorm(params["ln0"], h, cfg.norm_eps)
+        for i, bp in enumerate(params["blocks"]):
+            h, st = _rwkv_block_forward(bp, h, cfg, _rwkv_layer(cache, i),
+                                        executor=executor)
+            _rwkv_store(cache, i, st)
+        return _head(params, cfg, h, executor), cache
+    positions = _positions(B, S, 0, tokens.device)
     emb0 = h
     G, per = _zamba_groups(cfg)
     for g in range(G):
@@ -313,8 +402,14 @@ def decode_step(params, cfg, tokens: torch.Tensor = None, embeds=None,
                                   "yet (ROADMAP A15)")
     length = int(length)
     B = tokens.shape[0]
-    positions = _positions(B, 1, length, tokens.device)
     h = _inputs_to_h(params, cfg, tokens)
+    if cfg.family == "rwkv6":
+        h = layernorm(params["ln0"], h, cfg.norm_eps)
+        for i, bp in enumerate(params["blocks"]):
+            h, st = _rwkv_block_step(bp, h, cfg, _rwkv_layer(cache, i))
+            _rwkv_store(cache, i, st)
+        return _head(params, cfg, h, executor), cache
+    positions = _positions(B, 1, length, tokens.device)
     emb0 = h
     G, per = _zamba_groups(cfg)
     for g in range(G):

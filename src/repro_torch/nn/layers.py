@@ -1,11 +1,13 @@
-"""Basic layers: linear, RMSNorm, rotary embeddings, SwiGLU, embeddings.
+"""Basic layers: linear, RMSNorm, LayerNorm, group norm, rotary embeddings,
+SwiGLU, embeddings.
 
-The port of ``repro/nn/layers.py`` for the families the port carries.  The
-norm goes through the registered ``nn_rmsnorm`` operation (reference / torch
-/ cuda); matrix products are plain ``@`` on the JAX layout (``(d_in, d_out)``
-weights, ``x @ W``), which PyTorch sends to cuBLAS on the card as the JAX
-package left them to XLA.  LayerNorm, GELU and group norm wait for the
-families that use them (ROADMAP A15).
+The port of ``repro/nn/layers.py`` for the families the port carries.
+RMSNorm goes through the registered ``nn_rmsnorm`` operation (reference /
+torch / cuda); LayerNorm and the parameter-free group norm are plain
+PyTorch, as the JAX package has no Pallas kernel for them.  Matrix products
+are plain ``@`` on the JAX layout (``(d_in, d_out)`` weights, ``x @ W``),
+which PyTorch sends to cuBLAS on the card as the JAX package left them to
+XLA.  GELU waits for the family that uses it (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from repro_torch.nn.common import Initializer, ones, zeros
 import repro_torch.kernels  # noqa: F401
 
 __all__ = ["linear_init", "linear", "rmsnorm_init", "rmsnorm",
-           "rope_frequencies", "apply_rope", "swiglu_init", "swiglu",
+           "layernorm_init", "layernorm", "groupnorm", "rope_frequencies", "apply_rope", "swiglu_init", "swiglu",
            "embedding_init", "embed", "unembed"]
 
 _rmsnorm_op = registry.operation("nn_rmsnorm")
@@ -56,6 +58,34 @@ def rmsnorm_init(ini: Initializer, d: int) -> dict:
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6, *, executor=None) -> torch.Tensor:
     return _rmsnorm_op(x, p["scale"], eps, executor=executor)
+
+
+def layernorm_init(ini: Initializer, d: int) -> dict:
+    """Scale and bias are f32 whatever the model's dtype, as in the JAX
+    package."""
+    return {"scale": ini.param((d,), init=ones, dtype=torch.float32),
+            "bias": ini.param((d,), init=zeros, dtype=torch.float32)}
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Statistics in f32, the output in x's dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)
+            + p["bias"].to(torch.float32)).to(x.dtype)
+
+
+def groupnorm(x: torch.Tensor, num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """Parameter-free group norm over the last axis (RWKV6 head norm):
+    statistics in f32, the output in x's dtype."""
+    *lead, d = x.shape
+    xf = x.to(torch.float32).reshape(*lead, num_groups, d // num_groups)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.reshape(*lead, d).to(x.dtype)
 
 
 # -- rotary embeddings -------------------------------------------------------------

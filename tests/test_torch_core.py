@@ -48,6 +48,7 @@ SLICE_MODULES = [
     "repro_torch.batch.solvers",
     "repro_torch.configs",
     "repro_torch.configs.base",
+    "repro_torch.configs.rwkv6_3b",
     "repro_torch.configs.zamba2_2_7b",
     "repro_torch.convert",
     "repro_torch.core.executor",
@@ -64,6 +65,9 @@ SLICE_MODULES = [
     "repro_torch.kernels.loader_check",
     "repro_torch.kernels.rmsnorm.kernel",
     "repro_torch.kernels.rmsnorm.ops",
+    "repro_torch.kernels.rwkv6.kernel",
+    "repro_torch.kernels.rwkv6.ops",
+    "repro_torch.kernels.rwkv6.ref",
     "repro_torch.kernels.sellp_probe",
     "repro_torch.kernels.spgemm.kernel",
     "repro_torch.kernels.spgemm.ops",
@@ -88,6 +92,7 @@ SLICE_MODULES = [
     "repro_torch.nn.common",
     "repro_torch.nn.layers",
     "repro_torch.nn.mamba",
+    "repro_torch.nn.rwkv",
     "repro_torch.observability.convergence",
     "repro_torch.observability.events",
     "repro_torch.observability.metrics",
