@@ -7,7 +7,9 @@ Phases, each of which exits non-zero on failure:
 
 1. card   — prints ``nvidia-smi``'s name and power limit of GPU 0;
 2. build  — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
-            with nvcc (sm_90a) and prints the build time;
+            with nvcc (sm_90a) and prints the build time and every
+            kernel's registers, static shared memory and spills
+            (``-Xptxas -v``);
 3. kernels — at the main path's shapes, holds each kernel against its plain
             PyTorch version (stated tolerance) and times kernel, plain version
             and, where one exists, a single PyTorch library call (CUDA events,
@@ -23,7 +25,9 @@ Phases, each of which exits non-zero on failure:
             against block-Jacobi CG, the gate, each kernel's launch count
             against the hierarchy, the true residual, the setup split; then the
             same path in the torch space on the card (the hierarchy bitwise
-            equal); then, at this path's shapes, spmv_ell on every level
+            equal); a repeated AMG-CG solve with the run's preconditioner
+            bitwise equal in each space (the CSR SpMV sums rows in a fixed
+            order); then, at this path's shapes, spmv_ell on every level
             operator, axpy_norm at the outer CG's vectors and
             block_jacobi_apply at the baseline's blocks against their plain
             versions (phase 3's tolerances), and the two SpGEMM kernels at
@@ -31,10 +35,12 @@ Phases, each of which exits non-zero on failure:
 6. sellp  — Jacobi-CG on power_law_laplacian(2**21, seed=4) stored as SELL-P
             (C = 8, stride 8, f32) through the CUDA executor: convergence, the
             true residual, spmv_sellp's launch count against the loop's
-            SpMVs, a repeat bit for bit, the torch space on the card, the
-            storage ELL would need; spmv_sellp held against its plain version
-            (per row, 2 (w + 1) eps relative to the row's magnitudes, w its
-            slice's width) and timed, torch.sparse.mm on the CSR as library;
+            SpMVs, a repeat bit for bit, the torch space on the card (a
+            repeat bit for bit too), the storage ELL would need; spmv_sellp
+            held against its plain version (per row, 2 (w + 1) eps relative
+            to the row's magnitudes, w its slice's width) and timed,
+            torch.sparse.mm on the CSR as library; the same matrix at
+            C = 32 and C = 12 held alike, each repeat bit for bit;
 7. batch  — repro_torch.launch.batch_solve at 16,384 systems of 1,024 rows
             (f32 BatchEll, k = 3) with no preconditioner and with Jacobi,
             batch_cg with 8-row block-Jacobi, and BiCGSTAB at 1,024 x 64:
@@ -62,9 +68,10 @@ Phases, each of which exits non-zero on failure:
             logits against (a)'s, top-1 agreement, no LM kernel launched;
             (c) full width at 12 layers in f32 (TF32 off), the cuda space
             against the torch space; then rmsnorm (d = 5,120 and 2,560),
-            flash_attention (the path's shape, a GQA, an offset and an f32
-            shape) and ssd_scan held against their plain versions at the
-            path's shapes and timed (F.rms_norm and
+            flash_attention (the path's shape, repeated bit for bit, a GQA,
+            an offset, an fp16, a ragged S = Skv = 2,000 and an f32 shape)
+            and ssd_scan held against their plain versions at the path's
+            shapes and timed (F.rms_norm and
             F.scaled_dot_product_attention as library calls);
 9. rwkv6  — RWKV6-3B serving at full width and depth (32 layers, bf16,
             3,094,374,400 random parameters from seed 0):
@@ -231,6 +238,37 @@ def phase_card(torch) -> str:
     return line
 
 
+def ptxas_table(log: str) -> list:
+    """(source, kernel, registers, static shared bytes, spilled bytes) of
+    every entry function in ``nvcc -Xptxas -v`` output; names demangled with
+    c++filt where the machine has it."""
+    import re
+
+    rows, src, fn, spill = [], "", None, 0
+    for line in log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif m := re.search(r"Function properties for (\S+)", line):
+            fn = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            spill = int(m.group(1))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append([src, fn, int(m.group(1)),
+                         int(smem.group(1)) if smem else 0, spill])
+            fn, spill = None, 0
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[1] for r in rows),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[1] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return rows
+
+
 def phase_build() -> float:
     from repro_torch.kernels import _build
 
@@ -238,9 +276,12 @@ def phase_build() -> float:
     _build.load()
     seconds = time.perf_counter() - t0
     say(f"[build] {seconds:.2f} s -> {_build.last_build.get('path')}")
-    for line in str(_build.last_build.get("log", "")).splitlines():
-        if "registers" in line or line.startswith("=="):
-            say(f"[build]   {line.strip()}")
+    # registers and static shared memory of every kernel (the dynamic shared
+    # memory of a launch is printed where the kernel is held)
+    for src, fn, regs, smem, spill in ptxas_table(
+            str(_build.last_build.get("log", ""))):
+        say(f"[build]   {src}: {fn}: {regs} registers, {smem} bytes static "
+            f"smem, {spill} bytes spilled")
     return seconds
 
 
@@ -752,10 +793,11 @@ def phase_amg(torch, copy_bw):
     if not rel <= 1e-4:
         fail(f"AMG true relative residual {rel} > 1e-4")
 
-    # the loops alone (no symmetry probe) for the time per iteration.  CSR
-    # SpMV in the torch space sums rows with index_add_, whose CUDA atomics
-    # add in no fixed order, so a repeat may differ in the last bits: it must
-    # converge within 2 iterations of the first
+    # the loops alone (no symmetry probe) for the time per iteration, each
+    # within 2 iterations of the checked solve; the AMG-CG loop twice with
+    # the run's preconditioner, the two bitwise equal: every sum on the path
+    # has a fixed order (the outer CG's CSR SpMV is a segment sum, no
+    # atomics)
     stop = Stop(max_iters=AMG_KW["max_iters"], reduction_factor=AMG_KW["tol"])
 
     def time_loops(run, exe):
@@ -771,6 +813,16 @@ def phase_amg(torch, copy_bw):
             if not again.converged or abs(again.iterations - res.iterations) > 2:
                 fail(f"a repeated {name} CG solve took {again.iterations} "
                      f"iterations against {res.iterations}")
+            if name == "amg":
+                third = cg(run.A, run.b, stop=stop, M=P, executor=exe,
+                           strict=False)
+                same = (third.iterations == again.iterations
+                        and torch.equal(third.x, again.x))
+                say(f"[amg] {exe.kernel_space} space: a repeated AMG-CG solve "
+                    f"({again.iterations} iterations) bitwise equal: {same}")
+                if not same:
+                    fail(f"a repeated AMG-CG solve in the {exe.kernel_space} "
+                         "space is not bitwise equal to the one before")
         return out
 
     loops = time_loops(r, ex)
@@ -1054,6 +1106,14 @@ def phase_sellp(torch, copy_bw):
     res_tl = cg(A, b, M=Pt, stop=stop, executor=ex_t, strict=False)
     torch.cuda.synchronize()
     t_torch_loop = time.perf_counter() - t0
+    # the torch space sums each slice in a fixed order (a segment sum, no
+    # atomics): a repeat is bitwise equal
+    res_tl2 = cg(A, b, M=Pt, stop=stop, executor=ex_t, strict=False)
+    same = (res_tl2.iterations == res_tl.iterations
+            and torch.equal(res_tl2.x, res_tl.x))
+    say(f"[sellp] torch space: a repeated solve bitwise equal: {same}")
+    if not same:
+        fail("a repeated torch-space SELL-P CG solve is not bitwise equal")
     dx = float((res_t.x - x).norm() / res_t.x.norm())
     say(f"[sellp] torch space: iterations {res_t.iterations}, time to solution "
         f"{t_torch:.4f} s, loop alone {t_torch_loop:.4f} s = "
@@ -1083,10 +1143,39 @@ def phase_sellp(torch, copy_bw):
     ratio = float((err_rows / (2 * (width + 1) * eps * mag).clamp_min(1e-30)).max())
     err = float(err_rows.max())
     say(f"[kernels] spmv_sellp: max_abs_err {err:.3e}; largest error "
-        f"{ratio:.3f} of its row's tolerance")
+        f"{ratio:.3f} of its row's tolerance; shared memory "
+        f"{cfg.smem_bytes} bytes a block")
     if not ratio <= 1.0:
         fail(f"spmv_sellp disagrees with its plain version ({ratio} of the "
              "per-row tolerance)")
+    # the same matrix with C = 32 (one lane a row of the warp walk) and
+    # C = 12 (not dividing 32: a thread a row), held alike, repeats bitwise
+    held_at = {}
+    for Cx in (32, 12):
+        Ax = sellp_from_csr_host(ip, ix, v, shape, slice_size=Cx, device="cuda")
+        cfg_x = ex.launch_config("spmv_sellp", {"m": m, "slice_size": Cx,
+                                                "itemsize": 4})
+        geo_x = dict(block_threads=cfg_x["block_threads"],
+                     wide_cols=cfg_x["wide_cols"])
+        args_x = (Ax.col_idx, Ax.values, Ax.slice_sets, xv, m, Cx)
+        y_x = K.spmv_sellp(*args_x, **geo_x)
+        same = torch.equal(y_x, K.spmv_sellp(*args_x, **geo_x))
+        mag_x = K.spmv_sellp_plain(Ax.col_idx, Ax.values.abs(), Ax.slice_sets,
+                                   xv.abs(), m, Cx)
+        width_x = Ax.slice_cols.repeat_interleave(Cx)[:m].to(mag_x.dtype)
+        err_x = (y_x - K.spmv_sellp_plain(*args_x)).abs()
+        ratio_x = float((err_x / (2 * (width_x + 1) * eps * mag_x)
+                         .clamp_min(1e-30)).max())
+        held_at[f"C{Cx}"] = {"stored": Ax.nnz, "max_abs_err": float(err_x.max()),
+                             "tolerance_share": ratio_x, **geo_x}
+        say(f"[kernels] spmv_sellp at C = {Cx} ({Ax.nnz} stored): max_abs_err "
+            f"{float(err_x.max()):.3e}, largest error {ratio_x:.3f} of its "
+            f"row's tolerance; repeat bitwise equal: {same}")
+        if not ratio_x <= 1.0 or not same:
+            fail(f"spmv_sellp at C = {Cx} disagrees with its plain version or "
+                 "does not repeat")
+        err = max(err, float(err_x.max()))
+        del Ax, y_x, mag_x, width_x, err_x
     A_csr = torch.sparse_csr_tensor(
         torch.from_numpy(ip.astype(np.int32)).cuda(),
         torch.from_numpy(ix).cuda(), torch.from_numpy(v).cuda(), size=shape)
@@ -1102,6 +1191,7 @@ def phase_sellp(torch, copy_bw):
         lambda: torch.sparse.mm(A_csr, xs))
     row["shape"] = {"m": m, "stored": total, "nnz": int(ix.size),
                     "widest_slice": A.max_slice_cols, **geo}
+    row["held_at"] = held_at
     summary = {"rows": m, "nnz": int(ix.size), "sellp_entries": total,
                "ell_entries": ell_entries, "iterations": k,
                "time_to_solution_s": t_total, "loop_s": t_loop,
@@ -1456,6 +1546,7 @@ def phase_lm_kernels(torch, copy_bw) -> dict:
     from repro_torch import kernels as K
     from repro_torch.core import make_executor
     from repro_torch.core.params import H100
+    from repro_torch.kernels.flash_attention.kernel import flash_tile_plan
 
     ex = make_executor("cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
@@ -1493,8 +1584,11 @@ def phase_lm_kernels(torch, copy_bw) -> dict:
     say("[kernels] rmsnorm library_ms: torch.nn.functional.rms_norm with the "
         "scale cast to bf16 (it takes one dtype)")
 
-    # flash_attention at the path's shape, then GQA, offset and f32 cases.
-    # bf16: one output ulp plus f32 softmax order; f32: 1e-5 of max |out|.
+    # flash_attention at the path's shape, then GQA, offset, fp16, ragged
+    # (S = Skv = 2,000: no multiple of the 128-query or 64-key tile) and f32
+    # cases.  bf16 and fp16: one bf16 output ulp plus f32 softmax order (fp16
+    # rounds finer, the tolerance is the same); f32: 1e-5 of max |out|.  A
+    # repeat at the path's shape is bitwise equal.
     def qkv(Bq, Hq, Hkv, Sq, Skv, D, dtype):
         return (torch.randn(Bq, Hq, Sq, D, generator=gen, device="cuda").to(dtype),
                 torch.randn(Bq, Hkv, Skv, D, generator=gen, device="cuda").to(dtype),
@@ -1504,13 +1598,21 @@ def phase_lm_kernels(torch, copy_bw) -> dict:
     bkv = ex.launch_config("nn_attention", {"S": S, "Skv": S, "D": D,
                                             "itemsize": 2})["block_kv"]
     q, k, v = qkv(B, H, H, S, S, D, bf16)
+    o = K.flash_attention(q, k, v)
     errs = [_held(torch, f"flash_attention at B {B}, H {H}, S = Skv = {S}, D {D}",
-                  K.flash_attention(q, k, v),
-                  K.flash_attention_plain(q, k, v), 2.0 ** -7, 1e-5)]
+                  o, K.flash_attention_plain(q, k, v), 2.0 ** -7, 1e-5)]
+    same = torch.equal(o, K.flash_attention(q, k, v))
+    say(f"[kernels] flash_attention: repeat bitwise equal: {same}; shared "
+        f"memory {flash_tile_plan(D)} at D = {D}")
+    if not same:
+        fail("a repeated flash_attention is not bitwise equal")
+    del o
     shapes = {}
     for label, args, tol in (
             ("gqa", (2, 32, 8, S, S, 128, bf16), (2.0 ** -7, 1e-5)),
             ("offset", (2, 32, 32, S // 2, S, D, bf16), (2.0 ** -7, 1e-5)),
+            ("fp16", (2, 32, 32, S, S, D, torch.float16), (2.0 ** -7, 1e-5)),
+            ("ragged", (2, 32, 32, 2000, 2000, D, bf16), (2.0 ** -7, 1e-5)),
             ("f32", (2, 32, 32, 512, 512, D, torch.float32), (0.0, 1e-5))):
         qq, kk, vv = qkv(*args)
         errs.append(_held(torch, f"flash_attention {label} {args[:6]}",

@@ -10,10 +10,11 @@ The single-system ops' three-space contract (:mod:`repro_torch.sparse.ops`):
   ``axpy_norm``.  The other ops have no kernel in the JAX package either, and
   a CUDA executor serves them from the torch space on CUDA tensors.
 
-Batched vectors are ``(nb, n)``; batched scalars are ``(nb,)``.  CSR rows are
-summed with ``index_add_``, which on a CUDA tensor adds with atomics in no
-fixed order: a ``BatchCsr`` product there may differ run to run in the last
-bits.  ``BatchEll`` has no such sum.
+Batched vectors are ``(nb, n)``; batched scalars are ``(nb,)``.  In the
+torch space a ``BatchCsr`` product sums each row of every system as one
+segment in entry order (``torch.segment_reduce``), with no atomics, so it
+repeats bit for bit on the card as on the CPU; the reference space's loop
+adds entry by entry (``index_add_``).  ``BatchEll`` sums a fixed-width row.
 """
 
 from __future__ import annotations
@@ -63,8 +64,10 @@ def _spmv_batch_csr_ref(ex, A: BatchCsr, X):
 
 @spmv_batch_csr.register("torch")
 def _spmv_batch_csr_torch(ex, A: BatchCsr, X):
-    rows = _csr_row_ids(A.system(0))
-    return _out(A, X).index_add_(1, rows, A.values * X[:, A.indices])
+    # rows as segments along the shared pattern's entries, systems inner
+    contrib = (A.values * X[:, A.indices]).T
+    return torch.segment_reduce(contrib, "sum", offsets=A.indptr,
+                                axis=0).T.contiguous()
 
 
 @spmv_batch_ell.register("reference")

@@ -18,7 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_smem_bytes",
-           "flash_block_kv", "BLOCK_Q"]
+           "flash_block_kv", "flash_tile_plan", "BLOCK_Q"]
 
 _P = ctypes.c_void_p
 _ENTRY = {torch.float32: "repro_flash_attention_f32",
@@ -27,25 +27,44 @@ _ENTRY = {torch.float32: "repro_flash_attention_f32",
 _I = ctypes.c_int
 _ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P)
 
-#: query rows a block (kBQ) and the kv tile the source compiles: kMmaBKV for
-#: the tensor-core kernel (2-byte inputs), kFmaBKV for the f32 one
-BLOCK_Q = 64
+#: query rows a block and kv rows a tile of the tensor-core kernel (kWgBQ,
+#: kWgBKV in the source); the f32 kernel's are kBQ = 64 and kFmaBKV = 32
+BLOCK_Q = 128
 MAX_HEAD_DIM = 256
+#: the source's slab width (kSlab: 64 columns, one 128-byte swizzle span),
+#: the shared memory a block may use (kSmemLimit) and the barriers' bytes
+SLAB = 64
+SMEM_LIMIT = 232_448
+BAR_BYTES = 128
 
 
 def flash_block_kv(itemsize: int) -> int:
     return 64 if itemsize == 2 else 32
 
 
+def flash_tile_plan(D: int) -> dict:
+    """The tensor-core kernel's shared memory at head dim D (``WgGeom`` in
+    the source): Q and every K / V tile come in ``slabs`` column slabs of 64
+    (the last zero-filled past D), K and V in a ring of ``stages``."""
+    slabs = -(-D // SLAB)
+    q_bytes = slabs * BLOCK_Q * 2 * SLAB
+    stage_bytes = 2 * slabs * flash_block_kv(2) * 2 * SLAB
+    stages = 3 if q_bytes + 3 * stage_bytes + BAR_BYTES + 1024 <= SMEM_LIMIT else 2
+    return {"slabs": slabs, "q_bytes": q_bytes, "stage_bytes": stage_bytes,
+            "stages": stages,
+            "smem_bytes": q_bytes + stages * stage_bytes + BAR_BYTES + 1024,
+            "last_slab_cols": D - (slabs - 1) * SLAB}
+
+
 def flash_smem_bytes(D: int, itemsize: int) -> int:
     """Dynamic shared memory of one block: the tensor-core kernel's
-    (``mma_smem_bytes`` in the source) for 2-byte inputs, the f32 kernel's
-    (``smem_bytes``) for 4-byte ones."""
-    bkv = flash_block_kv(itemsize)
+    (:func:`flash_tile_plan`) for 2-byte inputs, the f32 kernel's
+    (``smem_bytes`` in the source, 64 query rows) for 4-byte ones."""
     if itemsize == 2:
-        return 2 * ((BLOCK_Q + bkv) * (D + 8) + D * (bkv + 8))
-    return 4 * (BLOCK_Q * (D + 1) + bkv * (D + 1) + bkv * D
-                + BLOCK_Q * (bkv + 1) + 3 * BLOCK_Q)
+        return flash_tile_plan(D)["smem_bytes"]
+    bq, bkv = 64, flash_block_kv(itemsize)
+    return 4 * (bq * (D + 1) + bkv * (D + 1) + bkv * D
+                + bq * (bkv + 1) + 3 * bq)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,7 +100,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Softmax attention of q (B, Hq, S, D) over k, v (B, Hkv, Skv, D), Hkv
     dividing Hq; causal with ``kv_offset = Skv - S``; out in q's dtype.
-    bf16 / fp16 run on the tensor cores, f32 on the CUDA cores."""
+    bf16 / fp16 run on the tensor cores (TMA loads, wgmma products), f32 on
+    the CUDA cores."""
     name = "flash_attention"
     require(q.ndim == 4 and k.ndim == 4 and v.ndim == 4, name,
             "q, k, v must be (B, H, S, D)")
@@ -102,8 +122,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"head dim {D} must be a multiple of 16 in [16, {MAX_HEAD_DIM}]")
     require(Hq <= 65535 and B <= 65535, name, f"grid ({Hq} heads, {B} "
             "batch) exceeds the launch limits")
+    require(Skv >= 1, name, "no key rows")
     require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)), name,
-            "q, k, v must start on 16-byte boundaries (16-byte loads)")
+            "q, k, v must start on 16-byte boundaries (TMA and 16-byte loads)")
     out = torch.empty_like(q)
     if out.numel():
         fn = _build.function(_ENTRY[q.dtype], _ARGS)

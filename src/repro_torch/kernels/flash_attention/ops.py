@@ -2,8 +2,8 @@
 
 The ``reference`` and ``torch`` spaces compute the dense plain version (the
 JAX package's reference and XLA spaces share ``mha_ref``); the ``cuda``
-space launches the flash kernel (tensor cores for bf16 / fp16, CUDA cores
-for f32), its tile checked against the block's shared memory.  The ``cuda`` registration is
+space launches the flash kernel (TMA and wgmma for bf16 / fp16, CUDA cores
+for f32), its tiles checked against the block's shared memory.  The ``cuda`` registration is
 unconditional: a failed build or launch raises and is never re-dispatched.
 """
 
@@ -26,7 +26,9 @@ ATTENTION_SPEC = tuning.register_spec(
         params=("block_kv",),
         seed=lambda hw: {"block_kv": 64},
         # the source compiles one kv tile per kernel: 64 rows on the tensor
-        # cores (2-byte inputs), 32 in f32 (two f32 blocks an SM at D = 160)
+        # cores (2-byte inputs: 128 queries a block, K / V in a ring of
+        # three stages of 64-column slabs, two when D > 192), 32 in f32 (two
+        # f32 blocks an SM at D = 160)
         constrain=lambda hw, shapes, block: {
             "block_kv": flash_block_kv(shapes.get("itemsize", 2))},
         smem_bytes=lambda shapes, block: flash_smem_bytes(

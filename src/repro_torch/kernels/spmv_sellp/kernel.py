@@ -15,13 +15,37 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._check import on_cuda, require
 
-__all__ = ["spmv_sellp", "spmv_sellp_plain", "sellp_slice_of_column"]
+__all__ = ["spmv_sellp", "spmv_sellp_plain", "sellp_slice_of_column",
+           "sellp_geometry"]
 
 _P = ctypes.c_void_p
 _ENTRY = {torch.float32: "repro_spmv_sellp_f32",
           torch.float64: "repro_spmv_sellp_f64"}
 _ARGS = (_P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, _P)
+
+
+#: the source's warp width (kWarp)
+WARP = 32
+
+
+def sellp_geometry(slice_size: int, block_threads: int) -> dict:
+    """The launch geometry ``csrc/spmv_sellp.cu`` derives from C and the
+    block: which walk serves the narrow slices (``"warp"``, a warp per slice,
+    when C divides 32; else ``"row"``, a thread per row), the lanes that share
+    a row, the slices of a chunk (a block walks every gridDim-th chunk), the
+    column groups of the wide walk (0: no wide walk) and its shared memory
+    per value byte."""
+    C, bt = slice_size, block_threads
+    groups = bt // C
+    warp = WARP % C == 0
+    return {
+        "walk": "warp" if warp else "row",
+        "lanes_per_row": WARP // C if warp else 1,
+        "slices_per_chunk": bt // WARP if warp else max(groups, 1),
+        "wide_groups": groups if groups > 1 else 0,
+        "smem_per_byte": groups * C if groups > 1 else 0,
+    }
 
 
 def sellp_slice_of_column(slice_sets: torch.Tensor, columns: int) -> torch.Tensor:
@@ -37,13 +61,11 @@ def spmv_sellp_plain(col_idx: torch.Tensor, values: torch.Tensor,
                      slice_sets: torch.Tensor, x: torch.Tensor, m: int,
                      slice_size: int) -> torch.Tensor:
     """y = A x: one flat gather-multiply, then each slice's columns summed
-    into its C rows."""
-    C = slice_size
-    S = slice_sets.numel() - 1
-    contrib = (values * x[col_idx]).view(-1, C)
-    slice_of = sellp_slice_of_column(slice_sets, contrib.shape[0])
-    y = torch.zeros((S, C), dtype=contrib.dtype, device=values.device)
-    return y.index_add_(0, slice_of, contrib).view(-1)[:m]
+    into its C rows, a slice at a time in column order (a segment sum: no
+    atomics, so a repeat on the card is bitwise equal)."""
+    contrib = (values * x[col_idx]).view(-1, slice_size)
+    return torch.segment_reduce(contrib, "sum", offsets=slice_sets,
+                                axis=0).view(-1)[:m]
 
 
 def check_sellp(name: str, col_idx, values, slice_sets, x, m: int,
@@ -70,13 +92,15 @@ def check_sellp(name: str, col_idx, values, slice_sets, x, m: int,
 
 def spmv_sellp(col_idx: torch.Tensor, values: torch.Tensor,
                slice_sets: torch.Tensor, x: torch.Tensor, m: int,
-               slice_size: int, *, block_threads: int = 256,
-               wide_cols: int = 64) -> torch.Tensor:
+               slice_size: int, *, block_threads: int = 512,
+               wide_cols: int = 256) -> torch.Tensor:
     """y = A x for a SELL-P matrix given as its flat buffers and offsets.
 
-    A slice of more than ``wide_cols`` columns is walked by the whole block
-    (its columns split over ``block_threads // slice_size`` thread groups),
-    a narrower one by one thread per row."""
+    The grid is one full wave of blocks, each walking its share of the
+    slices.  A slice of more than ``wide_cols`` columns is walked by the
+    whole block (its columns split over ``block_threads // slice_size``
+    thread groups), a narrower one by one warp when C divides 32, else by
+    one thread per row (:func:`sellp_geometry`)."""
     name = "spmv_sellp"
     check_sellp(name, col_idx, values, slice_sets, x, m, slice_size)
     if not on_cuda(name, col_idx, values, slice_sets, x):

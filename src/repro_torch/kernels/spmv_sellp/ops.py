@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from repro_torch.core import registry, tuning
 from repro_torch.kernels._check import require_cuda
-from repro_torch.kernels.spmv_sellp.kernel import spmv_sellp
+from repro_torch.kernels.spmv_sellp.kernel import sellp_geometry, spmv_sellp
 
 
 def _constrain(hw, shapes, block):
@@ -21,15 +21,16 @@ def _constrain(hw, shapes, block):
 def _smem(shapes, block):
     """A wide slice's row partials: one per thread of the block's groups."""
     C = max(int(shapes.get("slice_size", 1)), 1)
-    groups = block["block_threads"] // C
-    return groups * C * shapes.get("itemsize", 4) if groups > 1 else 0
+    geo = sellp_geometry(C, block["block_threads"])
+    return geo["smem_per_byte"] * shapes.get("itemsize", 4)
 
 
 SELLP_SPEC = tuning.register_spec(
     tuning.TuningSpec(
         op="spmv_sellp",
         params=("block_threads", "wide_cols"),
-        seed=lambda hw: {"block_threads": 8 * hw.warp_size, "wide_cols": 64},
+        # the sweep of kernels/sellp_probe.py on the path matrix
+        seed=lambda hw: {"block_threads": 16 * hw.warp_size, "wide_cols": 256},
         smem_bytes=_smem,
         constrain=_constrain,
     )

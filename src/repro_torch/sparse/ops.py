@@ -71,7 +71,8 @@ spmv_dense = registry.operation("spmv_dense", "y = A @ x (dense)")
 
 def _scatter_rows(A, rows, cols, x):
     """y[rows[t]] += values[t] * x[cols[t]]: the scatter-add SpMV of COO and
-    CSR (one or several right-hand sides)."""
+    CSR (one or several right-hand sides), entry by entry (sequential
+    semantics; on a CUDA tensor ``index_add_`` adds with atomics)."""
     y = torch.zeros((A.shape[0],) + tuple(x.shape[1:]),
                     dtype=torch.promote_types(A.values.dtype, x.dtype),
                     device=x.device)
@@ -79,12 +80,35 @@ def _scatter_rows(A, rows, cols, x):
     return y.index_add_(0, rows, vals * x[cols])
 
 
-def _spmv_coo_plain(ex, A: Coo, x):
+def _segment_rows(A, offsets, cols, x):
+    """y[r] = sum of values[t] * x[cols[t]] over t in [offsets[r],
+    offsets[r + 1]): the torch space's COO / CSR SpMV.  Each row is one
+    segment summed in a fixed order with no atomics, so a product repeats
+    bit for bit on the card; on the CPU the sums are the scatter-add's.
+    The terms are always 2-D (entries, right-hand sides): on the card each
+    row's sum is then one thread's loop, where 1-D terms would take one block
+    of a segmented reduction per row, slow for many short rows."""
+    vals = A.values[:, None]
+    contrib = vals * x[cols] if x.ndim == 2 else vals * x[cols][:, None]
+    y = torch.segment_reduce(contrib, "sum", offsets=offsets, axis=0)
+    return y if x.ndim == 2 else y[:, 0]
+
+
+def _coo_offsets(A: Coo) -> torch.Tensor:
+    """``(m + 1,)`` int64: where each row starts among A's sorted entries."""
+    rows = torch.arange(A.shape[0] + 1, dtype=A.row_idx.dtype,
+                        device=A.row_idx.device)
+    return torch.searchsorted(A.row_idx, rows)
+
+
+@spmv_coo.register("reference")
+def _spmv_coo_ref(ex, A: Coo, x):
     return _scatter_rows(A, A.row_idx.long(), A.col_idx, x)
 
 
-spmv_coo.register("reference")(_spmv_coo_plain)
-spmv_coo.register("torch")(_spmv_coo_plain)
+@spmv_coo.register("torch")
+def _spmv_coo_torch(ex, A: Coo, x):
+    return _segment_rows(A, _coo_offsets(A), A.col_idx, x)
 
 
 def _csr_row_ids(A: Csr) -> torch.Tensor:
@@ -94,12 +118,14 @@ def _csr_row_ids(A: Csr) -> torch.Tensor:
     )
 
 
-def _spmv_csr_plain(ex, A: Csr, x):
+@spmv_csr.register("reference")
+def _spmv_csr_ref(ex, A: Csr, x):
     return _scatter_rows(A, _csr_row_ids(A), A.indices, x)
 
 
-spmv_csr.register("reference")(_spmv_csr_plain)
-spmv_csr.register("torch")(_spmv_csr_plain)
+@spmv_csr.register("torch")
+def _spmv_csr_torch(ex, A: Csr, x):
+    return _segment_rows(A, A.indptr, A.indices, x)
 
 
 def _spmv_ell_plain(ex, A: Ell, x):
@@ -286,9 +312,11 @@ axpy_norm_op = registry.operation(
 )
 
 
-def _spmv_dot_csr(ex, A, x, w):
-    y = _spmv_csr_plain(ex, A, x)
-    return y, torch.dot(w, y)
+def _spmv_dot_csr(spmv):
+    def fused(ex, A, x, w):
+        y = spmv(ex, A, x)
+        return y, torch.dot(w, y)
+    return fused
 
 
 def _spmv_dot_ell(ex, A, x, w):
@@ -304,8 +332,9 @@ def _axpy_norm(ex, alpha, x, y):
     return axpy_norm_plain(alpha, x, y)
 
 
+spmv_dot_csr_op.register("reference")(_spmv_dot_csr(_spmv_csr_ref))
+spmv_dot_csr_op.register("torch")(_spmv_dot_csr(_spmv_csr_torch))
 for _space in ("reference", "torch"):
-    spmv_dot_csr_op.register(_space)(_spmv_dot_csr)
     spmv_dot_ell_op.register(_space)(_spmv_dot_ell)
     axpy_norm_op.register(_space)(_axpy_norm)
 

@@ -19,6 +19,9 @@ also rounds its probabilities to bf16 before the PV product (the port keeps
 them f32), so attention in bf16 is held to 1e-2 of max |out|.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,7 +34,11 @@ from repro.kernels.rmsnorm.kernel import rmsnorm as jax_rmsnorm
 from repro.kernels.ssd.kernel import ssd_scan as jax_ssd
 from repro_torch import kernels as K
 from repro_torch.core import make_executor, registry
-from repro_torch.kernels.flash_attention.kernel import flash_smem_bytes
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_smem_bytes,
+    flash_tile_plan,
+)
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_geometry
 
 BF16_ULP = 2.0 ** -7
@@ -267,13 +274,56 @@ def test_lm_kernels_count_no_launch_on_the_cpu():
     assert counts["rmsnorm"] == counts["flash_attention"] == counts["ssd_scan"] == 0
 
 
+def _source_constants(name, keys):
+    """The ``constexpr int`` values of ``keys`` in csrc/``name``."""
+    src = (Path(K.__file__).parent / "csrc" / name).read_text()
+    out = {}
+    for key in keys:
+        m = re.search(rf"constexpr int {key} = (\d+);", src)
+        assert m, key
+        out[key] = int(m.group(1))
+    return out
+
+
+@pytest.mark.parametrize("D,slabs,stages,smem", [
+    (64, 1, 3, 66_688), (128, 2, 3, 132_224), (160, 3, 3, 197_760),
+    (256, 4, 2, 197_760)])
+def test_flash_tile_plan_matches_the_source(D, slabs, stages, smem):
+    """The wgmma kernel's shared memory (WgGeom in the source): Q and each
+    K / V tile in 64-column 128B-swizzled slabs, K and V in a ring of three
+    stages, two when three do not fit a block."""
+    c = _source_constants("flash_attention.cu", (
+        "kWgBQ", "kWgBKV", "kSlab", "kSlabRow", "kSmemLimit", "kBarBytes",
+        "kConsumers", "kProducerRegs", "kConsumerRegs"))
+    plan = flash_tile_plan(D)
+    assert (c["kWgBQ"], c["kWgBKV"], c["kSlab"]) == (
+        FK.BLOCK_Q, FK.flash_block_kv(2), FK.SLAB)
+    assert plan["slabs"] == slabs == -(-D // c["kSlab"])
+    assert plan["q_bytes"] == slabs * c["kWgBQ"] * c["kSlabRow"]
+    assert plan["stage_bytes"] == 2 * slabs * c["kWgBKV"] * c["kSlabRow"]
+    assert plan["stages"] == stages
+    assert plan["smem_bytes"] == smem == (
+        plan["q_bytes"] + stages * plan["stage_bytes"] + c["kBarBytes"] + 1024)
+    assert smem <= c["kSmemLimit"] == FK.SMEM_LIMIT
+    assert plan["last_slab_cols"] == D - (slabs - 1) * 64
+    # setmaxnreg: the producer warpgroup's registers pay for the consumers'
+    src = (Path(K.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    assert "constexpr int kWgThreads = kConsumers + 128;" in src
+    threads = c["kConsumers"] + 128
+    start = 65_536 // threads // 8 * 8
+    assert start == 168
+    assert (c["kConsumers"] * c["kConsumerRegs"] + 128 * c["kProducerRegs"]
+            <= threads * start)
+
+
 def test_h100_launch_configs_fit_shared_memory():
     ex = make_executor("h100")
     assert ex.launch_config("nn_rmsnorm", {"rows": 16384, "d": 5120,
                                            "itemsize": 2})["rows_per_block"] == 4
     cfg = ex.launch_config("nn_attention", {"S": 2048, "Skv": 2048, "D": 160,
                                             "itemsize": 2})
-    assert cfg["block_kv"] == 64 and cfg.smem_bytes == flash_smem_bytes(160, 2) == 66_048
+    # Q 49,152 + 3 stages of K and V 147,456 + barriers 128 + alignment 1,024
+    assert cfg["block_kv"] == 64 and cfg.smem_bytes == flash_smem_bytes(160, 2) == 197_760
     cfg = ex.launch_config("nn_attention", {"S": 512, "Skv": 512, "D": 256,
                                             "itemsize": 4})
     assert cfg["block_kv"] == 32

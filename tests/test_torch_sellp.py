@@ -312,21 +312,61 @@ def test_cuda_space_and_wrapper_checks():
 
 
 def test_sellp_geometry_for_h100():
-    """The H100 geometry: a wide slice's partials (one per thread of the
-    block's column groups) are the kernel's shared memory; a slice wider
-    than the block is walked per row and needs none."""
+    """The H100 geometry (the probe's sweep on the path matrix): a wide
+    slice's partials (one per thread of the block's column groups) are the
+    kernel's shared memory; a slice wider than the block is walked per row
+    and needs none."""
     from repro_torch.core import tuning
 
     hw = make_executor("h100").hw
     cfg = tuning.resolve("spmv_sellp", {"m": 2_097_152, "slice_size": 8,
                                         "itemsize": 4}, hw)
-    assert cfg["block_threads"] == 256 and cfg["wide_cols"] == 64
-    assert cfg.smem_bytes == 256 * 4
+    assert cfg["block_threads"] == 512 and cfg["wide_cols"] == 256
+    assert cfg.smem_bytes == 512 * 4
     cfg = tuning.resolve("spmv_sellp", {"m": 100, "slice_size": 3,
                                         "itemsize": 8}, hw)
-    assert cfg.smem_bytes == (256 // 3) * 3 * 8
+    assert cfg.smem_bytes == (512 // 3) * 3 * 8
     assert tuning.resolve("spmv_sellp", {"m": 100, "slice_size": 512,
                                          "itemsize": 4}, hw).smem_bytes == 0
+
+
+def _sellp_source_constants():
+    from pathlib import Path
+    import re
+
+    src = (Path(K.__file__).parent / "csrc" / "spmv_sellp.cu").read_text()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in ("kWarp",)}
+
+
+@pytest.mark.parametrize("C,walk,lanes,chunk,groups", [
+    (3, "row", 1, 170, 170), (8, "warp", 4, 16, 64), (32, "warp", 1, 16, 16),
+    (512, "row", 1, 1, 0)])
+def test_sellp_lane_mapping_and_counts(C, walk, lanes, chunk, groups):
+    """The kernel's geometry at the H100 block of 512 threads: a warp per
+    slice when C divides 32 (32 / C lanes a row, 16 slices a chunk), else a
+    thread per row (512 / C slices a chunk, one when C > 256); the wide walk's
+    column groups.  In the warp walk, lane l sums entries l, l + 32, ... of
+    its slice, all of row l % C, and the lanes cover every entry once."""
+    from repro_torch.kernels.spmv_sellp import kernel as SK
+
+    c = _sellp_source_constants()
+    assert c["kWarp"] == SK.WARP
+    geo = SK.sellp_geometry(C, 512)
+    assert (geo["walk"], geo["lanes_per_row"], geo["slices_per_chunk"],
+            geo["wide_groups"]) == (walk, lanes, chunk, groups)
+    assert geo["smem_per_byte"] == groups * C
+    if walk == "warp":
+        # lane l's entries of an 11-column slice, as the kernel walks them
+        width = 11
+        seen = []
+        for lane in range(SK.WARP):
+            entries = list(range(lane, width * C, SK.WARP))
+            assert all(e % C == lane % C for e in entries)
+            assert all(e // C in range(lane // C, width, SK.WARP // C)
+                       for e in entries)
+            seen += entries
+        assert sorted(seen) == list(range(width * C))
 
 
 def test_sellp_probe_needs_a_card(monkeypatch):
