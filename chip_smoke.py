@@ -13,7 +13,8 @@ Phases, each of which exits non-zero on failure:
 3. kernels — at the main path's shapes, holds each kernel against its plain
             PyTorch version (stated tolerance) and times kernel, plain version
             and, where one exists, a single PyTorch library call (CUDA events,
-            median of 30 runs, L2 flushed before each run);
+            median of 30 runs, L2 flushed before each run); spmv_ell and
+            spmv_dot_ell's dot repeated bit for bit;
 4. path   — solves poisson_3d(128) (2,097,152 rows, ELL k = 7, f32) with
             block-Jacobi CG through the CUDA executor, checks convergence, the
             true residual and every kernel's launch count, and repeats the
@@ -28,10 +29,12 @@ Phases, each of which exits non-zero on failure:
             equal); a repeated AMG-CG solve with the run's preconditioner
             bitwise equal in each space (the CSR SpMV sums rows in a fixed
             order); then, at this path's shapes, spmv_ell on every level
-            operator, axpy_norm at the outer CG's vectors and
-            block_jacobi_apply at the baseline's blocks against their plain
-            versions (phase 3's tolerances), and the two SpGEMM kernels at
-            level 0's shapes (bitwise), with their times;
+            operator (timed, CSR torch.sparse.mm as library, and summed per
+            V(1,1) cycle: A three times, P and R once a level, beside the
+            profile's spmv_ell time an iteration), axpy_norm at the outer
+            CG's vectors and block_jacobi_apply at the baseline's blocks
+            against their plain versions (phase 3's tolerances), and the two
+            SpGEMM kernels at level 0's shapes (bitwise), with their times;
 6. sellp  — Jacobi-CG on power_law_laplacian(2**21, seed=4) stored as SELL-P
             (C = 8, stride 8, f32) through the CUDA executor: convergence, the
             true residual, spmv_sellp's launch count against the loop's
@@ -67,9 +70,11 @@ Phases, each of which exits non-zero on failure:
             torch space on the card, teacher-forced with (a)'s tokens:
             logits against (a)'s, top-1 agreement, no LM kernel launched;
             (c) full width at 12 layers in f32 (TF32 off), the cuda space
-            against the torch space; then rmsnorm (d = 5,120 and 2,560),
-            flash_attention (the path's shape, repeated bit for bit, a GQA,
-            an offset, an fp16, a ragged S = Skv = 2,000 and an f32 shape)
+            against the torch space; then rmsnorm (d = 5,120 and 2,560, at
+            the prefill's 16,384 rows and a decode step's 8, repeated bit
+            for bit at the first), flash_attention (the path's shape,
+            repeated bit for bit, a GQA, an offset, an fp16, a ragged
+            S = Skv = 2,000 and an f32 shape)
             and ssd_scan held against their plain versions at the path's
             shapes and timed (F.rms_norm and
             F.scaled_dot_product_attention as library calls);
@@ -104,7 +109,9 @@ block_jacobi_apply's storage variants carry the same per storage dtype.
 ``at_amg_path_shape`` / ``at_batch_path_shape`` hold the times at those
 paths' shapes of a kernel whose row is timed at phase 3's, and
 ``at_bicgstab_shape`` / ``at_row_pieces_shape`` those of phase 7's second
-shapes.  It imports
+shapes; rmsnorm's ``at_decode_shape`` holds its rows at a decode step's 8
+rows and spmv_ell's ``at_amg_levels`` one row per AMG level operator and
+their sum per V(1,1) cycle.  It imports
 nothing of JAX or of the JAX package.  Without a CUDA device, or without the
 repository beside it, it exits non-zero before printing any result.
 """
@@ -493,6 +500,12 @@ def phase_kernels(torch, A, A_host, P, ex, copy_bw) -> dict:
     scale = float(K.spmv_ell_plain(A.col_idx, A.values.abs(), x.abs()).max())
     err = float((y - y_ref).abs().max())
     check("spmv_ell", err, 8 * k * eps * scale)
+    same = torch.equal(K.spmv_ell(A.col_idx, A.values, x, **geo), y)
+    walk = ("one thread" if geo["subgroup"] == 1
+            else f"{geo['subgroup']} lanes")
+    say(f"[kernels] spmv_ell ({walk} a row) repeated bitwise equal: {same}")
+    if not same:
+        fail("spmv_ell is not deterministic across runs")
     crow = torch.from_numpy(A_host["indptr"]).to("cuda")
     A_csr = torch.sparse_csr_tensor(
         crow, torch.from_numpy(A_host["indices"]).to("cuda"),
@@ -665,10 +678,11 @@ def phase_path(torch, A, b):
 
 
 def phase_profile(torch, A, b, P, ex, iters: int = 50,
-                  tag: str = "profile") -> dict:
+                  tag: str = "profile", named: str = None) -> dict:
     """Device time by kernel over ``iters`` CG iterations preconditioned by
     ``P`` (torch.profiler), and the device's busy share of the window's wall
-    time."""
+    time; with ``named``, also the device time of every kernel whose name
+    holds it (``named_us``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -694,9 +708,12 @@ def phase_profile(torch, A, b, P, ex, iters: int = 50,
         f"{wall_us / iters:.1f} us wall, {busy / iters:.1f} us device")
     for dev, count, key in rows[:16]:
         say(f"[{tag}]   {dev / iters:9.2f} us/iter  {count:6d} calls  {key[:90]}")
-    return {"iterations": iters, "wall_us": wall_us, "device_busy_us": busy,
-            "top": [{"name": key[:120], "calls": count, "us": dev}
-                    for dev, count, key in rows[:16]]}
+    out = {"iterations": iters, "wall_us": wall_us, "device_busy_us": busy,
+           "top": [{"name": key[:120], "calls": count, "us": dev}
+                   for dev, count, key in rows[:16]]}
+    if named:
+        out["named_us"] = sum(dev for dev, _, key in rows if named in key)
+    return out
 
 
 class SpanTotals:
@@ -917,21 +934,30 @@ def phase_amg(torch, copy_bw):
         "ms_per_iteration": {name: sec_ / k * 1e3
                              for name, (sec_, k) in loops_t.items()}}
     summary["profile"] = phase_profile(torch, A, b, M, ex, iters=k_amg,
-                                       tag="profile amg")
+                                       tag="profile amg", named="spmv_ell")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    row = functools.partial(kernel_row, torch, flush, copy_bw)
 
     # spmv_ell at every operator the V-cycle applies (A, P, R per level,
     # k from 4 to about 100): against its plain version, tolerance as in
-    # phase 3 (8 k eps relative to max_i sum_j |a_ij x_j|)
+    # phase 3 (8 k eps relative to max_i sum_j |a_ij x_j|), and timed with
+    # CSR torch.sparse.mm as library; then the V(1,1) cycle's sum, each
+    # operator weighted by its ELL SpMVs a cycle (A 3, P 1, R 1)
     eps = torch.finfo(torch.float32).eps
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     worst = 0.0
+    levels = []
+    weight = {"A": 3, "P": 1, "R": 1}
     for lvl, L in enumerate(M.levels):
-        for name, E in (("A", L.A_op), ("P", L.P_op), ("R", L.R_op)):
+        for name, E, C in (("A", L.A_op, L.A), ("P", L.P_op, L.P),
+                           ("R", L.R_op, L.R)):
             m, k = E.values.shape
             xv = torch.randn(E.shape[1], generator=gen, device="cuda")
-            cfg = ex.launch_config("spmv_ell", {"m": m, "k": k})
-            y = K.spmv_ell(E.col_idx, E.values, xv, block_threads=cfg["block_threads"],
-                           subgroup=cfg["subgroup"])
+            cfg = ex.launch_config("spmv_ell", {"m": m, "k": k, "itemsize": 4})
+            geo_l = dict(block_threads=cfg["block_threads"],
+                         subgroup=cfg["subgroup"])
+            y = K.spmv_ell(E.col_idx, E.values, xv, **geo_l)
             y_ref = K.spmv_ell_plain(E.col_idx, E.values, xv)
             sc = float(K.spmv_ell_plain(E.col_idx, E.values.abs(), xv.abs()).max())
             err = float((y - y_ref).abs().max())
@@ -939,11 +965,38 @@ def phase_amg(torch, copy_bw):
                 fail(f"spmv_ell disagrees with its plain version on level {lvl} "
                      f"{name} ({m}x{E.shape[1]}, k = {k}): {err}")
             worst = max(worst, err / sc if sc else err)
+            C_t = torch.sparse_csr_tensor(C.indptr.to(torch.int32),
+                                          C.indices.to(torch.int32), C.values,
+                                          size=C.shape)
+            say(f"[kernels] spmv_ell at level {lvl} {name}: {m} x {E.shape[1]}, "
+                f"k = {k}, subgroup {geo_l['subgroup']}")
+            entry = row(
+                "spmv_ell", "spmv_ell.cu", "src/repro/kernels/spmv_ell/kernel.py:53",
+                err,
+                lambda E=E, xv=xv, geo_l=geo_l: K.spmv_ell(E.col_idx, E.values,
+                                                           xv, **geo_l),
+                lambda E=E, xv=xv: K.spmv_ell_plain(E.col_idx, E.values, xv),
+                m * k * 8 + E.shape[1] * 4 + m * 4, 2 * m * k,
+                lambda C_t=C_t, xs=xv[:, None]: torch.sparse.mm(C_t, xs))
+            entry.update(operator=f"level {lvl} {name}", level=lvl,
+                         shape={"m": m, "n": E.shape[1], "k": k},
+                         subgroup=geo_l["subgroup"], per_v_cycle=weight[name])
+            levels.append(entry)
     say(f"[kernels] spmv_ell on the {3 * nlev} AMG level operators: largest "
         f"error {worst:.3e} relative to the row magnitudes (each within 8 k eps)")
-
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    row = functools.partial(kernel_row, torch, flush, copy_bw)
+    prof_us = summary["profile"]["named_us"] / k_amg
+    v_cycle = {key: sum(e["per_v_cycle"] * e[key] for e in levels)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                           "copy_bound_ms")}
+    v_cycle.update(launches=sum(e["per_v_cycle"] for e in levels),
+                   profile_us_per_iteration=prof_us)
+    say(f"[kernels] spmv_ell per V(1,1) cycle ({v_cycle['launches']} launches): "
+        f"{v_cycle['ms']:.4f} ms (plain {v_cycle['plain_ms']:.4f}, CSR "
+        f"torch.sparse.mm {v_cycle['library_ms']:.4f}, bound "
+        f"{v_cycle['bound_ms']:.4f}); under the profiler {prof_us:.2f} us an "
+        f"AMG-CG iteration")
+    ell_levels = {"operators": levels, "v_cycle": v_cycle,
+                  "max_abs_err": max(e["max_abs_err"] for e in levels)}
 
     # axpy_norm at the outer CG's vectors (n rows) and block_jacobi_apply at
     # the baseline's blocks, each storage class: as in phase 3
@@ -1006,7 +1059,7 @@ def phase_amg(torch, copy_bw):
         lambda: K.csr_permute_plain(vals, order), 12 * nnz, 0,
         lambda: torch.index_select(vals, 0, order))
     rows_out["csr_permute"]["shape"] = {"nnz": nnz}
-    return launches, by_storage, summary, rows_out, held
+    return launches, by_storage, summary, rows_out, held, ell_levels
 
 
 def phase_sellp(torch, copy_bw):
@@ -1559,28 +1612,37 @@ def phase_lm_kernels(torch, copy_bw) -> dict:
     # rmsnorm: the shared block's norms (d = 5,120) and the final norm (2,560)
     # over B * S rows, bf16 x and f32 scale.  Both sides round one f32 result
     # to bf16: one bf16 ulp (2^-7 relative) apart at most, plus f32 order.
+    # The prefill's B * S rows, then a decode step's B rows (where most
+    # launches run); a repeat at the path's shape is bitwise equal.
     held = {}
-    for d in (2 * 2560, 2560):
-        x = torch.randn(B * S, d, generator=gen, device="cuda").to(bf16)
-        w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
-        rpb = ex.launch_config("nn_rmsnorm", {"rows": B * S, "d": d,
-                                              "itemsize": 2})["rows_per_block"]
-        err = _held(torch, f"rmsnorm at {B * S} x {d}", K.rmsnorm(x, w, 1e-5,
-                                                           rows_per_block=rpb),
-                    K.rmsnorm_plain(x, w, 1e-5), 2.0 ** -7, 1e-6)
-        w_lib = w.to(bf16)
-        held[d] = row(
-            "rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:27",
-            err, lambda: K.rmsnorm(x, w, 1e-5, rows_per_block=rpb),
-            lambda: K.rmsnorm_plain(x, w, 1e-5),
-            2 * B * S * d * 2 + d * 4, 4 * B * S * d,
-            lambda: torch.nn.functional.rms_norm(x, (d,), w_lib, 1e-5))
-        held[d]["shape"] = {"rows": B * S, "d": d}
-        del x
-    out["rmsnorm"] = held[5120]
-    out["rmsnorm"]["at_final_norm_shape"] = held[2560]
-    out["rmsnorm"]["max_abs_err"] = max(held[5120]["max_abs_err"],
-                                        held[2560]["max_abs_err"])
+    for rows in (B * S, B):
+        for d in (2 * 2560, 2560):
+            x = torch.randn(rows, d, generator=gen, device="cuda").to(bf16)
+            w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+            rpb = ex.launch_config("nn_rmsnorm", {"rows": rows, "d": d,
+                                                  "itemsize": 2})["rows_per_block"]
+            y = K.rmsnorm(x, w, 1e-5, rows_per_block=rpb)
+            err = _held(torch, f"rmsnorm at {rows} x {d}", y,
+                        K.rmsnorm_plain(x, w, 1e-5), 2.0 ** -7, 1e-6)
+            if (rows, d) == (B * S, 5120):
+                same = torch.equal(K.rmsnorm(x, w, 1e-5, rows_per_block=rpb), y)
+                say(f"[kernels] rmsnorm at {rows} x {d} repeated bitwise equal: "
+                    f"{same}")
+                if not same:
+                    fail("rmsnorm is not deterministic across runs")
+            w_lib = w.to(bf16)
+            held[rows, d] = row(
+                "rmsnorm", "rmsnorm.cu", "src/repro/kernels/rmsnorm/kernel.py:27",
+                err, lambda: K.rmsnorm(x, w, 1e-5, rows_per_block=rpb),
+                lambda: K.rmsnorm_plain(x, w, 1e-5),
+                2 * rows * d * 2 + d * 4, 4 * rows * d,
+                lambda: torch.nn.functional.rms_norm(x, (d,), w_lib, 1e-5))
+            held[rows, d]["shape"] = {"rows": rows, "d": d}
+            del x
+    out["rmsnorm"] = held[B * S, 5120]
+    out["rmsnorm"]["at_final_norm_shape"] = held[B * S, 2560]
+    out["rmsnorm"]["at_decode_shape"] = [held[B, 5120], held[B, 2560]]
+    out["rmsnorm"]["max_abs_err"] = max(e["max_abs_err"] for e in held.values())
     say("[kernels] rmsnorm library_ms: torch.nn.functional.rms_norm with the "
         "scale cast to bf16 (it takes one dtype)")
 
@@ -2218,9 +2280,12 @@ def main() -> None:
     launches, by_storage, path = phase_path(torch, A, b)
     phase_small_reference(torch)
     del A, b
-    amg_launches, amg_storage, path["amg"], amg_rows, held_amg = phase_amg(
-        torch, copy_bw)
+    amg_launches, amg_storage, path["amg"], amg_rows, held_amg, ell_levels = \
+        phase_amg(torch, copy_bw)
     rows.update(amg_rows)
+    rows["spmv_ell"]["at_amg_levels"] = ell_levels
+    rows["spmv_ell"]["max_abs_err"] = max(rows["spmv_ell"]["max_abs_err"],
+                                          ell_levels["max_abs_err"])
     sellp_launches, path["sellp"], sellp_rows = phase_sellp(torch, copy_bw)
     rows.update(sellp_rows)
     batch_launches, batch_storage, path["batch"], batch_rows, held_batch = \

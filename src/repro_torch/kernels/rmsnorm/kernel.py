@@ -26,10 +26,18 @@ _ENTRY = {
     (torch.float16, torch.float32): "repro_rmsnorm_f16_f32",
 }
 _ARGS = (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)
 
-#: vectors of 16 bytes each thread holds in registers (kVecPerThread)
-VEC_PER_THREAD = 8
+#: 16-byte vectors a thread may hold of each row (the kernel's V choices)
+VEC_PER_THREAD = (1, 2, 4, 8)
+#: threads a row's team should stay within: the fewest vectors a thread that
+#: keep ceil(vectors / V) at or below this are taken (160 threads, 5 warps,
+#: at the serving path's d = 5,120 and 2,560 in bf16)
+TEAM_THREADS = 192
+#: threads of a block (the kernel's __launch_bounds__): with 16-byte vectors,
+#: and with single elements (d or the base not aligned)
+MAX_THREADS = 256
+MAX_THREADS_SCALAR = 1024
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -42,20 +50,27 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.
 
 def rmsnorm_geometry(d: int, itemsize: int, aligned: bool,
                      rows_per_block: int):
-    """``(vectorized, threads per row, rows per block)`` for rows of ``d``
-    elements: 16-byte vectors when ``d`` and the base allow, enough threads
-    of 32 for each to hold at most VEC_PER_THREAD vectors, several rows a
-    block only when a row takes one warp."""
+    """``(vectorized, vectors per thread, threads per row, rows per block)``
+    for rows of ``d`` elements: 16-byte vectors when ``d`` and the base
+    allow; the fewest vectors a thread (of VEC_PER_THREAD) that keep a row's
+    team within TEAM_THREADS threads, rounded up to whole warps (at most
+    MAX_THREADS, or MAX_THREADS_SCALAR without vectors); several rows a block
+    only when a row takes one warp."""
     vec = 16 // itemsize
     vectorized = aligned and d % vec == 0
     nvec = d // vec if vectorized else d
-    per_thread = -(-nvec // VEC_PER_THREAD)
-    tpr = 32 * -(-per_thread // 32)
-    if tpr > 1024:
+    for per_thread in VEC_PER_THREAD:
+        if -(-nvec // per_thread) <= TEAM_THREADS:
+            break
+    tpr = 32 * -(-nvec // (32 * per_thread))
+    limit = MAX_THREADS if vectorized else MAX_THREADS_SCALAR
+    if tpr > limit:
         raise ValueError(
             f"rmsnorm: rows of {d} elements exceed one block's registers "
-            f"({1024 * VEC_PER_THREAD} vectors)")
-    return vectorized, tpr, (rows_per_block if tpr == 32 else 1)
+            f"({limit * VEC_PER_THREAD[-1]} "
+            f"{'vectors of 16 bytes' if vectorized else 'elements'})")
+    rpb = min(rows_per_block, MAX_THREADS // 32) if tpr == 32 else 1
+    return vectorized, per_thread, tpr, rpb
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
@@ -72,16 +87,18 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
             f"{sorted((str(a), str(b)) for a, b in _ENTRY)}")
     if not on_cuda(name, x, w):
         return rmsnorm_plain(x, w, eps)
-    require(1 <= rows_per_block <= 32, name,
-            f"rows_per_block {rows_per_block} must be in [1, 32]")
-    vectorized, tpr, rpb = rmsnorm_geometry(
+    require(1 <= rows_per_block <= MAX_THREADS // 32, name,
+            f"rows_per_block {rows_per_block} must be in "
+            f"[1, {MAX_THREADS // 32}]")
+    vectorized, per_thread, tpr, rpb = rmsnorm_geometry(
         d, x.element_size(), x.data_ptr() % 16 == 0, rows_per_block)
     y = torch.empty_like(x)
     rows = x.numel() // d
     if rows:
         fn = _build.function(_ENTRY[(x.dtype, w.dtype)], _ARGS)
         _build.check(name, fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows,
-                              d, float(eps), int(vectorized), tpr, rpb,
+                              d, float(eps), int(vectorized), per_thread,
+                              tpr, rpb,
                               _build.stream_of(x)))
         rmsnorm.launches += 1
     return y

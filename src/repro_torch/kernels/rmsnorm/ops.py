@@ -3,20 +3,22 @@
 The ``reference`` and ``torch`` spaces compute the plain version (the JAX
 package's reference and XLA spaces share one formula too); the ``cuda``
 space launches the kernel, with the rows per block (when a row takes one
-warp) from the tuning table.  The ``cuda`` registration is unconditional:
-a failed build or launch raises and is never re-dispatched.
+warp) from the tuning table; the rest of the geometry is
+``rmsnorm_geometry``'s, from the row's width.  The ``cuda`` registration is
+unconditional: a failed build or launch raises and is never re-dispatched.
 """
 
 from __future__ import annotations
 
 from repro_torch.core import registry, tuning
 from repro_torch.kernels._check import require_cuda
-from repro_torch.kernels.rmsnorm.kernel import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rmsnorm.kernel import (MAX_THREADS, rmsnorm,
+                                               rmsnorm_plain)
 
 
 def _constrain(hw, shapes, block):
     return {"rows_per_block": min(max(int(block["rows_per_block"]), 1),
-                                  1024 // hw.warp_size)}
+                                  MAX_THREADS // hw.warp_size)}
 
 
 RMSNORM_SPEC = tuning.register_spec(
@@ -24,8 +26,9 @@ RMSNORM_SPEC = tuning.register_spec(
         op="nn_rmsnorm",
         params=("rows_per_block",),
         seed=lambda hw: {"rows_per_block": 4},
-        # the 32 warp partials of a one-row block (static shared memory)
-        smem_bytes=lambda shapes, block: 32 * 4,
+        # two sets of the (up to 32) warp partials of a one-row block
+        # (static shared memory)
+        smem_bytes=lambda shapes, block: 2 * 32 * 4,
         constrain=_constrain,
     )
 )

@@ -15,12 +15,18 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._check import on_cuda, require
 
-__all__ = ["spmv_ell", "spmv_ell_plain"]
+__all__ = ["spmv_ell", "spmv_ell_plain", "ROWS_WALK_MAX_K", "ROWS_WALK_THREADS"]
 
 _P = ctypes.c_void_p
 _ENTRY = {torch.float32: "repro_spmv_ell_f32", torch.float64: "repro_spmv_ell_f64"}
 _ARGS = (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, _P)
+
+#: widest row the thread-per-row walk (``subgroup = 1``) takes (its gathers
+#: are held in KMAX <= 32 registers a thread), and its most threads a block
+#: (its __launch_bounds__)
+ROWS_WALK_MAX_K = 32
+ROWS_WALK_THREADS = 256
 
 
 def spmv_ell_plain(col_idx: torch.Tensor, values: torch.Tensor,
@@ -51,12 +57,22 @@ def check_geometry(name: str, block_threads: int, subgroup: int) -> None:
 
 def spmv_ell(col_idx: torch.Tensor, values: torch.Tensor, x: torch.Tensor, *,
              block_threads: int = 256, subgroup: int = 8) -> torch.Tensor:
-    """y = A x for a row-major ``(m, k)`` ELL matrix given as (col_idx, values)."""
+    """y = A x for a row-major ``(m, k)`` ELL matrix given as (col_idx, values).
+
+    ``subgroup = 1`` walks a row with one thread (a warp stages its 32 rows'
+    entries in shared memory; ``k`` at most ROWS_WALK_MAX_K, at most
+    ROWS_WALK_THREADS threads a block), a power of two above 1 with that
+    many lanes."""
     check_ell("spmv_ell", col_idx, values, x)
     if not on_cuda("spmv_ell", col_idx, values, x):
         return spmv_ell_plain(col_idx, values, x)
     check_geometry("spmv_ell", block_threads, subgroup)
     m, k = values.shape
+    require(subgroup > 1 or (k <= ROWS_WALK_MAX_K
+                             and block_threads <= ROWS_WALK_THREADS),
+            "spmv_ell", f"the thread-per-row walk (subgroup 1) takes k <= "
+            f"{ROWS_WALK_MAX_K} and at most {ROWS_WALK_THREADS} threads a "
+            f"block, got k = {k}, {block_threads} threads")
     y = torch.empty(m, dtype=values.dtype, device=values.device)
     if m:
         fn = _build.function(_ENTRY[values.dtype], _ARGS)

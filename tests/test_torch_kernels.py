@@ -154,10 +154,17 @@ def test_wrappers_check_their_arguments():
 
 def test_tuning_geometry_for_h100():
     hw = make_executor("h100").hw
+    # the ELL path's k = 7: one thread a row, a warp's 32 rows staged in
+    # shared memory at an odd stride (7 entries of 4 + 4 bytes a row)
     cfg = tuning.resolve("spmv_ell", {"m": 2_097_152, "k": 7}, hw)
-    assert cfg["subgroup"] == 8 and cfg["block_threads"] == 256
-    assert cfg.smem_bytes == 0 and cfg.source == "seed"
-    assert tuning.resolve("spmv_ell", {"m": 10, "k": 3}, hw)["subgroup"] == 4
+    assert cfg["subgroup"] == 1 and cfg["block_threads"] == 256
+    assert cfg.smem_bytes == 256 * 7 * 8 and cfg.source == "seed"
+    # an even k is padded to k + 1; f64 values take 8 bytes
+    cfg = tuning.resolve("spmv_ell", {"m": 10, "k": 4, "itemsize": 8}, hw)
+    assert cfg["subgroup"] == 1 and cfg.smem_bytes == 256 * 5 * 12
+    # wider rows keep lanes a row, with no shared memory
+    cfg = tuning.resolve("spmv_ell", {"m": 10, "k": 27}, hw)
+    assert cfg["subgroup"] == 8 and cfg.smem_bytes == 0
     cfg = tuning.resolve("spmv_dot", {"m": 10, "k": 27, "itemsize": 4}, hw)
     assert cfg["subgroup"] == 8 and cfg["block_threads"] == 256
     assert cfg.smem_bytes == 128
@@ -171,6 +178,25 @@ def test_tuning_geometry_for_h100():
         assert cfg.source == "table" and cfg["block_threads"] == 992
     finally:
         tuning._TABLE.pop(("block_jacobi", "h100"))
+
+
+@pytest.mark.parametrize("k", range(4, 101))
+def test_spmv_ell_walk_for_each_k(k):
+    """The walk is a function of k over the AMG operators' range (k from 4
+    to about 100): one thread a row up to 16 entries, the seed's 8 lanes to
+    32, a whole warp beyond; the thread-per-row walk's blocks hold 256
+    threads even where a table entry asks for more."""
+    hw = make_executor("h100").hw
+    want = 1 if k <= 16 else 8 if k <= 32 else 32
+    assert tuning.resolve("spmv_ell", {"m": 1_048_576, "k": k}, hw)["subgroup"] == want
+    tuning.set_table_entry("spmv_ell", "h100", {"block_threads": 1024,
+                                                "subgroup": 8})
+    try:
+        cfg = tuning.resolve("spmv_ell", {"m": 1_048_576, "k": k}, hw)
+        assert cfg["subgroup"] == want
+        assert cfg["block_threads"] == (256 if want == 1 else 1024)
+    finally:
+        tuning._TABLE.pop(("spmv_ell", "h100"))
 
 
 def test_launch_counts_reset_per_kernel_and_per_storage(monkeypatch):

@@ -102,15 +102,36 @@ def test_rmsnorm_op_spaces_match_pallas_executor(space):
 
 
 def test_rmsnorm_geometry():
-    # the path's widths: 16-byte vectors, at most 8 a thread
-    assert rmsnorm_geometry(5120, 2, True, 4) == (True, 96, 1)
-    assert rmsnorm_geometry(2560, 2, True, 4) == (True, 64, 1)
-    assert rmsnorm_geometry(1024, 2, True, 4) == (True, 32, 4)  # a warp a row
-    assert rmsnorm_geometry(1000, 4, True, 4) == (True, 32, 4)
-    assert rmsnorm_geometry(77, 2, True, 4) == (False, 32, 4)  # not a vector multiple
-    assert rmsnorm_geometry(64, 2, False, 4) == (False, 32, 4)  # unaligned base
+    # (vectorized, vectors a thread, threads a row, rows a block).  The
+    # path's widths: 16-byte vectors, 160 threads (5 warps) a row
+    assert rmsnorm_geometry(5120, 2, True, 4) == (True, 4, 160, 1)
+    assert rmsnorm_geometry(2560, 2, True, 4) == (True, 2, 160, 1)
+    assert rmsnorm_geometry(1024, 2, True, 4) == (True, 1, 128, 1)
+    assert rmsnorm_geometry(1000, 4, True, 4) == (True, 2, 128, 1)
+    assert rmsnorm_geometry(256, 2, True, 4) == (True, 1, 32, 4)  # a warp a row
+    assert rmsnorm_geometry(256, 2, True, 16) == (True, 1, 32, 8)  # 256 threads
+    assert rmsnorm_geometry(77, 2, True, 4) == (False, 1, 96, 1)  # not a vector multiple
+    assert rmsnorm_geometry(64, 2, False, 4) == (False, 1, 64, 1)  # unaligned base
+    assert rmsnorm_geometry(16384, 2, True, 4) == (True, 8, 256, 1)  # the widest
+    assert rmsnorm_geometry(8192, 2, False, 4) == (False, 8, 1024, 1)  # no vectors
     with pytest.raises(ValueError, match="registers"):
         rmsnorm_geometry(40000, 4, True, 4)
+    with pytest.raises(ValueError, match="registers"):
+        rmsnorm_geometry(8193, 2, False, 4)
+
+
+def test_rmsnorm_geometry_at_decode_rows():
+    """A decode step's 8 rows take the prefill's 16,384-row geometry: the
+    team per row depends only on d; the persistent grid (one wave of
+    resident blocks at most) is what shrinks, to one block a row."""
+    ex = make_executor("h100")
+    for d in (5120, 2560):
+        cfgs = [ex.launch_config("nn_rmsnorm", {"rows": rows, "d": d,
+                                                "itemsize": 2})
+                for rows in (8, 16384)]
+        assert cfgs[0].block == cfgs[1].block == {"rows_per_block": 4}
+        assert cfgs[0].smem_bytes == 2 * 32 * 4
+    assert rmsnorm_geometry(5120, 2, True, 4)[2:] == (160, 1)
 
 
 # -- flash attention --------------------------------------------------------------
