@@ -75,8 +75,11 @@ Phases, each of which exits non-zero on failure:
             for bit at the first), flash_attention (the path's shape,
             repeated bit for bit, a GQA, an offset, an fp16, a ragged
             S = Skv = 2,000 and an f32 shape)
-            and ssd_scan held against their plain versions at the path's
-            shapes and timed (F.rms_norm and
+            and ssd_scan (the path's shape, repeated bit for bit, the
+            strided views of x, B and C mamba_forward hands over held bit
+            for bit against contiguous copies, a strong decay, a ragged
+            S = 2,044, f32 and a narrow G = 1, P = N = 32 shape) held
+            against their plain versions and timed (F.rms_norm and
             F.scaled_dot_product_attention as library calls);
 9. rwkv6  — RWKV6-3B serving at full width and depth (32 layers, bf16,
             3,094,374,400 random parameters from seed 0):
@@ -97,7 +100,8 @@ Phases, each of which exits non-zero on failure:
             torch.profiler over one prefill and over 4 decode steps; (c)
             full width at 8 layers in f32, the cuda space against the torch
             space; then rwkv6_scan_log held against its plain version at the
-            path's shape (timed), a strong decay, a ragged tail and f32.
+            path's shape (timed), a strong decay, a ragged tail, a tail of
+            3 rows (shorter than one sub-chunk of 8) and f32.
 
 It then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
@@ -1702,31 +1706,83 @@ def phase_lm_kernels(torch, copy_bw) -> dict:
     del q, k, v
 
     # ssd_scan at the path's shape: y within one bf16 ulp plus 1e-4 of max |y|
-    # (chunk sums in another order), the f32 state within 1e-4 of its max
+    # (chunk sums in another order, split products), the f32 state within
+    # 1e-4 of its max; x, B and C are strided views of one conv output, as
+    # mamba_forward hands them over, and must give the contiguous copies'
+    # result bit for bit; a repeat is bitwise equal.  Then a strong decay,
+    # a ragged tail, f32 (CUDA-core kernel, 1e-4 of max |y| alone), a
+    # narrow shape (G = 1, P = N = 32: partial tiles) and bf16 at
+    # P = N = 12, which the tensor-core kernel does not take (the CUDA-core
+    # kernel in bf16).
+    from repro_torch.kernels.ssd.kernel import ssd_tensor_cores
+
     Hs, P, G, N = 80, 64, 2, 64
-    x = torch.randn(B, S, Hs, P, generator=gen, device="cuda").to(bf16)
-    dt = torch.nn.functional.softplus(
-        torch.randn(B, S, Hs, generator=gen, device="cuda") - 1)
-    A = -torch.exp(0.5 * torch.randn(Hs, generator=gen, device="cuda"))
-    Bm = (0.3 * torch.randn(B, S, G, N, generator=gen, device="cuda")).to(bf16)
-    Cm = (0.3 * torch.randn(B, S, G, N, generator=gen, device="cuda")).to(bf16)
-    y, h = K.ssd_scan(x, dt, A, Bm, Cm)
-    yp, hp = K.ssd_scan_plain(x, dt, A, Bm, Cm)
-    err = max(_held(torch, f"ssd_scan y at B {B}, S {S}, H {Hs}, P {P}, G {G}, N {N}",
-                    y, yp, 2.0 ** -7, 1e-4),
-              _held(torch, "ssd_scan final state", h, hp, 0.0, 1e-4))
+
+    def ssd_inputs(Bq, Sq, Hq, Pq, Gq, Nq, dtype, dt_shift=-1.0, a_mul=1.0):
+        conv = torch.randn(Bq, Sq, Hq * Pq + 2 * Gq * Nq, generator=gen,
+                           device="cuda")
+        conv[..., Hq * Pq:] *= 0.3
+        xv, Bv, Cv = torch.split(conv.to(dtype), [Hq * Pq, Gq * Nq, Gq * Nq],
+                                 dim=-1)
+        dt = torch.nn.functional.softplus(
+            torch.randn(Bq, Sq, Hq, generator=gen, device="cuda") + dt_shift)
+        A = -a_mul * torch.exp(0.5 * torch.randn(Hq, generator=gen, device="cuda"))
+        return (xv.reshape(Bq, Sq, Hq, Pq), dt, A, Bv.reshape(Bq, Sq, Gq, Nq),
+                Cv.reshape(Bq, Sq, Gq, Nq))
+
+    def ssd_held(label, args):
+        tol = 2.0 ** -7 if args[0].dtype != torch.float32 else 0.0
+        y, h = K.ssd_scan(*args)
+        yp, hp = K.ssd_scan_plain(*args)
+        return max(_held(torch, f"ssd_scan y {label}", y, yp, tol, 1e-4),
+                   _held(torch, f"ssd_scan final state {label}", h, hp, 0.0, 1e-4))
+
+    views = ssd_inputs(B, S, Hs, P, G, N, bf16)
+    assert not views[0].is_contiguous()
+    x, dt, A, Bm, Cm = (t.contiguous() for t in views)
+    errs = [ssd_held(f"at B {B}, S {S}, H {Hs}, P {P}, G {G}, N {N}",
+                     (x, dt, A, Bm, Cm))]
+    y1, h1 = K.ssd_scan(*views)
+    y2, h2 = K.ssd_scan(x, dt, A, Bm, Cm)
+    y3, h3 = K.ssd_scan(x, dt, A, Bm, Cm)
+    same_views = torch.equal(y1, y2) and torch.equal(h1, h2)
+    same = torch.equal(y2, y3) and torch.equal(h2, h3)
+    say(f"[kernels] ssd_scan: strided views bitwise equal to contiguous: "
+        f"{same_views}; repeat bitwise equal: {same}")
+    if not (same_views and same):
+        fail("ssd_scan: strided views or a repeat are not bitwise equal")
+    del y1, h1, y2, h2, y3, h3, views
+    ssd_shapes = {}
+    for label, shape, kw in (
+            ("strong_decay", (2, S, 8, P, G, N, bf16), {"dt_shift": 2.0,
+                                                         "a_mul": 8.0}),
+            ("ragged_tail", (2, S - 4, 8, P, G, N, bf16), {}),
+            ("f32", (2, 300, 8, P, G, N, torch.float32), {}),
+            ("narrow", (2, S, 8, 32, 1, 32, bf16), {}),
+            ("cuda_core_bf16", (2, 300, 8, 12, 2, 12, bf16), {})):
+        case = ssd_inputs(*shape, **kw)
+        tc = ssd_tensor_cores(case[0], case[3], case[4])
+        if tc != (shape[6] == bf16 and label != "cuda_core_bf16"):
+            fail(f"ssd_scan {label}: the tensor-core route is {tc}")
+        errs.append(ssd_held(f"{label} {shape[:6]}", case))
+        ssd_shapes[label] = dict(zip(("B", "S", "H", "P", "G", "N"), shape[:6]),
+                                 dtype=str(shape[6]).removeprefix("torch."),
+                                 **kw, route="mma.sync" if tc else "cuda cores",
+                                 max_abs_err=errs[-1])
+        del case
     L = 64
     chunks = -(-S // L)
     flops = 2 * L * (L * N + L * P + 2 * N * P) * B * Hs * chunks
     nbytes = (2 * B * S * Hs * P * 2 + B * S * Hs * 4 + 2 * B * S * G * N * 2
               + Hs * 4 + B * Hs * N * P * 4)
     out["ssd_scan"] = row(
-        "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd/kernel.py:98", err,
+        "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd/kernel.py:98", max(errs),
         lambda: K.ssd_scan(x, dt, A, Bm, Cm),
         lambda: K.ssd_scan_plain(x, dt, A, Bm, Cm), nbytes, flops,
         peak_flops=H100.peak_flops_bf16)
     out["ssd_scan"]["shape"] = {"B": B, "S": S, "H": Hs, "P": P, "G": G, "N": N,
                                 "chunk": L}
+    out["ssd_scan"]["held_at"] = ssd_shapes
     say("[kernels] ssd_scan library_ms: null — no single PyTorch call computes "
         "the SSD scan")
     return out
@@ -1954,20 +2010,23 @@ def _rwkv_counts(torch, K, n: int, where: str) -> None:
 def phase_rwkv_kernel(torch, copy_bw) -> dict:
     """rwkv6_scan_log at the serving path's shape against its plain version,
     timed (phase 3's protocol), with its bound; then a strong decay, a
-    ragged tail and f32 at smaller shapes."""
+    ragged tail, a tail shorter than one sub-chunk, f32, and bf16 at
+    K = V = 12 (which the tensor-core kernel does not take) at smaller
+    shapes."""
     from repro_torch import kernels as K
     from repro_torch.core.params import H100
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_tensor_cores
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     B, S, H, D = LM_BATCH, LM_PROMPT, 40, 64
 
-    def inputs(Bq, Sq, Hq, dtype, mu):
-        r, k, v = (torch.randn(Bq, Sq, Hq, D, generator=gen,
+    def inputs(Bq, Sq, Hq, dtype, mu, Dq=D):
+        r, k, v = (torch.randn(Bq, Sq, Hq, Dq, generator=gen,
                                device="cuda").to(dtype) for _ in range(3))
-        logw = -torch.exp(mu + torch.randn(Bq, Sq, Hq, D, generator=gen,
+        logw = -torch.exp(mu + torch.randn(Bq, Sq, Hq, Dq, generator=gen,
                                            device="cuda"))
-        u = (0.5 * torch.randn(Hq, D, generator=gen, device="cuda")).to(dtype)
+        u = (0.5 * torch.randn(Hq, Dq, generator=gen, device="cuda")).to(dtype)
         return r, k, v, logw, u
 
     def held(label, args, tol_rel):
@@ -1983,22 +2042,31 @@ def phase_rwkv_kernel(torch, copy_bw) -> dict:
     args = inputs(B, S, H, bf16, -1.0)
     errs = [held(f"at B {B}, S {S}, H {H}, K = V = {D}, bf16", args, 2.0 ** -7)]
     shapes = {}
-    for label, shape, mu in (("strong_decay", (2, S, 8, bf16), 2.5),
-                             ("ragged_tail", (2, S - 4, 8, bf16), -1.0),
-                             ("f32", (2, 300, 8, torch.float32), -1.0)):
+    for label, shape, mu, Dq in (("strong_decay", (2, S, 8, bf16), 2.5, D),
+                                 ("ragged_tail", (2, S - 4, 8, bf16), -1.0, D),
+                                 ("sub_chunk_tail", (2, S + 3, 8, bf16), -1.0, D),
+                                 ("f32", (2, 300, 8, torch.float32), -1.0, D),
+                                 ("cuda_core_bf16", (2, 300, 8, bf16), -1.0, 12)):
         tol = 2.0 ** -7 if shape[3] == bf16 else 0.0
-        errs.append(held(f"{label} {shape[:3]}", inputs(*shape, mu), tol))
-        shapes[label] = dict(zip(("B", "S", "H"), shape[:3]), K=D, V=D,
+        case = inputs(*shape, mu, Dq)
+        tc = rwkv6_tensor_cores(*case[:4])
+        if tc != (shape[3] == bf16 and label != "cuda_core_bf16"):
+            fail(f"rwkv6_scan_log {label}: the tensor-core route is {tc}")
+        errs.append(held(f"{label} {shape[:3]} K = V = {Dq}", case, tol))
+        shapes[label] = dict(zip(("B", "S", "H"), shape[:3]), K=Dq, V=Dq,
                              dtype=str(shape[3]).removeprefix("torch."),
-                             logw_mu=mu, max_abs_err=errs[-1])
+                             logw_mu=mu, route="mma.sync" if tc else "cuda cores",
+                             max_abs_err=errs[-1])
+        del case
     y1, s1 = K.rwkv6_scan_log(*args)
     y2, s2 = K.rwkv6_scan_log(*args)
     if not (torch.equal(y1, y2) and torch.equal(s1, s2)):
         fail("rwkv6_scan_log: a repeat is not bitwise equal")
     del y1, s1, y2, s2
     # bytes: r, k, v, u read and y written in bf16, logw read in f32, the
-    # state written in f32; operations: the chunk products of the ratio form
-    L = 32
+    # state written in f32; operations: the chunk products at the kernel's
+    # chunk
+    L = 64
     chunks = -(-S // L)
     lower = L * (L - 1) // 2  # pairs s < t of a chunk
     nbytes = 4 * B * S * H * D * 2 + B * S * H * D * 4 + B * H * D * D * 4 + H * D * 2
@@ -2011,7 +2079,18 @@ def phase_rwkv_kernel(torch, copy_bw) -> dict:
     row["shape"] = {"B": B, "S": S, "H": H, "K": D, "V": D, "chunk": L,
                     "dtype": "bfloat16", "logw_mu": -1.0}
     row["held_at"] = shapes
-    row["exponentials"] = B * H * chunks * (lower * D + 2 * L * D + D)
+    # the tensor-core kernel's exponentials a chunk and head: the ratio form
+    # on the diagonal 8 x 8 blocks (28 pairs each, K channels); then the
+    # factors: r's (ra and the inter-chunk factor, 2 L K), the keys below
+    # each warp's 16 rows (16 w K for warp w), the second sub-chunk's rows
+    # and keys against the first (L K), the state update's operand (L K)
+    # and the chunk decay (four lanes a state row, 4 K)
+    ratio = (L // 8) * 28 * D
+    factors = (2 * L * D + sum(16 * w for w in range(L // 16)) * D + L * D
+               + L * D + 4 * D)
+    say(f"[kernels] rwkv6_scan_log exponentials a call, counted from the "
+        f"kernel's design at this shape (not measured): ratio form "
+        f"{B * H * chunks * ratio}, all {B * H * chunks * (ratio + factors)}")
     say("[kernels] rwkv6_scan_log library_ms: null — no single PyTorch call "
         "computes the WKV6 scan")
     return {"rwkv6_scan_log": row}

@@ -7,6 +7,16 @@ version, the chunked formulation of the JAX package's ``rwkv6_chunked_xla``
 (ratio-form pairwise decays, masked before the exp).  ``rwkv6_scan`` takes
 the decay in linear space.  There is no fallback from a failed build or
 launch: the error propagates.
+
+bf16 inputs that ``rwkv6_tensor_cores`` accepts (K and V multiples of 8,
+16-byte aligned rows) run the tensor-core kernel: chunks
+of ``CHUNK`` = 64, four warps per (batch, head), the pairwise decays
+factored across sub-chunks of eight so that only the diagonal 8 x 8 blocks
+keep the ratio form, every chunk product by ``mma.sync`` with f32 operands
+split into bf16 hi + lo.
+f32, fp16 and other bf16 inputs run the CUDA-core kernel (chunks of
+``FMA_CHUNK`` = 32, the ratio form for every pair, f32 FMA products).
+``rwkv6_smem_bytes`` mirrors each one's shared memory.
 """
 
 from __future__ import annotations
@@ -20,24 +30,47 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_log", "rwkv6_scan_plain",
-           "rwkv6_smem_bytes", "CHUNK", "MAX_DIM"]
+           "rwkv6_smem_bytes", "rwkv6_tensor_cores", "CHUNK", "FMA_CHUNK",
+           "MAX_DIM"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ENTRY = {torch.float32: "repro_rwkv6_scan_f32",
           torch.bfloat16: "repro_rwkv6_scan_bf16",
           torch.float16: "repro_rwkv6_scan_f16"}
+_MMA_ENTRY = "repro_rwkv6_scan_bf16_mma"
 _ARGS = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 
-#: the chunk length the source compiles (kL) and the largest K and V (kW)
-CHUNK = 32
+#: the chunk lengths the source compiles (kL of the tensor-core kernel, kFL
+#: of the CUDA-core one) and the largest K and V (kW)
+CHUNK = 64
+FMA_CHUNK = 32
 MAX_DIM = 64
 
 
-def rwkv6_smem_bytes() -> int:
-    """Dynamic shared memory of one block (``smem_bytes`` in the source)."""
+def rwkv6_smem_bytes(tensor_cores: bool = True) -> int:
+    """Dynamic shared memory of one block: the tensor-core kernel's
+    (``RwkvSmem::kBytes``: r, k, v as bf16 rows padded by 8, W with its zero
+    row as f32 rows padded by 4, u, each warp's 16 x 17 diagonal scores, the
+    state as bf16 hi and lo), or the CUDA-core kernel's
+    (``fma_smem_bytes``)."""
     L, W = CHUNK, MAX_DIM
-    return 4 * (5 * L * (W + 1) + W * W + L * (L + 1) + 2 * W)
+    if not tensor_cores:
+        L = FMA_CHUNK
+        return 4 * (5 * L * (W + 1) + W * W + L * (L + 1) + 2 * W)
+    ld, ld_w = W + 8, W + 4
+    return (2 * 3 * L * ld + 4 * (L + 1) * ld_w + 4 * W + 4 * 4 * 16 * 17
+            + 2 * 2 * W * ld)
+
+
+def rwkv6_tensor_cores(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       logw: torch.Tensor) -> bool:
+    """Whether these contiguous inputs run the tensor-core kernel: bf16, K
+    and V multiples of 8, r, k, v and logw at 16-byte aligned addresses
+    (the 16-byte ``cp.async`` rows)."""
+    return (r.dtype == torch.bfloat16 and r.shape[-1] % 8 == 0
+            and v.shape[-1] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (r, k, v, logw)))
 
 
 def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,7 +151,9 @@ def rwkv6_scan_log(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state = torch.empty((Bsz, H, K, V), dtype=torch.float32, device=r.device)
     if S == 0 or Bsz == 0 or H == 0:
         return y, state.zero_()
-    fn = _build.function(_ENTRY[r.dtype], _ARGS)
+    entry = (_MMA_ENTRY if rwkv6_tensor_cores(r, k, v, logw)
+             else _ENTRY[r.dtype])
+    fn = _build.function(entry, _ARGS)
     _build.check(name, fn(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
         u.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, S, H, K, V,

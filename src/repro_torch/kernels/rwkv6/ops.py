@@ -18,6 +18,7 @@ from repro_torch.kernels.rwkv6.kernel import (
     rwkv6_scan_log,
     rwkv6_scan_plain,
     rwkv6_smem_bytes,
+    rwkv6_tensor_cores,
 )
 from repro_torch.kernels.rwkv6.ref import rwkv6_ref
 
@@ -32,7 +33,10 @@ RWKV6_SPEC = tuning.register_spec(
         op="nn_rwkv6_scan",
         params=("chunk",),
         seed=lambda hw: {"chunk": CHUNK},
-        smem_bytes=lambda shapes, block: rwkv6_smem_bytes(),
+        # "tensor_cores": 0 for the inputs the CUDA-core kernel takes
+        # (rwkv6_tensor_cores, as the wrapper decides)
+        smem_bytes=lambda shapes, block: rwkv6_smem_bytes(
+            bool(shapes.get("tensor_cores", 1))),
         constrain=_constrain,
     )
 )
@@ -52,7 +56,9 @@ def _rwkv6_torch(ex, r, k, v, logw, u):
 def _rwkv6_cuda(ex, r, k, v, logw, u):
     require_cuda("nn_rwkv6_scan", r, k, v, logw, u)
     # the chunk is compiled; resolving checks the block's shared memory
-    ex.launch_config("nn_rwkv6_scan", {"S": r.shape[1], "K": r.shape[-1],
-                                       "V": v.shape[-1]})
-    return rwkv6_scan_log(r.contiguous(), k.contiguous(), v.contiguous(),
-                          logw.to(torch.float32).contiguous(), u.contiguous())
+    r, k, v, u = (t.contiguous() for t in (r, k, v, u))
+    logw = logw.to(torch.float32).contiguous()
+    ex.launch_config("nn_rwkv6_scan", {
+        "S": r.shape[1], "K": r.shape[-1], "V": v.shape[-1],
+        "tensor_cores": int(rwkv6_tensor_cores(r, k, v, logw))})
+    return rwkv6_scan_log(r, k, v, logw, u)

@@ -8,6 +8,8 @@ unconditional: a failed build or launch raises and is never re-dispatched.
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core import registry, tuning
 from repro_torch.kernels._check import require_cuda
 from repro_torch.kernels.ssd.kernel import (
@@ -15,6 +17,7 @@ from repro_torch.kernels.ssd.kernel import (
     ssd_scan,
     ssd_scan_plain,
     ssd_smem_bytes,
+    ssd_tensor_cores,
 )
 from repro_torch.kernels.ssd.ref import ssd_ref
 
@@ -29,7 +32,10 @@ SSD_SPEC = tuning.register_spec(
         op="nn_ssd_scan",
         params=("chunk",),
         seed=lambda hw: {"chunk": CHUNK},
-        smem_bytes=lambda shapes, block: ssd_smem_bytes(),
+        # "tensor_cores": 0 for the inputs the CUDA-core kernel takes
+        # (ssd_tensor_cores, as the wrapper decides)
+        smem_bytes=lambda shapes, block: ssd_smem_bytes(
+            bool(shapes.get("tensor_cores", 1))),
         constrain=_constrain,
     )
 )
@@ -49,7 +55,8 @@ def _ssd_torch(ex, x, dt, A, B_mat, C):
 def _ssd_cuda(ex, x, dt, A, B_mat, C):
     require_cuda("nn_ssd_scan", x, dt, A, B_mat, C)
     # the chunk is compiled; resolving checks the block's shared memory
-    ex.launch_config("nn_ssd_scan", {"S": x.shape[1], "N": B_mat.shape[-1],
-                                     "P": x.shape[-1]})
-    return ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
-                    B_mat.contiguous(), C.contiguous())
+    ex.launch_config("nn_ssd_scan", {
+        "S": x.shape[1], "N": B_mat.shape[-1], "P": x.shape[-1],
+        "tensor_cores": int(ssd_tensor_cores(x, B_mat, C))})
+    # x, B and C go as they are (the kernel reads strided rows)
+    return ssd_scan(x, dt.contiguous(), A.contiguous(), B_mat, C)

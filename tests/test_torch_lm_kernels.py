@@ -40,6 +40,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_tile_plan,
 )
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_geometry
+from repro_torch.kernels.ssd.kernel import ssd_smem_bytes, ssd_tensor_cores
 
 BF16_ULP = 2.0 ** -7
 
@@ -249,6 +250,139 @@ def test_ssd_scan_strong_decay_stays_finite():
                                atol=1e-4 * float(yr.abs().max()))
 
 
+# -- the tensor-core kernel's algebra (csrc/ssd_scan.cu, bf16) ------------------------
+#
+# The kernel runs only on the card.  ``_ssd_mma_mirror`` repeats its algebra
+# in plain PyTorch: chunks of 64 masked past S (not padded), C B^T from the
+# bf16 inputs as they are, and every f32 operand (the decay-weighted scores
+# G, the carried state h, B scaled by wdt) split into bf16 hi + lo, each
+# part multiplied in f32.  It is held against the Pallas kernel at the
+# tolerances chip_smoke.py holds the kernel to: y within one bf16 ulp plus
+# 1e-4 of max |y|, the state within 1e-4 of its max.
+
+
+def _split_bf16(t: torch.Tensor):
+    """hi = t rounded to bf16, lo = (t - hi) rounded to bf16, both as f32."""
+    hi = t.to(torch.bfloat16).to(torch.float32)
+    return hi, (t - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def _mm2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a b with ``a`` f32 split into hi + lo and ``b`` exact in bf16: the
+    kernel's two products."""
+    hi, lo = _split_bf16(a)
+    return hi @ b + lo @ b
+
+
+def _ssd_mma_mirror(x, dt, A, Bm, C, exponents=None):
+    """(y, state) by the tensor-core kernel's algebra; every exponent it
+    forms is appended to ``exponents`` (when given)."""
+    L = 64
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    xf, Bf, Cf = (t.to(torch.float32) for t in (x, Bm, C))
+
+    def exp(e):
+        if exponents is not None:
+            exponents.append(float(e.max()) if e.numel() else 0.0)
+        return torch.exp(e)
+
+    y = torch.zeros(Bsz, S, H, P)
+    state = torch.zeros(Bsz, H, N, P)
+    for b in range(Bsz):
+        for h in range(H):
+            g = h // (H // G)
+            hs = torch.zeros(N, P)
+            for t0 in range(0, S, L):
+                n = min(L, S - t0)  # rows past S read as 0: masked, not padded
+                xc = torch.zeros(L, P)
+                Bc = torch.zeros(L, N)
+                Cc = torch.zeros(L, N)
+                dtc = torch.zeros(L)
+                xc[:n], Bc[:n], Cc[:n] = xf[b, t0:t0 + n, h], Bf[b, t0:t0 + n, g], Cf[b, t0:t0 + n, g]
+                dtc[:n] = dt[b, t0:t0 + n, h]
+                acum = torch.cumsum(dtc * A[h], 0)
+                wdt = exp(acum[-1] - acum) * dtc
+                # y = exp(acum_t) (C h), h split hi + lo; C exact
+                hi, lo = _split_bf16(hs)
+                yc = exp(acum)[:, None] * (Cc @ hi + Cc @ lo)
+                # G = (C B^T) exp(acum_t - acum_s) dt_s, masked before the exp
+                lower = torch.tril(torch.ones(L, L, dtype=torch.bool))
+                diff = (acum[:, None] - acum[None, :])[lower]
+                decay = torch.zeros(L, L)
+                decay[lower] = exp(diff)
+                Gm = (Cc @ Bc.T) * decay * dtc[None, :]
+                yc = yc + _mm2(Gm, xc)
+                y[b, t0:t0 + n, h] = yc[:n]
+                hs = exp(acum[-1]) * hs + _mm2((Bc * wdt[:, None]).T, xc)
+            state[b, h] = hs
+    return y.to(x.dtype), state
+
+
+SSD_MMA_CASES = [
+    # B, S, H, P, G, N, dt_shift, A scale: the path's ratios at a small size
+    (1, 128, 4, 32, 2, 32, -1.0, 1.0),     # two whole chunks
+    (2, 100, 4, 16, 2, 16, -1.0, 1.0),     # a ragged tail of 36
+    (1, 70, 2, 32, 1, 32, 4.0, 30.0),      # strong decay, dt A ~ -150 a step
+]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,dt_shift,a_mul", SSD_MMA_CASES)
+def test_ssd_tensor_core_algebra_matches_pallas(B, S, H, P, G, N, dt_shift,
+                                                a_mul):
+    x, dt, A, Bm, C = _ssd_inputs(B, S, H, P, G, N, seed=B + S + P,
+                                  dt_shift=dt_shift)
+    A = A * a_mul
+    (jx, tx), (jB, tB), (jC, tC) = (_pair(a, "bfloat16") for a in (x, Bm, C))
+    jy, jh = jax_ssd(jx, jnp.asarray(dt), jnp.asarray(A), jB, jC, chunk=64,
+                     interpret=True)
+    want_y, want_h = _jnp(jy), np.asarray(jh)
+    exps = []
+    y, h = _ssd_mma_mirror(tx, torch.from_numpy(dt), torch.from_numpy(A), tB,
+                           tC, exps)
+    assert y.dtype == torch.bfloat16 and torch.isfinite(h).all()
+    np.testing.assert_allclose(_np(y), want_y, rtol=BF16_ULP,
+                               atol=1e-4 * np.abs(want_y).max())
+    np.testing.assert_allclose(h.numpy(), want_h, rtol=0,
+                               atol=1e-4 * np.abs(want_h).max())
+    # no exponent above 0 is formed (the decays are masked before the exp)
+    assert max(exps) <= 0.0
+
+
+def test_bf16_split_keeps_sixteen_bits():
+    """|x - hi - lo| <= 2^-16 |x| over f32 values of every magnitude the
+    scans meet, and the split of a bf16 value is exact (lo = 0)."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy((rng.standard_normal(100_000)
+                          * np.exp(rng.uniform(-60, 60, 100_000))).astype(np.float32))
+    hi, lo = _split_bf16(x)
+    assert ((x - hi - lo).abs() <= 2.0 ** -16 * x.abs()).all()
+    b = x.to(torch.bfloat16).to(torch.float32)
+    hi, lo = _split_bf16(b)
+    assert torch.equal(hi, b) and not lo.any()
+
+
+def test_ssd_wrapper_takes_strided_views():
+    """x, B and C as mamba_forward cuts them from one conv output (a unit
+    last stride, rows of H P + 2 G N elements) give the contiguous inputs'
+    result; a last dimension that is not unit-stride is refused."""
+    B, S, H, P, G, N = 1, 40, 4, 16, 2, 16
+    rng = np.random.default_rng(4)
+    conv = torch.from_numpy(rng.standard_normal((B, S, H * P + 2 * G * N))
+                            .astype(np.float32))
+    xv, Bv, Cv = torch.split(conv, [H * P, G * N, G * N], dim=-1)
+    xv, Bv, Cv = xv.reshape(B, S, H, P), Bv.reshape(B, S, G, N), Cv.reshape(B, S, G, N)
+    assert not xv.is_contiguous() and xv.stride(-1) == 1
+    _, dt, A, _, _ = (torch.from_numpy(a) for a in _ssd_inputs(B, S, H, P, G, N, seed=4))
+    y, h = K.ssd_scan(xv, dt, A, Bv, Cv)
+    yc, hc = K.ssd_scan(xv.contiguous(), dt, A, Bv.contiguous(), Cv.contiguous())
+    assert torch.equal(y, yc) and torch.equal(h, hc)
+    with pytest.raises(ValueError, match="unit stride"):
+        K.ssd_scan(xv.transpose(2, 3).contiguous().transpose(2, 3), dt, A, Bv, Cv)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.ssd_scan(xv, dt.transpose(1, 2).contiguous().transpose(1, 2), A, Bv, Cv)
+
+
 # -- the cuda space and the wrappers' checks -----------------------------------------
 
 
@@ -337,6 +471,47 @@ def test_flash_tile_plan_matches_the_source(D, slabs, stages, smem):
             <= threads * start)
 
 
+def test_ssd_source_matches_its_wrapper():
+    """The tensor-core kernel's constants and occupancy, as the wrapper's
+    shared-memory mirror assumes them: chunks of 64, four warps, x / B / C
+    and state rows of 72 bf16, three blocks an SM, products by mma.sync."""
+    from repro_torch.kernels.ssd import kernel as SK
+
+    c = _source_constants("ssd_scan.cu", ("kL", "kW", "kMmaThreads"))
+    assert (c["kL"], c["kW"]) == (SK.CHUNK, SK.MAX_DIM) == (64, 64)
+    assert c["kMmaThreads"] == 128
+    src = (Path(K.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+    assert "constexpr int kLd = kW + 8;" in src
+    assert "__launch_bounds__(kMmaThreads, 3)" in src
+    assert src.count("mma_bf16(") >= 4 and '#include "mma_sync.cuh"' in src
+    hdr = (Path(K.__file__).parent / "csrc" / "mma_sync.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in hdr
+
+
+@pytest.mark.parametrize("P,N,dtype,offset,want", [
+    (64, 64, torch.bfloat16, 0, True),    # the serving path's views
+    (32, 32, torch.bfloat16, 0, True),
+    (12, 64, torch.bfloat16, 0, False),   # P not a multiple of 8
+    (64, 12, torch.bfloat16, 0, False),   # N not a multiple of 8
+    (64, 64, torch.bfloat16, 1, False),   # rows not 16-byte aligned
+    (64, 64, torch.float32, 0, False),    # f32 keeps the CUDA-core kernel
+])
+def test_ssd_tensor_core_route(P, N, dtype, offset, want):
+    """The wrapper sends x, B and C to the tensor-core entry only when they
+    are bf16 with P and N multiples of 8 and 16-byte aligned rows; the spec's
+    shared memory follows the same choice."""
+    H, G = 4, 2
+    width = H * P + 2 * G * N
+    buf = torch.zeros(2 * 5 * width + 16, dtype=dtype)
+    step = 16 // buf.element_size()
+    base = (-buf.data_ptr() // buf.element_size()) % step  # 16-byte aligned
+    conv = buf[base + offset:base + offset + 2 * 5 * width].view(2, 5, width)
+    x, Bm, Cm = torch.split(conv, [H * P, G * N, G * N], dim=-1)
+    x, Bm, Cm = x.reshape(2, 5, H, P), Bm.reshape(2, 5, G, N), Cm.reshape(2, 5, G, N)
+    assert ssd_tensor_cores(x, Bm, Cm) is want
+    assert ssd_smem_bytes(want) == (76_288 if want else 83_456)
+
+
 def test_h100_launch_configs_fit_shared_memory():
     ex = make_executor("h100")
     assert ex.launch_config("nn_rmsnorm", {"rows": 16384, "d": 5120,
@@ -349,5 +524,15 @@ def test_h100_launch_configs_fit_shared_memory():
                                             "itemsize": 4})
     assert cfg["block_kv"] == 32
     assert cfg.smem_bytes == flash_smem_bytes(256, 4) <= ex.hw.smem_per_block_bytes
+    # the tensor-core kernel (bf16): two stages of x, B, C (bf16 rows of 72)
+    # and dt 55,808 + the state (hi, lo) 18,432 + acum and wdt 2,048; three
+    # blocks an SM (each with 1 KB the card reserves)
     cfg = ex.launch_config("nn_ssd_scan", {"S": 2048, "N": 64, "P": 64})
-    assert cfg["chunk"] == 64 and cfg.smem_bytes == 83_456
+    assert cfg["chunk"] == 64
+    assert cfg.smem_bytes == ssd_smem_bytes() == 76_288
+    assert 3 * (cfg.smem_bytes + 1024) <= ex.hw.smem_per_block_bytes + 1024
+    # the CUDA-core kernel (f32, fp16 and the bf16 inputs ssd_tensor_cores
+    # refuses) keeps its shared memory
+    cfg = ex.launch_config("nn_ssd_scan", {"S": 2048, "N": 64, "P": 64,
+                                           "tensor_cores": 0})
+    assert cfg["chunk"] == 64 and cfg.smem_bytes == ssd_smem_bytes(False) == 83_456
