@@ -9,12 +9,21 @@ Phases, each of which exits non-zero on failure:
 2. build  — compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
             with nvcc (sm_90a) and prints the build time and every
             kernel's registers, static shared memory and spills
-            (``-Xptxas -v``);
+            (``-Xptxas -v``); the fused SpMV + dot's thread-per-row kernel
+            must keep as many blocks an SM (by registers) as spmv_ell's at
+            every KMAX and type, within WALK_SPILL_LIMIT bytes of spills;
 3. kernels — at the main path's shapes, holds each kernel against its plain
             PyTorch version (stated tolerance) and times kernel, plain version
             and, where one exists, a single PyTorch library call (CUDA events,
-            median of 30 runs, L2 flushed before each run); spmv_ell and
-            spmv_dot_ell's dot repeated bit for bit;
+            median of 30 runs, L2 flushed before each run); spmv_ell,
+            spmv_dot_ell and axpy_norm repeated bit for bit; spmv_dot_ell's
+            y bitwise spmv_ell's at the same walk, and held also at a
+            ragged m = 2,097,152 - 5, in f64 and at k = 27 (the subgroup
+            walk); axpy_norm also in f64, at n - 3 (a scalar tail after the
+            16-byte packs) and on the offset view x[1:] (the scalar route);
+            spmv_dot_ell, axpy_norm and axpy_norm_rows (256 x 1,024, rows
+            in pieces) each one device kernel a call under torch.profiler,
+            and 1,000 back-to-back calls of each bit for bit;
 4. path   — solves poisson_3d(128) (2,097,152 rows, ELL k = 7, f32) with
             block-Jacobi CG through the CUDA executor, checks convergence, the
             true residual and every kernel's launch count, and repeats the
@@ -139,6 +148,12 @@ N_SIDE = 128
 STOP_KW = dict(max_iters=3000, reduction_factor=1e-6)
 PRECOND_OPTS = {"block_size": 8, "adaptive": True}
 REPS = 30
+#: back-to-back calls of each single-pass reduction held bit for bit
+REPEATS = 1000
+#: spill bytes allowed the fused thread-per-row kernel (spmv_dot.cu), whose
+#: __launch_bounds__ pin spmv_ell's blocks an SM: at the path's KMAX 8 in
+#: f32 (72 with CUDA 12.9), and at every other instantiation
+WALK_SPILL_LIMIT = {(8, "float"): 128, None: 512}
 #: the AMG path: amg_check on poisson_2d(1024) (1,048,576 rows); block-Jacobi
 #: CG needs about 1,800 iterations there, AMG-CG about 15
 AMG_N_SIDE = 1024
@@ -280,6 +295,43 @@ def ptxas_table(log: str) -> list:
     return rows
 
 
+def walk_occupancy_check(table: list) -> None:
+    """Fails unless every ``spmv_dot_ell_rows_kernel<KMAX, T>`` keeps as many
+    256-thread blocks an SM, as its registers allow, as
+    ``spmv_ell_rows_kernel<KMAX, T>`` (both take the same dynamic shared
+    memory), and spills no more than WALK_SPILL_LIMIT.  Reads demangled and
+    mangled names alike."""
+    import re
+
+    def blocks(regs: int) -> int:  # registers come in 8s a thread
+        return min(8, 65536 // (-(-regs // 8) * 8 * 256))
+
+    seen = {}
+    for _, fn, regs, _, spill in table:
+        m = (re.search(r"(spmv_dot_ell|spmv_ell)_rows_kernel<(\d+), (float|double)>", fn)
+             or re.search(r"(spmv_dot_ell|spmv_ell)_rows_kernelILi(\d+)E([fd])", fn))
+        if m:
+            kind = {"f": "float", "d": "double"}.get(m.group(3), m.group(3))
+            seen[(m.group(1), int(m.group(2)), kind)] = (regs, spill)
+    pairs = [(kmax, kind) for (name, kmax, kind) in seen if name == "spmv_dot_ell"]
+    if not pairs:
+        fail("no spmv_dot_ell_rows_kernel in the ptxas table")
+    for kmax, kind in sorted(pairs):
+        regs, spill = seen[("spmv_dot_ell", kmax, kind)]
+        ell = seen.get(("spmv_ell", kmax, kind))
+        if ell is None:
+            fail(f"no spmv_ell_rows_kernel<{kmax}, {kind}> in the ptxas table")
+        limit = WALK_SPILL_LIMIT.get((kmax, kind), WALK_SPILL_LIMIT[None])
+        say(f"[build]   thread-per-row walk <{kmax}, {kind}>: fused "
+            f"{blocks(regs)} blocks an SM ({regs} registers, {spill} bytes "
+            f"spilled, limit {limit}), spmv_ell {blocks(ell[0])} ({ell[0]})")
+        if blocks(regs) < blocks(ell[0]) or spill > limit:
+            fail(f"spmv_dot_ell_rows_kernel<{kmax}, {kind}> keeps "
+                 f"{blocks(regs)} blocks an SM against spmv_ell's "
+                 f"{blocks(ell[0])}, or spills {spill} bytes (> {limit}): "
+                 "revisit kWalkBlocks in spmv_dot.cu")
+
+
 def phase_build() -> float:
     from repro_torch.kernels import _build
 
@@ -289,10 +341,11 @@ def phase_build() -> float:
     say(f"[build] {seconds:.2f} s -> {_build.last_build.get('path')}")
     # registers and static shared memory of every kernel (the dynamic shared
     # memory of a launch is printed where the kernel is held)
-    for src, fn, regs, smem, spill in ptxas_table(
-            str(_build.last_build.get("log", ""))):
+    table = ptxas_table(str(_build.last_build.get("log", "")))
+    for src, fn, regs, smem, spill in table:
         say(f"[build]   {src}: {fn}: {regs} registers, {smem} bytes static "
             f"smem, {spill} bytes spilled")
+    walk_occupancy_check(table)
     return seconds
 
 
@@ -307,9 +360,10 @@ def copy_bandwidth(torch) -> float:
     return bw
 
 
-def tree_tol_rows(terms):
-    """Tolerance of an f32 tree sum of each row of ``terms`` against the
-    row's sum in f64, as a tensor (see :func:`tree_tol`)."""
+def tree_tol_rows(terms, u: float = 2.0 ** -24):
+    """Tolerance of a tree sum of each row of ``terms`` against the row's sum
+    in f64, as a tensor (see :func:`tree_tol`; ``u`` the unit roundoff of
+    the kernel's type)."""
     s = terms.double()
     total = (s * s).sum(dim=1)
     while s.shape[1] > 1:
@@ -319,10 +373,10 @@ def tree_tol_rows(terms):
             s = padded
         s = s[:, 0::2] + s[:, 1::2]
         total = total + (s * s).sum(dim=1)
-    return 16 * 2.0 ** -24 * total.sqrt()
+    return 16 * u * total.sqrt()
 
 
-def tree_tol(terms) -> float:
+def tree_tol(terms, u: float = 2.0 ** -24) -> float:
     """Tolerance of an f32 tree sum of ``terms`` against their sum in f64.
 
     Each addition rounds by at most u|s| (u = 2^-24), and the roundings act as
@@ -331,8 +385,11 @@ def tree_tol(terms) -> float:
     are those of a balanced pairwise tree, leaves (the f32 terms themselves)
     included; the tolerance is 16 u times that root-sum-square, over 25 times
     the spread.  For the random-sign w.y at m = 2M this is a few hundredths,
-    so dropping a typical block partial (128 terms, tens in size) fails."""
-    return float(tree_tol_rows(terms.flatten()[None])[0])
+    so dropping a typical block partial (128 terms, tens in size) fails.  For
+    an f64 sum, u = 2^-53, and the f64 reference, itself a tree sum, adds an
+    error of the same spread: 16 u stays over 11 times the spread of the
+    difference."""
+    return float(tree_tol_rows(terms.flatten()[None], u)[0])
 
 
 def check(name: str, err: float, tol: float) -> None:
@@ -366,15 +423,16 @@ def kernel_row(torch, flush, copy_bw, name, src, line, err, kernel_fn,
 
 def held_axpy_norm(torch, ex, x, w, where: str = "") -> dict:
     """Holds ``axpy_norm(alpha, x, w)`` against its plain version — z within
-    2 eps of max |alpha x| + |w|, z.z against the f64 sum within tree_tol —
-    and returns the rest of its ``kernel_row`` arguments."""
+    2 eps of max |alpha x| + |w|, z.z against the f64 sum within tree_tol
+    (eps and u of x's type) — and returns the rest of its ``kernel_row``
+    arguments."""
     from repro_torch import kernels as K
 
-    eps = torch.finfo(torch.float32).eps
+    eps = torch.finfo(x.dtype).eps
     n = x.numel()
-    cfg = ex.launch_config("axpy_norm", {"n": n, "itemsize": 4})
+    cfg = ex.launch_config("axpy_norm", {"n": n, "itemsize": x.element_size()})
     geo = dict(block_threads=cfg["block_threads"], grid_blocks=cfg["grid_blocks"])
-    alpha = torch.tensor(-0.37, device="cuda")
+    alpha = torch.tensor(-0.37, dtype=x.dtype, device="cuda")
     z, ss = K.axpy_norm(alpha, x, w, **geo)
     z_ref = K.axpy_norm_plain(alpha, x, w)[0]
     z64 = alpha.double() * x.double() + w.double()
@@ -382,11 +440,80 @@ def held_axpy_norm(torch, ex, x, w, where: str = "") -> dict:
     err_s = float((ss.double() - (z64 * z64).sum()).abs())
     check(f"axpy_norm z{where}", err_z,
           2 * eps * float((alpha.abs() * x.abs() + w.abs()).max()))
-    check(f"axpy_norm z.z{where}", err_s, tree_tol(z64 * z64))
+    check(f"axpy_norm z.z{where}", err_s, tree_tol(z64 * z64, eps / 2))
+    z2, ss2 = K.axpy_norm(alpha, x, w, **geo)
+    if not (torch.equal(z2, z) and torch.equal(ss2, ss)):
+        fail(f"axpy_norm{where} is not repeated bit for bit")
     return dict(err=max(err_z, err_s),
                 kernel_fn=lambda: K.axpy_norm(alpha, x, w, **geo),
                 plain_fn=lambda: K.axpy_norm_plain(alpha, x, w),
-                nbytes=3 * n * 4 + 4, flops=4 * n)
+                nbytes=3 * n * x.element_size() + x.element_size(),
+                flops=4 * n)
+
+
+def held_spmv_dot(torch, ex, col_idx, values, x, w, where: str = "") -> dict:
+    """Holds ``spmv_dot_ell`` against its plain version — y within 8 k eps of
+    max_i sum_j |a_ij x_j|, w.y against the f64 sum within tree_tol — with
+    the spec's geometry; y also bitwise equal to ``spmv_ell``'s at the same
+    walk and repeated bit for bit with the dot.  Returns the geometry and
+    the larger error."""
+    from repro_torch import kernels as K
+
+    eps = torch.finfo(values.dtype).eps
+    m, k = values.shape
+    cfg = ex.launch_config("spmv_dot", {"m": m, "k": k,
+                                        "itemsize": values.element_size()})
+    geo = {p: cfg[p] for p in ("block_threads", "subgroup")}
+    y, d = K.spmv_dot_ell(col_idx, values, x, w, **geo)
+    y_ref = K.spmv_dot_ell_plain(col_idx, values, x, w)[0]
+    scale = float(K.spmv_ell_plain(col_idx, values.abs(), x.abs()).max())
+    wy64 = w.double() * K.spmv_ell_plain(col_idx, values.double(), x.double())
+    err_y = float((y - y_ref).abs().max())
+    err_d = float((d.double() - wy64.sum()).abs())
+    walk = ("one thread" if geo["subgroup"] == 1
+            else f"{geo['subgroup']} lanes")
+    check(f"spmv_dot_ell y{where} ({walk} a row, m = {m}, k = {k}, "
+          f"{values.dtype})", err_y, 8 * k * eps * scale)
+    check(f"spmv_dot_ell w.y{where}", err_d, tree_tol(wy64, eps / 2))
+    y_ell = K.spmv_ell(col_idx, values, x, block_threads=geo["block_threads"],
+                       subgroup=geo["subgroup"])
+    if not torch.equal(y, y_ell):
+        fail(f"spmv_dot_ell's y{where} is not spmv_ell's bit for bit at the "
+             f"same walk ({walk} a row)")
+    y2, d2 = K.spmv_dot_ell(col_idx, values, x, w, **geo)
+    if not (torch.equal(y2, y) and torch.equal(d2, d)):
+        fail(f"spmv_dot_ell{where} is not repeated bit for bit")
+    say(f"[kernels] spmv_dot_ell{where}: y bitwise spmv_ell's, y and w.y "
+        "repeated bit for bit")
+    return dict(geo=geo, err=max(err_y, err_d))
+
+
+def one_pass_checks(torch, calls) -> None:
+    """Each wrapper in ``calls`` (name -> a call returning (result, sum)) runs
+    exactly one device kernel a call (no fill, no second pass), and REPEATS
+    back-to-back calls on one stream give the first call's bits: every sum,
+    and the last call's result.  That holds the single-pass sum's ticket
+    reset by every call and its last block seeing every block's partial."""
+    from repro_torch.kernels.ell_norm_probe import device_kernels
+
+    for name, fn in calls.items():
+        ops = device_kernels(fn)
+        say(f"[kernels] {name}: {len(ops)} device operation(s) in 5 calls: "
+            f"{sorted(set(ops))}")
+        if len(ops) != 5:
+            fail(f"{name} runs {len(ops)} device operations in 5 calls, not "
+                 "one kernel a call")
+        first, first_sum = (t.clone() for t in fn())
+        sums = []
+        for _ in range(REPEATS):
+            last, s = fn()
+            sums.append(s)
+        same = (bool((torch.stack(sums) == first_sum).all())
+                and torch.equal(last, first))
+        if not same:
+            fail(f"{name}: {REPEATS} back-to-back calls do not all give the "
+                 "first call's bits")
+        say(f"[kernels] {name}: {REPEATS} back-to-back calls bitwise equal")
 
 
 def held_block_jacobi(torch, ex, inv, vp, where: str = "") -> dict:
@@ -523,29 +650,68 @@ def phase_kernels(torch, A, A_host, P, ex, copy_bw) -> dict:
         ell_bytes, 2 * m * k,
         lambda: torch.sparse.mm(A_csr, xs))
 
-    # spmv_dot_ell — y as spmv_ell; w.y against the f64 sum, tree_tol
-    cfg = ex.launch_config("spmv_dot", {"m": m, "k": k, "itemsize": 4})
-    geo_d = dict(block_threads=cfg["block_threads"], subgroup=cfg["subgroup"])
-    y, d = K.spmv_dot_ell(A.col_idx, A.values, x, w, **geo_d)
-    y_ref = K.spmv_dot_ell_plain(A.col_idx, A.values, x, w)[0]
-    wy64 = w.double() * K.spmv_ell_plain(A.col_idx, A.values.double(), x.double())
-    err_y = float((y - y_ref).abs().max())
-    err_d = float((d.double() - wy64.sum()).abs())
-    check("spmv_dot_ell y", err_y, 8 * k * eps * scale)
-    check("spmv_dot_ell w.y", err_d, tree_tol(wy64))
-    d2 = K.spmv_dot_ell(A.col_idx, A.values, x, w, **geo_d)[1]
-    if not bool(d2 == d):
-        fail("spmv_dot_ell dot is not deterministic across runs")
+    # spmv_dot_ell — y as spmv_ell (and bitwise spmv_ell's); w.y against the
+    # f64 sum, tree_tol; then a ragged m, f64 and the subgroup walk (k = 27)
+    held = held_spmv_dot(torch, ex, A.col_idx, A.values, x, w)
+    geo_d, err_d = held["geo"], held["err"]
+    mr = m - 5
+    err_d = max(err_d, held_spmv_dot(
+        torch, ex, A.col_idx[:mr], A.values[:mr], x, w[:mr], " (ragged)")["err"])
+    err_d = max(err_d, held_spmv_dot(
+        torch, ex, A.col_idx, A.values.double(), x.double(), w.double(),
+        " (f64)")["err"])
+    mw, kw = 262_144, 27
+    cw = torch.randint(0, mw, (mw, kw), generator=gen, device="cuda",
+                       dtype=torch.int32)
+    vw = torch.randn(mw, kw, generator=gen, device="cuda")
+    pad = (torch.arange(kw, device="cuda")[None, :]
+           >= torch.randint(0, kw + 1, (mw, 1), generator=gen, device="cuda"))
+    cw[pad], vw[pad] = 0, 0.0
+    held_w = held_spmv_dot(torch, ex, cw, vw, x[:mw], w[:mw], " (k = 27)")
+    if held_w["geo"]["subgroup"] == 1:
+        fail("spmv_dot_ell at k = 27 did not take the subgroup walk")
+    err_d = max(err_d, held_w["err"])
     out["spmv_dot_ell"] = row(
         "spmv_dot_ell", "spmv_dot.cu", "src/repro/kernels/spmv_dot/kernel.py:62",
-        max(err_y, err_d),
+        err_d,
         lambda: K.spmv_dot_ell(A.col_idx, A.values, x, w, **geo_d),
         lambda: K.spmv_dot_ell_plain(A.col_idx, A.values, x, w),
         ell_bytes + m * 4 + 4, 2 * m * k + 2 * m)
 
+    # axpy_norm at the path's n (16-byte packs), then f64, an n that is not a
+    # multiple of the pack (a scalar tail) and the offset view x[1:] (the
+    # scalar route)
+    from repro_torch.kernels.axpy_norm.kernel import vector_width
+
     out["axpy_norm"] = row(
         "axpy_norm", "axpy_norm.cu", "src/repro/kernels/axpy_norm/kernel.py:39",
         **held_axpy_norm(torch, ex, x, w))
+    for where, xa, wa, want in ((" (f64)", x.double(), w.double(), 2),
+                                (" (n = m - 3)", x[:-3], w[:-3], 4),
+                                (" (x[1:], unaligned)", x[1:], w[1:], 1)):
+        if vector_width(xa, wa) != want:
+            fail(f"axpy_norm{where} takes {vector_width(xa, wa)} elements a "
+                 f"load, not {want}")
+        out["axpy_norm"]["max_abs_err"] = max(
+            out["axpy_norm"]["max_abs_err"],
+            held_axpy_norm(torch, ex, xa, wa, where)["err"])
+
+    # one kernel a call, and REPEATS back-to-back calls bit for bit, for both
+    # and for axpy_norm_rows with its rows in pieces (a ticket per row)
+    alpha = torch.tensor(-0.37, device="cuda")
+    geo_a = {p: ex.launch_config("axpy_norm", {"n": m, "itemsize": 4})[p]
+             for p in ("block_threads", "grid_blocks")}
+    Xr = torch.randn(256, 1024, generator=gen, device="cuda")
+    Yr = torch.randn(256, 1024, generator=gen, device="cuda")
+    ar = torch.randn(256, generator=gen, device="cuda")
+    geo_r = {p: ex.launch_config("axpy_norm_rows", {"nb": 256, "n": 1024,
+                                                    "itemsize": 4})[p]
+             for p in ("block_threads", "grid_blocks")}
+    one_pass_checks(torch, {
+        "spmv_dot_ell": lambda: K.spmv_dot_ell(A.col_idx, A.values, x, w, **geo_d),
+        "axpy_norm": lambda: K.axpy_norm(alpha, x, w, **geo_a),
+        "axpy_norm_rows (pieces)": lambda: K.axpy_norm_rows(ar, Xr, Yr, **geo_r),
+    })
 
     # block_jacobi_apply — every storage dtype at the main path's block count
     nb, bs = P.num_blocks, P.block_size
@@ -1441,7 +1607,7 @@ def phase_batch(torch, copy_bw):
 
     # row-batched axpy_norm at the CG runs' (nb, n), where each row is one
     # block, and at (256, 1024), where each row is cut into pieces whose
-    # partials a second launch adds
+    # partials the row's last block adds (a ticket per row)
     rows["axpy_norm_rows"] = row(
         "axpy_norm_rows", "axpy_norm.cu",
         "src/repro/kernels/axpy_norm/kernel.py:39",

@@ -2,10 +2,18 @@
 plain PyTorch version.
 
 ``axpy_norm`` (1-D vectors) and ``axpy_norm_rows`` (``(nb, n)`` batches, one
-alpha and one squared norm per row) launch the kernel (and its partial-sum
-pass) for CUDA tensors and count one launch each in their ``.launches``; for
-CPU tensors they return the plain version.  ``alpha`` is read on the device,
-so a solver loop does not wait on the host for it.
+alpha and one squared norm per row) launch one kernel for CUDA tensors and
+count it in their ``.launches``; for CPU tensors they return the plain
+version.  ``alpha`` is read on the device, so a solver loop does not wait on
+the host for it.  The kernel writes z.z itself (no fill of the result), and
+the blocks' partials and tickets live in a cached workspace
+(:mod:`._workspace`); n = 0 gives a zero without a launch.
+
+Route: :func:`vector_width` picks 16-byte packs (4 f32 or 2 f64 elements a
+load) where x, y and z are 16-byte aligned (and, for rows, n is a multiple
+of the pack), single elements otherwise (an offset view such as ``x[1:]``);
+:func:`launch_grid` sizes the vector form's grid from the route, and the
+tuning spec clamps its ``grid_blocks`` with the same function.
 """
 
 from __future__ import annotations
@@ -14,19 +22,39 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _workspace
 from repro_torch.kernels._check import on_cuda, require
 
-__all__ = ["axpy_norm", "axpy_norm_plain", "axpy_norm_rows", "rows_chunks"]
+__all__ = ["axpy_norm", "axpy_norm_plain", "axpy_norm_rows", "launch_grid",
+           "rows_chunks", "vector_width"]
 
 _P = ctypes.c_void_p
 _ENTRY = {torch.float32: "repro_axpy_norm_f32", torch.float64: "repro_axpy_norm_f64"}
-_ARGS = (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_int, _P)
+_ARGS = (_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, _P)
 _ROWS_ENTRY = {torch.float32: "repro_axpy_norm_rows_f32",
                torch.float64: "repro_axpy_norm_rows_f64"}
-_ROWS_ARGS = (_P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-              ctypes.c_int, ctypes.c_int, _P)
+_ROWS_ARGS = (_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)
+
+#: bytes one load of the pack route moves
+PACK_BYTES = 16
+
+
+def vector_width(*tensors: torch.Tensor, row: int = None) -> int:
+    """Elements a load of the kernel moves: ``PACK_BYTES / itemsize`` where
+    every tensor's data is 16-byte aligned (and ``row``, the length of a row
+    of the batched form, is a multiple of it), else 1."""
+    width = PACK_BYTES // tensors[0].element_size()
+    aligned = all(t.data_ptr() % PACK_BYTES == 0 for t in tensors)
+    return width if aligned and (row is None or row % width == 0) else 1
+
+
+def launch_grid(n: int, width: int, block_threads: int, grid_blocks: int) -> int:
+    """Blocks of the vector form: at most ``grid_blocks`` (one wave), and no
+    more than give each thread one load of ``width`` elements."""
+    packs = -(-n // width)
+    return max(1, min(grid_blocks, -(-packs // block_threads)))
 
 
 def axpy_norm_plain(alpha, x, y):
@@ -40,9 +68,15 @@ def axpy_norm_plain(alpha, x, y):
     return z, torch.dot(z, z)
 
 
+def _check_geometry(name: str, block_threads: int, grid_blocks: int) -> None:
+    require(32 <= block_threads <= 1024 and block_threads % 32 == 0, name,
+            f"block_threads {block_threads} must be a multiple of 32 in [32, 1024]")
+    require(grid_blocks >= 1, name, "grid_blocks must be >= 1")
+
+
 def axpy_norm(alpha, x: torch.Tensor, y: torch.Tensor, *,
               block_threads: int = 256, grid_blocks: int = 1056):
-    """(z, z·z) with z = alpha*x + y for 1-D ``x``, ``y``, in one pass."""
+    """(z, z·z) with z = alpha*x + y for 1-D ``x``, ``y``, in one launch."""
     name = "axpy_norm"
     require(x.dtype in _ENTRY, name, f"dtype {x.dtype} not in "
             f"{sorted(map(str, _ENTRY))}")
@@ -53,22 +87,25 @@ def axpy_norm(alpha, x: torch.Tensor, y: torch.Tensor, *,
     require(alpha.numel() == 1, name, "alpha must be a scalar")
     if not on_cuda(name, x, y):
         return axpy_norm_plain(alpha, x, y)
-    require(32 <= block_threads <= 1024 and block_threads % 32 == 0, name,
-            f"block_threads {block_threads} must be a multiple of 32 in [32, 1024]")
-    require(grid_blocks >= 1, name, "grid_blocks must be >= 1")
+    _check_geometry(name, block_threads, grid_blocks)
     n = x.shape[0]
-    alpha = alpha.reshape(()).contiguous()
+    require(n < 2 ** 31, name, f"n = {n} must be below 2^31")
     z = torch.empty_like(x)
-    ss = torch.zeros((), dtype=x.dtype, device=x.device)
-    if n:
-        grid = min(grid_blocks, -(-n // block_threads))
-        partials = torch.empty(grid, dtype=x.dtype, device=x.device)
-        fn = _build.function(_ENTRY[x.dtype], _ARGS)
-        _build.check(name, fn(
-            alpha.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            partials.data_ptr(), ss.data_ptr(), n, block_threads, grid,
-            _build.stream_of(x)))
-        axpy_norm.launches += 1
+    if not n:
+        return z, torch.zeros((), dtype=x.dtype, device=x.device)
+    alpha = alpha.reshape(()).contiguous()
+    width = vector_width(x, y, z)
+    grid = launch_grid(n, width, block_threads, grid_blocks)
+    stream = _build.stream_of(x)
+    tickets, partials = _workspace.workspace(name, x.device, stream, 1,
+                                             grid * x.element_size())
+    ss = torch.empty((), dtype=x.dtype, device=x.device)
+    fn = _build.function(_ENTRY[x.dtype], _ARGS)
+    _build.check(name, fn(
+        alpha.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+        partials.data_ptr(), tickets.data_ptr(), ss.data_ptr(), n,
+        block_threads, grid, width, stream))
+    axpy_norm.launches += 1
     return z, ss
 
 
@@ -77,8 +114,8 @@ axpy_norm.launches = 0
 
 def rows_chunks(nb: int, n: int, block_threads: int, grid_blocks: int) -> int:
     """Pieces ``axpy_norm_rows`` cuts each row into: enough for about
-    ``grid_blocks`` blocks, none shorter than a block.  Past one piece a
-    second launch adds each row's partials in index order."""
+    ``grid_blocks`` blocks, none shorter than a block.  Past one piece the
+    row's last block adds the row's partials in a fixed order."""
     return max(1, min(-(-grid_blocks // max(nb, 1)), -(-n // block_threads)))
 
 
@@ -86,7 +123,7 @@ def axpy_norm_rows(alpha, x: torch.Tensor, y: torch.Tensor, *,
                    block_threads: int = 256, grid_blocks: int = 1056):
     """(Z, ‖Z[b]‖²) with Z = alpha[:, None] * x + y for ``(nb, n)`` x, y and
     a scalar or ``(nb,)`` alpha, each row cut into :func:`rows_chunks`
-    pieces."""
+    pieces, in one launch."""
     name = "axpy_norm_rows"
     require(x.dtype in _ROWS_ENTRY, name, f"dtype {x.dtype} not in "
             f"{sorted(map(str, _ROWS_ENTRY))}")
@@ -99,22 +136,25 @@ def axpy_norm_rows(alpha, x: torch.Tensor, y: torch.Tensor, *,
             f"alpha {tuple(alpha.shape)} must be a scalar or ({nb},)")
     if not on_cuda(name, x, y):
         return axpy_norm_plain(alpha, x, y)
-    require(32 <= block_threads <= 1024 and block_threads % 32 == 0, name,
-            f"block_threads {block_threads} must be a multiple of 32 in [32, 1024]")
-    require(grid_blocks >= 1, name, "grid_blocks must be >= 1")
-    alpha = alpha.expand(nb).contiguous()
+    _check_geometry(name, block_threads, grid_blocks)
+    require(n < 2 ** 31, name, f"n = {n} must be below 2^31")
     z = torch.empty_like(x)
-    ss = torch.zeros(nb, dtype=x.dtype, device=x.device)
-    if nb and n:
-        chunks = rows_chunks(nb, n, block_threads, grid_blocks)
-        partials = torch.empty(nb * chunks if chunks > 1 else 0,
-                               dtype=x.dtype, device=x.device)
-        fn = _build.function(_ROWS_ENTRY[x.dtype], _ROWS_ARGS)
-        _build.check(name, fn(
-            alpha.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
-            partials.data_ptr(), ss.data_ptr(), nb, n, block_threads, chunks,
-            _build.stream_of(x)))
-        axpy_norm_rows.launches += 1
+    if not (nb and n):
+        return z, torch.zeros(nb, dtype=x.dtype, device=x.device)
+    alpha = alpha.expand(nb).contiguous()
+    width = vector_width(x, y, z, row=n)
+    chunks = rows_chunks(nb, n, block_threads, grid_blocks)
+    stream = _build.stream_of(x)
+    pieces = nb if chunks > 1 else 0
+    tickets, partials = _workspace.workspace(
+        name, x.device, stream, pieces, pieces * chunks * x.element_size())
+    ss = torch.empty(nb, dtype=x.dtype, device=x.device)
+    fn = _build.function(_ROWS_ENTRY[x.dtype], _ROWS_ARGS)
+    _build.check(name, fn(
+        alpha.data_ptr(), x.data_ptr(), y.data_ptr(), z.data_ptr(),
+        partials.data_ptr(), tickets.data_ptr(), ss.data_ptr(), nb, n,
+        block_threads, chunks, width, stream))
+    axpy_norm_rows.launches += 1
     return z, ss
 
 

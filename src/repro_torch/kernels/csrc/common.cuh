@@ -2,9 +2,11 @@
 //
 // Reductions here are written so that their order depends only on the launch
 // geometry, never on scheduling: a butterfly within a subgroup, a fixed tree
-// across the warps of a block, and, across blocks, one partial per block that
-// a second single-block launch sums in index order.  The same inputs and
-// geometry therefore give the same bits on every run.
+// across the warps of a block, and, across blocks, one partial per block in
+// its own slot, which the block that finishes last sums in a fixed tree
+// (`finish_sum`: one launch, an atomic only on the ticket that elects that
+// block, never on a value).  The same inputs and geometry therefore give the
+// same bits on every run.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,15 +69,58 @@ __device__ __forceinline__ T ell_row_dot(const int* __restrict__ cols,
   return subgroup_sum<SG>(sum, mask);
 }
 
-// Second stage of a two-stage reduction: one block sums `count` partials
-// in a fixed order and writes the total to *out.
+// Sum of `count` partials that other blocks of this launch wrote, valid in
+// thread 0, in a fixed tree: thread t adds partials t, t + blockDim.x, ... in
+// index order, then block_sum.  The loads go out eight at a time (a slot past
+// `count` reads as 0) and bypass L1 (__ldcg), which is not coherent across
+// SMs.
 template <typename T>
-__global__ void sum_partials_kernel(const T* __restrict__ partials, int count,
-                                    T* __restrict__ out) {
+__device__ T sum_partials(const T* partials, int count) {
+  constexpr int kInFlight = 8;
+  const int step = blockDim.x;
   T acc = T(0);
-  for (int i = threadIdx.x; i < count; i += blockDim.x) acc += partials[i];
-  acc = block_sum(acc);
-  if (threadIdx.x == 0) *out = acc;
+  for (int base = threadIdx.x; base < count; base += kInFlight * step) {
+    T v[kInFlight];
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) {
+      const int i = base + u * step;
+      v[u] = i < count ? __ldcg(partials + i) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kInFlight; ++u) acc += v[u];
+  }
+  return block_sum(acc);
+}
+
+// The single pass of a sum over the `count` blocks of one reduction: every
+// thread of each of them calls it after block_sum, with the block's partial
+// in thread 0.  Thread 0 writes the partial to partials[slot] and takes a
+// ticket from *ticket with one acquire-release atomic (the release publishes
+// the partial, the acquire makes the other blocks' partials visible to this
+// block after the barrier); the block that draws the last ticket sums all
+// partials with sum_partials, writes *out and sets *ticket back to 0 for the
+// next launch (the wrapper zeroes it once, when it allocates it).  The sum's
+// order depends only on `count`, never on which block finishes last.
+template <typename T>
+__device__ void finish_sum(T partial, T* partials, int slot, int count,
+                           unsigned* ticket, T* out) {
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    partials[slot] = partial;
+    unsigned drawn;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;"
+                 : "=r"(drawn)
+                 : "l"(ticket)
+                 : "memory");
+    last = drawn == static_cast<unsigned>(count - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  const T total = sum_partials(partials, count);
+  if (threadIdx.x == 0) {
+    *out = total;
+    *ticket = 0u;
+  }
 }
 
 // Element conversions of the LM kernels: storage type <-> f32 arithmetic.

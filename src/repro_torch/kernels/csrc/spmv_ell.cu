@@ -9,20 +9,9 @@
 // Design: two walks; the wrapper picks one from k (the tuning spec).
 //
 //   - Narrow rows (subgroup = 1, k <= 32; the spec takes it for k <= 16):
-//     Ginkgo's thread per row, on the row-major storage the port shares
-//     with the JAX package (a subgroup of 8 lanes a row would leave a lane
-//     idle at k = 7, cover only 4 rows a warp, pay a 3-step butterfly a
-//     row, store from one lane in 8 and keep one gather of x in flight a
-//     lane).  A warp owns 32 consecutive rows, whose 32 k column indices
-//     and values are one contiguous span of each array: the warp reads both
-//     spans in coalesced 16-byte loads, all of a lane's loads in flight
-//     together, and stages them in shared memory (blocks of at most 256
-//     threads), each row at an odd stride kp (k, or k + 1 when k is even,
-//     so lane r reading entry j of row r meets no bank conflict; an odd k
-//     keeps the layout, and the 16-byte vectors are stored as they came).
-//     Each lane then issues its row's k gathers of x at once (KMAX
-//     registers, the power of two covering k), sums the k products in index
-//     order and stores y[row]: the warp's 32 stores are one coalesced line.
+//     one thread a row, a warp's 32 rows staged in shared memory from
+//     16-byte loads (`ell_rows_warp` in ell_rows.cuh, which spmv_dot.cu's
+//     fused kernel runs too, so the two y agree bit for bit).
 //   - Wider rows (the coarse AMG operators, k up to about 100): a subgroup
 //     of SG lanes per row (`ell_row_dot`; the spec gives 8 lanes up to
 //     k = 32 and a whole warp beyond), whose loads of col_idx and values
@@ -34,135 +23,23 @@
 // size limit exists).  Each row is written by one lane and summed in an
 // order fixed by the walk, so a call repeats bit for bit and the TPU grid's
 // revisited-output accumulation is not needed.
-#include <cstdint>
-
-#include "common.cuh"
+#include "ell_rows.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-
-// Entry e = r k + j of a warp's span goes to dst[r kp + j].
-template <typename E>
-__device__ __forceinline__ void put(E* dst, int e, int k, int kp, E v) {
-  const int r = e / k;
-  dst[r * kp + (e - r * k)] = v;
-}
-
-// Stores the 16-byte vectors lane + 32 q (q < NV, below nv) of a warp's span
-// to shared memory: as they came when kp = k, else entry by entry.
-template <int NV, typename E>
-__device__ __forceinline__ void put_vectors(const uint4 (&buf)[NV], E* dst,
-                                            int nv, int k, int kp, int lane) {
-  constexpr int kPer = 16 / sizeof(E);
-#pragma unroll
-  for (int q = 0; q < NV; ++q) {
-    const int i = lane + q * kWarp;
-    if (i >= nv) continue;
-    if (kp == k) {
-      reinterpret_cast<uint4*>(dst)[i] = buf[q];
-    } else {
-      const E* e = reinterpret_cast<const E*>(&buf[q]);
-      int r = i * kPer / k;
-      int j = i * kPer - r * k;
-#pragma unroll
-      for (int t = 0; t < kPer; ++t) {
-        dst[r * kp + j] = e[t];
-        if (++j == k) {
-          j = 0;
-          ++r;
-        }
-      }
-    }
-  }
-}
-
-// Thread per row.  Dynamic shared memory: blockDim.x * kp values, then as
-// many column indices; warp w uses rows [32 w, 32 w + 32) of each.  A lane
-// issues all its loads of the warp's two spans (16-byte vectors, or single
-// entries where the spans are not aligned) before it stores any of them, so
-// they are in flight together.
+// Thread per row: warp w of block b takes the 32 rows from 32 (b W + w),
+// W warps a block.
 template <int KMAX, typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kRowsWalkThreads)
     spmv_ell_rows_kernel(const int* __restrict__ cols,
                          const T* __restrict__ vals, const T* __restrict__ x,
                          T* __restrict__ y, long long m, int k, bool vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kPerT = 16 / sizeof(T);
-  constexpr int kVecC = (KMAX + 3) / 4;  // column vectors a lane, at most
-  constexpr int kVecT = (KMAX + kPerT - 1) / kPerT;
-  const int kp = k | 1;
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int warp = threadIdx.x / kWarp;
   const long long row0 =
-      (static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) + warp) * kWarp;
+      (static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) +
+       threadIdx.x / kWarp) * kWarp;
   if (row0 >= m) return;  // uniform across the warp
-  T* sv = reinterpret_cast<T*>(smem_raw) + warp * kWarp * kp;
-  int* sc = reinterpret_cast<int*>(reinterpret_cast<T*>(smem_raw) +
-                                   blockDim.x * kp) + warp * kWarp * kp;
-  const int nrows = m - row0 < kWarp ? static_cast<int>(m - row0) : kWarp;
-  const int n = nrows * k;  // entries of the span, at most 32 KMAX
-  const int* cb = cols + row0 * k;
-  const T* vb = vals + row0 * k;
-  if (vec) {
-    const int nvc = n / 4, nvt = n / kPerT;
-    uint4 cbuf[kVecC], vbuf[kVecT];
-#pragma unroll
-    for (int q = 0; q < kVecC; ++q) {
-      const int i = lane + q * kWarp;
-      if (i < nvc) cbuf[q] = __ldg(reinterpret_cast<const uint4*>(cb) + i);
-    }
-#pragma unroll
-    for (int q = 0; q < kVecT; ++q) {
-      const int i = lane + q * kWarp;
-      if (i < nvt) vbuf[q] = __ldg(reinterpret_cast<const uint4*>(vb) + i);
-    }
-    // the last span's entries past its whole vectors: fewer than 4
-    const int tc = nvc * 4 + lane, tt = nvt * kPerT + lane;
-    int ctail = 0;
-    T vtail = T(0);
-    if (tc < n) ctail = __ldg(cb + tc);
-    if (tt < n) vtail = __ldg(vb + tt);
-    put_vectors(cbuf, sc, nvc, k, kp, lane);
-    put_vectors(vbuf, sv, nvt, k, kp, lane);
-    if (tc < n) put(sc, tc, k, kp, ctail);
-    if (tt < n) put(sv, tt, k, kp, vtail);
-  } else {
-    int cs[KMAX];
-    T vs[KMAX];
-#pragma unroll
-    for (int q = 0; q < KMAX; ++q) {
-      const int e = lane + q * kWarp;
-      if (e < n) {
-        cs[q] = __ldg(cb + e);
-        vs[q] = __ldg(vb + e);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < KMAX; ++q) {
-      const int e = lane + q * kWarp;
-      if (e < n) {
-        put(sc, e, k, kp, cs[q]);
-        put(sv, e, k, kp, vs[q]);
-      }
-    }
-  }
-  __syncwarp();
-  if (lane < nrows) {
-    const int* rc = sc + lane * kp;
-    const T* rv = sv + lane * kp;
-    T xv[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j < k) xv[j] = __ldg(x + rc[j]);
-    }
-    T sum = T(0);
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j < k) sum += rv[j] * xv[j];
-    }
-    y[row0 + lane] = sum;
-  }
+  ell_rows_warp<KMAX>(cols, vals, x, y, m, k, vec, row0, smem_raw);
 }
 
 // A subgroup of SG lanes per row.
@@ -182,22 +59,11 @@ __global__ void spmv_ell_kernel(const int* __restrict__ cols,
 template <int KMAX, typename T>
 int launch_rows(const int* cols, const T* vals, const T* x, T* y, long long m,
                 int k, int block_threads, cudaStream_t stream) {
-  const auto kernel = spmv_ell_rows_kernel<KMAX, T>;
-  const size_t smem =
-      static_cast<size_t>(block_threads) * (k | 1) * (sizeof(T) + sizeof(int));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  if (block_threads > 256) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = reinterpret_cast<uintptr_t>(cols) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(vals) % 16 == 0;
   const unsigned grid =
       static_cast<unsigned>((m + block_threads - 1) / block_threads);
-  kernel<<<grid, block_threads, smem, stream>>>(cols, vals, x, y, m, k, vec);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows_walk<T>(spmv_ell_rows_kernel<KMAX, T>, grid,
+                             block_threads, k, stream, cols, vals, x, y, m, k,
+                             ell_rows_vec(cols, vals));
 }
 
 template <typename T>

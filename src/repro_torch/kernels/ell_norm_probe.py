@@ -1,5 +1,6 @@
-"""Times ``rmsnorm`` and ``spmv_ell`` at every shape their paths run them,
-beside their plain versions, one library call each and their bounds.
+"""Times ``rmsnorm``, ``spmv_ell``, ``spmv_dot_ell`` and ``axpy_norm`` at
+every shape their paths run them, beside their plain versions, a library
+call where one exists and their bounds.
 
     PYTHONPATH=src python -m repro_torch.kernels.ell_norm_probe [--out PATH]
 
@@ -17,6 +18,41 @@ covering k), with CSR ``torch.sparse.mm`` as the library call; then the
 V(1,1) cycle's sum, 3 t(A) + t(P) + t(R) a level (five ELL SpMVs a coarsened
 level), at the spec's walk, at each operator's fastest walk and for the
 library.
+
+``spmv_dot_ell``: ``poisson_3d(128)`` as ELL (k = 7, the fused SpMV + dot
+of block-Jacobi CG), at the spec's walk and at every walk the kernel has
+(``subgroup`` 1 to 8), each y also held bitwise against ``spmv_ell``'s at
+the same walk where both have it.
+
+``axpy_norm``: the fused z = alpha x + y and z.z at n = 2,097,152 (ELL CG)
+and 1,048,576 (the AMG outer CG), beside ``torch.add(y, x, alpha=-0.37)``
+as a streaming floor of the same bytes (it does no reduction, so it is no
+library equivalent); ``axpy_norm_rows`` at (16,384, 1,024) (the batched
+CG's rows) and (256, 1,024) (rows cut into pieces).  For these two kernels
+the probe also counts the device kernels one call runs (``torch.profiler``).
+
+``axpy_l2`` (not in the default set): ``axpy_norm`` and ``torch.add`` at
+both n, each timed after three ways of leaving the L2: written over (the
+default timer's ``flush.zero_()``, which leaves dirty lines that the timed
+call must write back), written over and then read over (a sum of a second
+128 MiB buffer, which writes those lines back before the window and leaves
+clean ones) and warm (no flush); each also by the profiler's kernel time
+(CUPTI) after the first two; beside them the time of the event pair with
+nothing between (after the first flush).
+
+``loops`` (not in the default set): device time by kernel an iteration
+(``torch.profiler``) of the three CG loops that run these kernels most:
+block-Jacobi CG on ``poisson_3d(128)`` (``chip_smoke.py``'s phase 4: ELL,
+8-row blocks, adaptive storage; 300 iterations), and on
+``poisson_2d(1024)`` AMG-CG (V(1,1), theta 0.08; 15 iterations) and the
+block-Jacobi baseline (300 iterations), each loop run past its stopping
+test for a fixed count after a warm-up solve.
+
+``--kernels`` picks the families (default: the four kernels).  ``--lib PATH`` loads
+a library built elsewhere from the same entry points in place of the tree's
+own build (``nvcc ... -shared -cudart shared -I <copy> -o X.so status.cu
+spmv_ell.cu spmv_dot.cu axpy_norm.cu`` from altered copies of ``csrc/``):
+the way to A/B or ablate one part; such a library is timed, not held.
 
 Each time is the median of 30 CUDA-event runs with the L2 flushed before
 each (``sellp_probe.device_ms``); each kernel is held against its plain
@@ -42,6 +78,17 @@ import torch
 def _fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+#: set by ``--lib``: a library built from altered sources is timed, not held
+_UNCHECKED = False
+
+
+def _disagree(msg: str) -> None:
+    if _UNCHECKED:
+        print(f"unchecked (--lib): {msg}", flush=True)
+    else:
+        _fail(msg)
 
 
 def _bounds(nbytes: float, copy_bw: float) -> dict:
@@ -73,7 +120,7 @@ def probe_rmsnorm(timer, copy_bw: float) -> list:
             tol = 2.0 ** -7 * ref.float().abs() + 1e-6
             err = float(((y.float() - ref.float()).abs() - tol).max())
             if err > 0 or not torch.equal(kern(), y):
-                _fail(f"rmsnorm at {rows} x {d}: off its plain version by "
+                _disagree(f"rmsnorm at {rows} x {d}: off its plain version by "
                       f"{err} past the tolerance, or not repeated bit for bit")
             w_lib = w.to(torch.bfloat16)
             entry = {"rows": rows, "d": d,
@@ -110,7 +157,7 @@ def _ell_entry(timer, copy_bw, name, E, csr, gen, spec_sg, bt) -> dict:
         y = kern()
         err = float((y - ref).abs().max())
         if not err <= tol or not torch.equal(kern(), y):
-            _fail(f"spmv_ell on {name} (k = {k}) at subgroup {sg}: error "
+            _disagree(f"spmv_ell on {name} (k = {k}) at subgroup {sg}: error "
                   f"{err} > {tol}, or not repeated bit for bit")
         times[sg] = timer(kern)
     indptr, indices = csr.indptr.to(torch.int32), csr.indices.to(torch.int32)
@@ -178,13 +225,339 @@ def probe_spmv_ell(timer, copy_bw: float) -> dict:
     return {"path": path, "amg_levels": levels, "v_cycle": v_cycle}
 
 
+def device_kernels(fn, calls: int = 5) -> list:
+    """Names of the device operations (kernels, copies, fills) that
+    ``calls`` calls of ``fn`` run, under ``torch.profiler``, after a warm-up
+    call.  A short sleep kernel ends the window, so the calls' operations
+    are never its last (the profiler can drop the window's last device
+    event); it is left out of the list.  A window whose marker or any of
+    whose calls went unrecorded is taken again, at most three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda._sleep(1000)  # the marker
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        ops = [name for name in names if "spin_kernel" not in name]
+        if len(ops) >= calls and len(ops) < len(names):
+            break
+    return ops
+
+
+def probe_spmv_dot(timer, copy_bw: float) -> dict:
+    """``spmv_dot_ell`` at ``poisson_3d(128)`` per walk (see the docstring)."""
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+    from repro_torch.sparse import ell_from_csr_host, gallery
+
+    ex = make_executor("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    E = ell_from_csr_host(*gallery.poisson_3d(128), device="cuda")
+    m, k = E.values.shape
+    x = torch.randn(E.shape[1], generator=gen, device="cuda")
+    w = torch.randn(m, generator=gen, device="cuda")
+    cfg = ex.launch_config("spmv_dot", {"m": m, "k": k, "itemsize": 4})
+    spec = {p: cfg[p] for p in cfg.block}
+    ref = K.spmv_ell_plain(E.col_idx, E.values, x)
+    scale = float(K.spmv_ell_plain(E.col_idx, E.values.abs(), x.abs()).max())
+    tol_y = 8 * k * torch.finfo(torch.float32).eps * scale
+    wy = (w.double() * ref.double())
+    tol_d = 16 * 2.0 ** -24 * float(wy.abs().sum())
+    walks = {f"subgroup {sg}": {"block_threads": 256, "subgroup": sg}
+             for sg in (1, 2, 4, 8)}
+    walks["spec"] = spec
+    times, launches = {}, {}
+    for label, geo in walks.items():
+        def kern(geo=geo):
+            return K.spmv_dot_ell(E.col_idx, E.values, x, w, **geo)
+
+        y, d = kern()
+        err_y = float((y - ref).abs().max())
+        err_d = abs(float(d) - float(wy.sum()))
+        y2, d2 = kern()
+        if not (err_y <= tol_y and err_d <= tol_d and torch.equal(y2, y)
+                and torch.equal(d2, d)):
+            _disagree(f"spmv_dot_ell at {label}: y error {err_y} (> {tol_y}?), "
+                  f"dot error {err_d} (> {tol_d}?), or not repeated bit for bit")
+        ell_geo = {p: geo[p] for p in ("block_threads", "subgroup")}
+        same = (torch.equal(y, K.spmv_ell(E.col_idx, E.values, x, **ell_geo))
+                if geo["subgroup"] > 1 or k <= 32 else None)
+        times[label] = timer(kern)
+        launches[label] = len(device_kernels(kern)) / 5
+        print(f"[spmv_dot_ell] {label} {geo}: {times[label]:.4f} ms, "
+              f"{launches[label]} device kernel(s) a call, y bitwise "
+              f"spmv_ell's: {same}", flush=True)
+    entry = {"operator": "poisson_3d(128)", "m": m, "k": k, "spec": spec,
+             "ms": times["spec"], "walk_ms": times,
+             "device_kernels": launches,
+             "plain_ms": timer(lambda: K.spmv_dot_ell_plain(E.col_idx, E.values,
+                                                            x, w))}
+    entry.update(_bounds(m * k * 8 + E.shape[1] * 4 + 2 * m * 4 + 4, copy_bw))
+    print(f"[spmv_dot_ell] spec {spec}: {entry['ms']:.4f} ms (plain "
+          f"{entry['plain_ms']:.4f}, bound {entry['bound_ms']:.4f})", flush=True)
+    return entry
+
+
+def probe_axpy_norm(timer, copy_bw: float) -> dict:
+    """``axpy_norm`` at both CG paths' n and ``axpy_norm_rows`` at the batched
+    solves' shapes, each at the spec's geometry."""
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+
+    ex = make_executor("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {"vector": [], "rows": []}
+    alpha = torch.tensor(-0.37, device="cuda")
+    for n in (2_097_152, 1_048_576):
+        x = torch.randn(n, generator=gen, device="cuda")
+        y = torch.randn(n, generator=gen, device="cuda")
+        cfg = ex.launch_config("axpy_norm", {"n": n, "itemsize": 4})
+        geo = {p: cfg[p] for p in cfg.block}
+
+        def kern():
+            return K.axpy_norm(alpha, x, y, **geo)
+
+        z, ss = kern()
+        z64 = alpha.double() * x.double() + y.double()
+        err_z = float((z.double() - z64).abs().max())
+        err_s = abs(float(ss) - float((z64 * z64).sum()))
+        tol_s = 16 * 2.0 ** -24 * float((z64 * z64).sum())
+        if not (err_z <= 2 * 2.0 ** -23 * float(z64.abs().max() + 1)
+                and err_s <= tol_s and torch.equal(kern()[1], ss)):
+            _disagree(f"axpy_norm at n = {n}: z error {err_z}, z.z error {err_s} "
+                  f"(> {tol_s}?), or not repeated bit for bit")
+        entry = {"n": n, "geometry": geo, "ms": timer(kern),
+                 "device_kernels": len(device_kernels(kern)) / 5,
+                 "plain_ms": timer(lambda: K.axpy_norm_plain(alpha, x, y)),
+                 "torch_add_ms": timer(lambda: torch.add(y, x, alpha=-0.37))}
+        entry.update(_bounds(3 * n * 4 + 8, copy_bw))
+        print(f"[axpy_norm] n = {n} {geo}: {entry['ms']:.4f} ms, "
+              f"{entry['device_kernels']} device kernel(s) a call (plain "
+              f"{entry['plain_ms']:.4f}, torch.add floor "
+              f"{entry['torch_add_ms']:.4f}, bound {entry['bound_ms']:.4f})",
+              flush=True)
+        out["vector"].append(entry)
+    for nb, n in ((16_384, 1_024), (256, 1_024)):
+        X = torch.randn(nb, n, generator=gen, device="cuda")
+        Y = torch.randn(nb, n, generator=gen, device="cuda")
+        a = torch.randn(nb, generator=gen, device="cuda")
+        cfg = ex.launch_config("axpy_norm_rows", {"nb": nb, "n": n, "itemsize": 4})
+        geo = {p: cfg[p] for p in cfg.block}
+
+        def kern():
+            return K.axpy_norm_rows(a, X, Y, **geo)
+
+        z, ss = kern()
+        z64 = a.double()[:, None] * X.double() + Y.double()
+        s64 = (z64 * z64).sum(dim=1)
+        err_s = float(((ss.double() - s64).abs() / s64).max())
+        if not (err_s <= 16 * 2.0 ** -24 and torch.equal(kern()[1], ss)):
+            _disagree(f"axpy_norm_rows at {nb} x {n}: relative z.z error {err_s}, "
+                  "or not repeated bit for bit")
+        entry = {"nb": nb, "n": n, "geometry": geo, "ms": timer(kern),
+                 "device_kernels": len(device_kernels(kern)) / 5,
+                 "plain_ms": timer(lambda: K.axpy_norm_plain(a, X, Y))}
+        entry.update(_bounds(3 * nb * n * 4 + 2 * nb * 4, copy_bw))
+        print(f"[axpy_norm_rows] {nb} x {n} {geo}: {entry['ms']:.4f} ms, "
+              f"{entry['device_kernels']} device kernel(s) a call (plain "
+              f"{entry['plain_ms']:.4f}, bound {entry['bound_ms']:.4f})",
+              flush=True)
+        out["rows"].append(entry)
+    return out
+
+
+def _timed(fn, before, reps: int = 30) -> float:
+    """Median CUDA-event ms of ``fn`` with ``before()`` run (untimed) ahead
+    of each run; a sleep kernel holds the stream while the host enqueues."""
+    import statistics
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)
+    for st, en in zip(starts, ends):
+        before()
+        st.record()
+        fn()
+        en.record()
+    torch.cuda.synchronize()
+    return statistics.median(st.elapsed_time(en) for st, en in zip(starts, ends))
+
+
+def _kernel_us(fn, before, reps: int = 30) -> float:
+    """Median device time in µs of ``fn``'s own kernels (CUPTI, through
+    ``torch.profiler``) with ``before()`` run ahead of each call."""
+    import statistics
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set(device_kernels(fn, calls=3))
+    before()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            before()
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == DeviceType.CUDA and e.name in names]
+    return statistics.median(durs) if durs else float("nan")
+
+
+def probe_axpy_l2(timer, copy_bw: float) -> dict:
+    """Where ``axpy_norm``'s and ``torch.add``'s time over their byte bound
+    goes after the flush (see the docstring)."""
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+
+    ex = make_executor("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    alpha = torch.tensor(-0.37, device="cuda")
+    dirty = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    clean = torch.ones(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def write_flush():
+        dirty.zero_()
+
+    def read_flush():
+        dirty.zero_()
+        clean.sum()
+
+    modes = {"written": write_flush, "written_then_read": read_flush,
+             "warm": lambda: None}
+    out = []
+    for n in (2_097_152, 1_048_576):
+        x = torch.randn(n, generator=gen, device="cuda")
+        y = torch.randn(n, generator=gen, device="cuda")
+        cfg = ex.launch_config("axpy_norm", {"n": n, "itemsize": 4})
+        geo = {p: cfg[p] for p in cfg.block}
+        fns = {"axpy_norm": lambda: K.axpy_norm(alpha, x, y, **geo),
+               "torch_add": lambda: torch.add(y, x, alpha=-0.37)}
+        entry = {"n": n, **_bounds(3 * n * 4 + 8, copy_bw),
+                 # the event pair with nothing between: the window's own cost
+                 "empty_window_ms": _timed(lambda: None, write_flush)}
+        for name, fn in fns.items():
+            entry[name] = {f"{mode}_ms": _timed(fn, before)
+                           for mode, before in modes.items()}
+            for mode in ("written", "written_then_read"):
+                entry[name][f"{mode}_kernel_us"] = _kernel_us(fn, modes[mode])
+            print(f"[axpy_l2] n = {n} {name}: " + ", ".join(
+                f"{key} {val:.4f}" for key, val in entry[name].items())
+                + f" (bound {entry['bound_ms']:.4f} ms, empty event window "
+                f"{entry['empty_window_ms']:.4f} ms)", flush=True)
+        out.append(entry)
+    return out
+
+
+def _loop_profile(A, b, P, ex, iters: int) -> dict:
+    """Device µs by kernel an iteration over ``iters`` CG iterations, after a
+    warm-up solve of the same count."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.solvers import Stop, cg
+
+    stop = Stop(max_iters=iters, reduction_factor=1e-30)  # runs all iters
+    cg(A, b, M=P, stop=stop, executor=ex, strict=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cg(A, b, M=P, stop=stop, executor=ex, strict=False)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    return {"iterations": iters, "wall_us_per_iteration": wall_us / iters,
+            "device_us_per_iteration": busy / iters,
+            "kernels": [{"name": key[:120], "calls_per_iteration": count / iters,
+                         "us_per_iteration": dev / iters}
+                        for dev, count, key in rows]}
+
+
+def probe_loops(timer, copy_bw: float) -> dict:
+    """Device time by kernel an iteration of the CG loops (see the
+    docstring)."""
+    import numpy as np
+
+    from repro_torch.core import make_executor
+    from repro_torch.precond import block_jacobi, make_preconditioner
+    from repro_torch.sparse import csr_from_arrays, ell_from_csr_host, gallery
+
+    ex = make_executor("cuda")
+    out = {}
+    ip, ix, v, shape = gallery.poisson_3d(128)
+    A = ell_from_csr_host(ip, ix, v, shape, device="cuda")
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(shape[0])
+                         .astype(np.float32)).cuda()
+    P = block_jacobi(A, 8, adaptive=True, executor=ex)
+    out["ell_block_jacobi"] = _loop_profile(A, b, P, ex, 300)
+    del A, b, P
+    ip, ix, v, shape = gallery.poisson_2d(1024)
+    A = csr_from_arrays(ip, ix, v, shape, device="cuda")
+    b = torch.from_numpy(np.random.default_rng(0).normal(size=shape[0])
+                         .astype(np.float32)).cuda()
+    M = make_preconditioner(A, "amg", executor=ex, cycle="v", theta=0.08)
+    out["amg_cg"] = _loop_profile(A, b, M, ex, 15)
+    del M
+    M_bj = make_preconditioner(A, "block_jacobi", executor=ex)
+    out["amg_baseline_block_jacobi"] = _loop_profile(A, b, M_bj, ex, 300)
+    for name, prof in out.items():
+        print(f"[loops] {name}: {prof['device_us_per_iteration']:.2f} us of "
+              f"device time an iteration, {prof['wall_us_per_iteration']:.1f} "
+              "us of wall", flush=True)
+        for row in prof["kernels"][:14]:
+            print(f"[loops]   {row['us_per_iteration']:9.3f} us/iter "
+                  f"{row['calls_per_iteration']:6.2f} calls/iter  "
+                  f"{row['name'][:90]}", flush=True)
+    return out
+
+
+PROBES = {"rmsnorm": probe_rmsnorm, "spmv_ell": probe_spmv_ell,
+          "spmv_dot_ell": probe_spmv_dot, "axpy_norm": probe_axpy_norm,
+          "axpy_l2": probe_axpy_l2, "loops": probe_loops}
+DEFAULT = ("rmsnorm", "spmv_ell", "spmv_dot_ell", "axpy_norm")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--kernels", default=",".join(DEFAULT),
+                    help="comma-separated families to time, of "
+                         f"{', '.join(PROBES)} (default: the first four)")
+    ap.add_argument("--lib", default=None,
+                    help="time a library built elsewhere from the same entry "
+                         "points (an altered copy of csrc/), unchecked")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    if args.lib:
+        import ctypes
+
+        from repro_torch.kernels import _build
+
+        global _UNCHECKED
+        _UNCHECKED = True
+        _build._LIB = ctypes.CDLL(args.lib)
+        _build._LIB.repro_error_string.argtypes = [ctypes.c_int]
+        _build._LIB.repro_error_string.restype = ctypes.c_char_p
     from repro_torch.kernels.sellp_probe import device_ms
 
     card = subprocess.run(
@@ -199,9 +572,9 @@ def main(argv=None) -> int:
     src = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
     copy_bw = 2 * (1 << 30) / (timer(lambda: src.clone()) * 1e-3)
     del src
-    result = {"card": card, "copy_gbs": copy_bw / 1e9,
-              "rmsnorm": probe_rmsnorm(timer, copy_bw),
-              "spmv_ell": probe_spmv_ell(timer, copy_bw)}
+    result = {"card": card, "lib": args.lib, "copy_gbs": copy_bw / 1e9}
+    for name in args.kernels.split(","):
+        result[name] = PROBES[name](timer, copy_bw)
     line = json.dumps(result)
     if args.out:
         with open(args.out, "w") as f:

@@ -12,12 +12,18 @@ from __future__ import annotations
 from repro_torch.core import registry, tuning
 from repro_torch.kernels._check import require_cuda
 from repro_torch.kernels.spmv_dot.kernel import spmv_dot_ell
-from repro_torch.kernels.spmv_ell.ops import constrain_rows
+from repro_torch.kernels.spmv_ell.ops import constrain_ell, ell_smem_bytes
+
+
+def _constrain(hw, shapes, block):
+    """The walk as ``spmv_ell``'s (``constrain_ell``): one thread a row up to
+    ROWS_WALK_K, the seed's subgroup up to WIDE_K, a warp beyond."""
+    return {**block, **constrain_ell(hw, shapes, block)}
 
 
 def _smem_bytes(shapes, block) -> int:
-    # block_sum's 32 per-warp partials
-    return 32 * shapes.get("itemsize", 4)
+    # the thread-per-row walk's staged spans, then block_sum's 32 partials
+    return ell_smem_bytes(shapes, block) + 32 * shapes.get("itemsize", 4)
 
 
 SPMV_DOT_SPEC = tuning.register_spec(
@@ -27,7 +33,7 @@ SPMV_DOT_SPEC = tuning.register_spec(
         seed=lambda hw: {"block_threads": 8 * hw.warp_size,
                          "subgroup": hw.subgroup_size},
         smem_bytes=_smem_bytes,
-        constrain=constrain_rows,
+        constrain=_constrain,
     )
 )
 

@@ -33,7 +33,7 @@ def constrain_rows(hw, shapes, block):
     return {**block, "block_threads": bt, "subgroup": sg}
 
 
-def _constrain_ell(hw, shapes, block):
+def constrain_ell(hw, shapes, block):
     """``constrain_rows``; then the walk is a function of ``k``: one thread a
     row up to ROWS_WALK_K (at most ROWS_WALK_THREADS a block), a whole warp
     a row past WIDE_K."""
@@ -49,7 +49,7 @@ def _constrain_ell(hw, shapes, block):
     return block
 
 
-def _smem_bytes(shapes, block) -> int:
+def ell_smem_bytes(shapes, block) -> int:
     # the thread-per-row walk stages each row's entries at an odd stride
     if block["subgroup"] != 1:
         return 0
@@ -63,8 +63,8 @@ ELL_SPEC = tuning.register_spec(
         params=("block_threads", "subgroup"),
         seed=lambda hw: {"block_threads": 8 * hw.warp_size,
                          "subgroup": hw.subgroup_size},
-        smem_bytes=_smem_bytes,
-        constrain=_constrain_ell,
+        smem_bytes=ell_smem_bytes,
+        constrain=constrain_ell,
     )
 )
 

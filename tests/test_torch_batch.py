@@ -191,8 +191,9 @@ def test_axpy_norm_rows_matches_xla(nb, n, alpha_kind):
 
 def test_axpy_norm_rows_pieces_for_h100():
     """At the H100 seed geometry a row is one block when the batch fills the
-    grid (the chip smoke's 16,384 x 1,024) and is cut into pieces, added by
-    a second launch, when it does not (256 x 1,024: 4 pieces)."""
+    grid (the chip smoke's 16,384 x 1,024) and is cut into pieces, whose
+    partials the row's last block adds in the same launch, when it does not
+    (256 x 1,024: 4 pieces)."""
     from repro_torch.kernels.axpy_norm.kernel import rows_chunks
 
     ex = make_executor("h100")

@@ -58,8 +58,10 @@ SLICE_MODULES = [
     "repro_torch.core.tuning",
     "repro_torch.kernels",
     "repro_torch.kernels._build",
+    "repro_torch.kernels._workspace",
     "repro_torch.kernels.axpy_norm.ops",
     "repro_torch.kernels.block_jacobi.ops",
+    "repro_torch.kernels.ell_norm_probe",
     "repro_torch.kernels.flash_attention.kernel",
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.loader_check",

@@ -70,7 +70,8 @@ def test_spmv_ell_matches_pallas(m, k, n):
                             torch.from_numpy(x)), want, scale)
 
 
-@pytest.mark.parametrize("m,k,n", [(37, 5, 29), (100, 7, 100)])
+@pytest.mark.parametrize("m,k,n", [(37, 5, 29), (100, 7, 100), (45, 1, 40),
+                                   (70, 16, 50), (33, 17, 64), (50, 33, 41)])
 def test_spmv_dot_ell_matches_pallas(m, k, n):
     cols, vals, x = _ell(m, k, n, seed=m + 1)
     w = np.random.default_rng(m).standard_normal(m).astype(np.float32)
@@ -85,7 +86,7 @@ def test_spmv_dot_ell_matches_pallas(m, k, n):
     assert d.ndim == 0
 
 
-@pytest.mark.parametrize("n", [1000, 128, 1])
+@pytest.mark.parametrize("n", [1000, 128, 1, 4099, 2 * 1024 + 3])
 def test_axpy_norm_matches_pallas(n):
     rng = np.random.default_rng(n)
     x = rng.standard_normal(n).astype(np.float32)
@@ -165,9 +166,20 @@ def test_tuning_geometry_for_h100():
     # wider rows keep lanes a row, with no shared memory
     cfg = tuning.resolve("spmv_ell", {"m": 10, "k": 27}, hw)
     assert cfg["subgroup"] == 8 and cfg.smem_bytes == 0
+    # the fused SpMV + dot walks as spmv_ell: at k = 7 one thread a row, its
+    # staged spans plus block_sum's 32 partials
+    cfg = tuning.resolve("spmv_dot", {"m": 2_097_152, "k": 7, "itemsize": 4}, hw)
+    assert cfg["subgroup"] == 1 and cfg["block_threads"] == 256
+    assert cfg.smem_bytes == 256 * 7 * 8 + 128
     cfg = tuning.resolve("spmv_dot", {"m": 10, "k": 27, "itemsize": 4}, hw)
     assert cfg["subgroup"] == 8 and cfg["block_threads"] == 256
     assert cfg.smem_bytes == 128
+    # axpy_norm: a persistent grid of one wave (8 blocks of 256 an SM), cut
+    # to what n needs in 16-byte packs
+    cfg = tuning.resolve("axpy_norm", {"n": 2_097_152, "itemsize": 4}, hw)
+    assert cfg["block_threads"] == 256 and cfg["grid_blocks"] == 132 * 8
+    cfg = tuning.resolve("axpy_norm", {"n": 4099, "itemsize": 8}, hw)
+    assert cfg["grid_blocks"] == 9
     # a geometry over the shared-memory budget is refused, not shrunk
     tiny = dataclasses.replace(hw, smem_per_block_bytes=64)
     with pytest.raises(ValueError, match="shared memory"):
@@ -199,6 +211,87 @@ def test_spmv_ell_walk_for_each_k(k):
         tuning._TABLE.pop(("spmv_ell", "h100"))
 
 
+@pytest.mark.parametrize("k", range(4, 101))
+def test_spmv_dot_walk_for_each_k(k):
+    """The fused SpMV + dot walks as spmv_ell for every k of the AMG
+    operators' range: one thread a row up to 16 entries (its blocks at most
+    256 threads, shared memory for the staged spans and block_sum's 32
+    partials), the seed's 8 lanes to 32, a whole warp beyond; a table entry
+    keeps its block width where the walk allows it."""
+    hw = make_executor("h100").hw
+    want = 1 if k <= 16 else 8 if k <= 32 else 32
+    shapes = {"m": 1_048_576, "k": k, "itemsize": 4}
+    cfg = tuning.resolve("spmv_dot", shapes, hw)
+    ell = tuning.resolve("spmv_ell", shapes, hw)
+    assert cfg["subgroup"] == ell["subgroup"] == want
+    assert cfg.smem_bytes == ell.smem_bytes + 128
+    assert cfg.smem_bytes == (256 * (k | 1) * 8 if want == 1 else 0) + 128
+    tuning.set_table_entry("spmv_dot", "h100", {"block_threads": 1024,
+                                                "subgroup": 8})
+    try:
+        cfg = tuning.resolve("spmv_dot", shapes, hw)
+        assert cfg["subgroup"] == want
+        assert cfg["block_threads"] == (256 if want == 1 else 1024)
+    finally:
+        tuning._TABLE.pop(("spmv_dot", "h100"))
+
+
+def test_wrappers_choose_their_route():
+    """axpy_norm takes 16-byte packs where x, y and z are 16-byte aligned (a
+    scalar tail covers an n that is not a multiple of the pack), single
+    elements on an offset view; the row form needs n to be a multiple of the
+    pack too.  The grid follows the route.  An empty operand gives a zero
+    without a launch."""
+    from repro_torch.kernels.axpy_norm.kernel import launch_grid, vector_width
+
+    x = torch.zeros(4099 + 8)
+    x64 = x.double()
+    assert x.data_ptr() % 16 == 0 and x64.data_ptr() % 16 == 0
+    assert vector_width(x, x) == 4 and vector_width(x64, x64) == 2
+    assert vector_width(x[:4099], x[:4099]) == 4  # n % 4 = 3: a scalar tail
+    assert vector_width(x[1:], x[:-1]) == 1  # x[1:] is 4 bytes off
+    assert vector_width(x64[1:], x64[1:]) == 1
+    assert vector_width(x[4:], x[8:]) == 4  # 16 bytes off: still aligned
+    X = torch.zeros(8, 1024)
+    assert vector_width(X, X, row=1024) == 4
+    assert vector_width(X[:, :1023].contiguous(), X, row=1023) == 1
+    assert vector_width(X.double(), X.double(), row=1022) == 2
+    assert launch_grid(2_097_152, 4, 256, 1056) == 1056
+    assert launch_grid(1_048_576, 4, 256, 1056) == 1024
+    assert launch_grid(1_048_576, 1, 256, 1056) == 1056
+    assert launch_grid(4099, 4, 256, 1056) == 5
+    assert launch_grid(3, 4, 256, 1056) == 1
+    before = K.launch_counts()
+    z, ss = K.axpy_norm(torch.tensor(0.5), torch.zeros(0), torch.zeros(0))
+    assert z.shape == (0,) and ss.ndim == 0 and float(ss) == 0.0
+    Z, S = K.axpy_norm_rows(torch.ones(3), torch.zeros(3, 0), torch.zeros(3, 0))
+    assert Z.shape == (3, 0) and torch.equal(S, torch.zeros(3))
+    y, d = K.spmv_dot_ell(torch.zeros(0, 7, dtype=torch.int32),
+                          torch.zeros(0, 7), torch.zeros(5), torch.zeros(0))
+    assert y.shape == (0,) and float(d) == 0.0
+    assert K.launch_counts() == before
+
+
+def test_workspace_is_kept_per_kernel_and_stream():
+    """The single-pass sums' workspace: zeroed tickets allocated once per
+    (kernel, device, stream), reused while large enough, replaced by a
+    larger zeroed one when a call needs more."""
+    from repro_torch.kernels import _workspace
+
+    dev = torch.device("cpu")
+    t, p = _workspace.workspace("test_kernel", dev, 7, 4, 64)
+    assert t.dtype == torch.int32 and t.numel() == 4 and not t.any()
+    assert p.dtype == torch.uint8 and p.numel() == 64
+    t2, p2 = _workspace.workspace("test_kernel", dev, 7, 2, 32)
+    assert t2 is t and p2 is p
+    t3, p3 = _workspace.workspace("test_kernel", dev, 7, 9, 16)
+    assert t3 is not t and t3.numel() == 9 and not t3.any() and p3.numel() == 64
+    t4, _ = _workspace.workspace("test_kernel", dev, 8, 1, 8)
+    assert t4 is not t3
+    for stream in (7, 8):
+        _workspace._CACHE.pop(("test_kernel", dev, stream))
+
+
 def test_launch_counts_reset_per_kernel_and_per_storage(monkeypatch):
     monkeypatch.setattr(K.spmv_ell, "launches", 3)
     monkeypatch.setattr(K.block_jacobi_apply, "launches", 2)
@@ -227,3 +320,47 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     assert _build.library_path().name.startswith("librepro_torch_")
     assert {p.name for p in _build.CSRC.glob("*.cu")} >= {
         "spmv_ell.cu", "spmv_dot.cu", "axpy_norm.cu", "block_jacobi.cu"}
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_for_test", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("mangled", [False, True])
+@pytest.mark.parametrize("fused_regs, spill, ok", [
+    (48, 72, True),     # CUDA 12.9's build: spmv_ell's 5 blocks an SM
+    (56, 72, False),    # 4 blocks an SM, fewer than spmv_ell's
+    (48, 200, False),   # past the path's spill limit
+])
+def test_walk_occupancy_check(mangled, fused_regs, spill, ok, capsys):
+    """The build phase's check of the fused thread-per-row kernel's
+    ``__launch_bounds__`` against spmv_ell's copy of the walk, read from
+    ptxas's table with demangled or mangled names."""
+    cs = _chip_smoke()
+
+    def name(kernel, kmax, kind):
+        if mangled:
+            return (f"_ZN12_GLOBAL__N_1{len(kernel) + 12}{kernel}_rows_kernel"
+                    f"ILi{kmax}E{kind[0]}EEvPKiPKT0_")
+        return f"void {kernel}_rows_kernel<{kmax}, {kind}>"
+
+    table = [["spmv_ell.cu", name("spmv_ell", 8, "float"), 48, 0, 0],
+             ["spmv_dot.cu", name("spmv_dot_ell", 8, "float"), fused_regs,
+              144, spill],
+             ["spmv_ell.cu", name("spmv_ell", 16, "double"), 80, 0, 0],
+             ["spmv_dot.cu", name("spmv_dot_ell", 16, "double"), 80, 272, 448]]
+    if ok:
+        cs.walk_occupancy_check(table)
+        assert "fused 5 blocks an SM" in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit):
+            cs.walk_occupancy_check(table)
+    with pytest.raises(SystemExit):  # spmv_ell's row missing
+        cs.walk_occupancy_check(table[1:2])
