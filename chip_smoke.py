@@ -44,6 +44,10 @@ Phases, each of which exits non-zero on failure:
             CG's vectors and block_jacobi_apply at the baseline's blocks
             against their plain versions (phase 3's tolerances), and the two
             SpGEMM kernels at level 0's shapes (bitwise), with their times;
+            csr_permute also on every level's P^T (bitwise, each timed;
+            level 0 with its CUPTI kernel time), on level 0's order less
+            its last 3 entries (a scalar tail), on views of both arrays 4
+            bytes past a 16-byte boundary (the scalar route) and in f64;
 6. sellp  — Jacobi-CG on power_law_laplacian(2**21, seed=4) stored as SELL-P
             (C = 8, stride 8, f32) through the CUDA executor: convergence, the
             true residual, spmv_sellp's launch count against the loop's
@@ -60,7 +64,14 @@ Phases, each of which exits non-zero on failure:
             each kernel's launches against the sweeps, a 4-sweep chunked
             advance bit for bit equal to the monolithic one, the torch space
             on the card (iterations within 1, x close); spmv_batch_ell
-            (at the CG runs' and the BiCGSTAB run's operators), row-batched
+            (at the CG runs' operator on the narrow route and the BiCGSTAB
+            run's on the wide route, each with its CUPTI kernel time and
+            its launches by shape; the CG operator also on the wide route;
+            then, untimed, a ragged wide shape and an offset values view
+            whose rows are not 16-byte aligned, the middle band k = 24 on
+            both routes, a ragged narrow shape, f64 at both path shapes and
+            the wide route below and above one wave; each within 8 k eps
+            and repeated bit for bit), row-batched
             axpy_norm (at the CG runs' rows, one block each, and at
             256 x 1,024, rows cut into pieces) and block_jacobi_apply held
             and timed at this path's shapes (torch.sparse.mm on the
@@ -400,9 +411,12 @@ def check(name: str, err: float, tol: float) -> None:
 
 def kernel_row(torch, flush, copy_bw, name, src, line, err, kernel_fn,
                plain_fn, nbytes, flops, library_fn=None,
-               peak_flops=None) -> dict:
+               peak_flops=None, cupti=False) -> dict:
     """One entry of the ``kernels`` line: the kernel's, its plain version's
-    and (where one exists) a library call's device time, and the bounds."""
+    and (where one exists) a library call's device time, and the bounds;
+    with ``cupti``, also the kernel's own device time in µs under
+    torch.profiler (CUPTI, the L2 flushed before each call), beside the
+    event time, which holds ≈3 µs of the event pair itself."""
     entry = {
         "name": name,
         "route": "cuda",
@@ -414,6 +428,19 @@ def kernel_row(torch, flush, copy_bw, name, src, line, err, kernel_fn,
         "library_ms": (device_ms(torch, library_fn, flush)
                        if library_fn is not None else None),
     }
+    if cupti:
+        from repro_torch.kernels.ell_norm_probe import _kernel_us
+
+        # the profiler may drop a window's events: up to three windows, else
+        # null (never NaN, which the JSON line cannot carry)
+        entry["kernel_us"] = None
+        for _ in range(3):
+            us = _kernel_us(kernel_fn, flush.zero_)
+            if us == us:
+                entry["kernel_us"] = us
+                break
+        say(f"[kernels] {name}: {entry['kernel_us']} us of kernel time "
+            "(CUPTI)")
     entry.update(bounds(nbytes, flops, copy_bw, peak_flops))
     say(f"[kernels] {name}: {entry['ms']:.4f} ms (plain {entry['plain_ms']:.4f}, "
         f"library {entry['library_ms']}, bound {entry['bound_ms']:.4f} "
@@ -542,38 +569,96 @@ def held_block_jacobi(torch, ex, inv, vp, where: str = "") -> dict:
                 library_fn=lambda: torch.bmm(inv32, vcol))
 
 
-def held_batch_ell(torch, ex, A, X, where: str = "") -> dict:
-    """Holds ``spmv_batch_ell`` on the BatchEll ``A`` and ``X`` against its
-    plain version — within 8 k eps of max_b,i sum_j |a_bij x_bj| — with the
-    launch configuration the registry binding gives this shape, and returns
+def held_batch_ell(torch, ex, col_idx, values, X, where: str = "",
+                   subgroup: int = None, library: bool = True) -> dict:
+    """Holds ``spmv_batch_ell`` on (col_idx, values) and ``X`` against its
+    plain version — within 8 k eps of max_b,i sum_j |a_bij x_bj| — and
+    repeated bit for bit, with the launch configuration the registry
+    binding gives this shape (or the route ``subgroup`` names), and returns
     the rest of its ``kernel_row`` arguments (the library call is
     ``torch.sparse.mm`` on the block-diagonal CSR of all systems, the ELL
     padding stored as explicit zeros)."""
     from repro_torch import kernels as K
+    from repro_torch.kernels.spmv_batch_ell.kernel import vector_loads
 
-    eps = torch.finfo(torch.float32).eps
-    nb, m, k = A.values.shape
-    n = A.shape[1]
-    cfg = ex.launch_config("spmv_batch_ell", {"nb": nb, "m": m, "k": k})
-    geo = dict(block_threads=cfg["block_threads"], subgroup=cfg["subgroup"])
-    y = K.spmv_batch_ell(A.col_idx, A.values, X, **geo)
-    y_ref = K.spmv_batch_ell_plain(A.col_idx, A.values, X)
-    scale = float(K.spmv_batch_ell_plain(A.col_idx, A.values.abs(), X.abs()).max())
+    eps = torch.finfo(values.dtype).eps
+    size = values.element_size()
+    nb, m, k = values.shape
+    n = X.shape[1]
+    cfg = ex.launch_config("spmv_batch_ell", {"m": m, "k": k, "n": n,
+                                              "itemsize": size})
+    geo = dict(block_threads=cfg["block_threads"],
+               subgroup=cfg["subgroup"] if subgroup is None else subgroup)
+    y = K.spmv_batch_ell(col_idx, values, X, **geo)
+    y_ref = K.spmv_batch_ell_plain(col_idx, values, X)
+    scale = float(K.spmv_batch_ell_plain(col_idx, values.abs(), X.abs()).max())
     err = float((y - y_ref).abs().max())
-    check(f"spmv_batch_ell{where} at {nb} x {m} x k = {k}, subgroup "
-          f"{geo['subgroup']}", err, 8 * k * eps * scale)
-    crow = torch.arange(nb * m + 1, device="cuda") * k
-    ccol = (torch.arange(nb, device="cuda")[:, None, None] * n
-            + A.col_idx.long()[None]).reshape(-1)
-    A_bd = torch.sparse_csr_tensor(crow, ccol, A.values.reshape(-1),
-                                   size=(nb * m, nb * n))
-    Xc = X.reshape(-1, 1)
-    return dict(err=err,
-                kernel_fn=lambda: K.spmv_batch_ell(A.col_idx, A.values, X, **geo),
-                plain_fn=lambda: K.spmv_batch_ell_plain(A.col_idx, A.values, X),
-                nbytes=nb * m * k * 4 + m * k * 4 + nb * n * 4 + nb * m * 4,
-                flops=2 * nb * m * k,
-                library_fn=lambda: torch.sparse.mm(A_bd, Xc))
+    route = "narrow" if geo["subgroup"] == 1 else "wide"
+    check(f"spmv_batch_ell{where} at {nb} x {m} x k = {k}, n = {n}, "
+          f"{str(values.dtype).removeprefix('torch.')}, {route} route "
+          f"(subgroup {geo['subgroup']}, 16-byte loads "
+          f"{geo['subgroup'] > 1 and vector_loads(values)})", err,
+          8 * k * eps * scale)
+    if not torch.equal(K.spmv_batch_ell(col_idx, values, X, **geo), y):
+        fail(f"spmv_batch_ell{where} at {nb} x {m} x k = {k}: a repeat "
+             "differs")
+    out = dict(err=err,
+               kernel_fn=lambda: K.spmv_batch_ell(col_idx, values, X, **geo),
+               plain_fn=lambda: K.spmv_batch_ell_plain(col_idx, values, X),
+               nbytes=nb * m * k * size + m * k * 4 + nb * (n + m) * size,
+               flops=2 * nb * m * k)
+    if library:
+        crow = torch.arange(nb * m + 1, device="cuda") * k
+        ccol = (torch.arange(nb, device="cuda")[:, None, None] * n
+                + col_idx.long()[None]).reshape(-1)
+        A_bd = torch.sparse_csr_tensor(crow, ccol, values.reshape(-1),
+                                       size=(nb * m, nb * n))
+        Xc = X.reshape(-1, 1)
+        out["library_fn"] = lambda: torch.sparse.mm(A_bd, Xc)
+    return out
+
+
+def batch_ell_cases(torch, ex, gen) -> list:
+    """spmv_batch_ell held (within 8 k eps, repeated bit for bit) past the
+    path's two shapes: a ragged wide shape whose rows are not 16-byte aligned
+    and an offset values view (both single-entry loads), the middle band
+    k = 24 on both routes, a ragged narrow shape, f64 at both path shapes,
+    and the wide route at a batch below and above one wave of blocks.
+    Returns one record a case."""
+    def arrays(nb, m, k, n, dtype, offset=0):
+        cols = torch.randint(0, n, (m, k), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        fill = torch.randint(0, k + 1, (m,), generator=gen, device="cuda")
+        pad = torch.arange(k, device="cuda")[None, :] >= fill[:, None]
+        cols[pad] = 0  # ELL padding: column 0, value 0
+        # offset: the values start that many entries past an allocation
+        flat = torch.randn(nb * m * k + offset, generator=gen, device="cuda",
+                           dtype=dtype)
+        vals = flat[offset:].view(nb, m, k)
+        vals[:, pad] = 0
+        X = torch.randn(nb, n, generator=gen, device="cuda", dtype=dtype)
+        return cols, vals, X
+
+    f32, f64 = torch.float32, torch.float64
+    cases = [("ragged wide, rows not 16-byte aligned", (7, 61, 61, 61, f32), None),
+             ("wide, offset values view", (3, 64, 64, 64, f32, 1), None),
+             ("middle band, wide route", (5, 50, 24, 50, f32), None),
+             ("middle band, narrow route", (5, 50, 24, 50, f32), 1),
+             ("narrow, ragged m, k and nb", (3, 37, 5, 29, f32), None),
+             ("f64 at the CG runs' shape", (16384, 1024, 3, 1024, f64), None),
+             ("f64 at BiCGSTAB's shape", (1024, 64, 64, 64, f64), None),
+             ("wide, below one wave", (3, 64, 64, 64, f32), None),
+             ("wide, above one wave", (5000, 64, 64, 64, f32), None)]
+    out = []
+    for label, shape, subgroup in cases:
+        cols, vals, X = arrays(*shape)
+        held = held_batch_ell(torch, ex, cols, vals, X, f" ({label})",
+                              subgroup=subgroup, library=False)
+        out.append({"case": label, "shape": dict(zip(
+            ("nb", "m", "k", "n"), shape[:4])),
+            "dtype": str(vals.dtype).removeprefix("torch."),
+            "subgroup": subgroup, "max_abs_err": held["err"]})
+    return out
 
 
 def held_axpy_norm_rows(torch, ex, X, Y, gen, where: str = "") -> dict:
@@ -1213,22 +1298,48 @@ def phase_amg(torch, copy_bw):
         4 * t + 8 * t * kw + gathered, t * kw)}
     rows_out["spgemm_expand"]["shape"] = {"T": t, "K": kw}
 
-    order_np, _, _ = ops._transpose_structure(L0.P)
-    order = torch.from_numpy(order_np.astype("int32")).cuda()
-    vals = L0.P.values
-    out = K.csr_permute(vals, order, block_threads=bt)
-    ref = K.csr_permute_plain(vals, order)
-    say(f"[kernels] csr_permute at P^T of level 0: nnz = {order.numel()}; "
-        f"bitwise equal to the plain version: {torch.equal(out, ref)}")
-    if not torch.equal(out, ref):
-        fail("csr_permute differs from its plain version")
-    nnz = order.numel()
-    rows_out["csr_permute"] = row(
-        "csr_permute", "spgemm.cu", "src/repro/kernels/spgemm/kernel.py:92",
-        0.0, lambda: K.csr_permute(vals, order, block_threads=bt),
-        lambda: K.csr_permute_plain(vals, order), 12 * nnz, 0,
-        lambda: torch.index_select(vals, 0, order))
-    rows_out["csr_permute"]["shape"] = {"nnz": nnz}
+    # csr_permute on the transpose of every level's P (AMG setup's R = P^T),
+    # bitwise; level 0's P^T timed as the row (with its CUPTI time), every
+    # level's time beside it
+    def permute_held(vals, order, label):
+        out = K.csr_permute(vals, order, block_threads=bt)
+        same = torch.equal(out, K.csr_permute_plain(vals, order.long()))
+        say(f"[kernels] csr_permute at {label}: nnz = {order.numel()}, "
+            f"{str(vals.dtype).removeprefix('torch.')}; bitwise equal to the "
+            f"plain version: {same}")
+        if not same:
+            fail(f"csr_permute differs from its plain version at {label}")
+
+    at_levels = []
+    for lvl, L in enumerate(M.levels):
+        order_np, _, _ = ops._transpose_structure(L.P)
+        order = torch.from_numpy(order_np.astype("int32")).cuda()
+        vals = L.P.values
+        permute_held(vals, order, f"P^T of level {lvl}")
+        entry = row("csr_permute", "spgemm.cu",
+                    "src/repro/kernels/spgemm/kernel.py:92", 0.0,
+                    lambda v=vals, o=order: K.csr_permute(v, o,
+                                                          block_threads=bt),
+                    lambda v=vals, o=order: K.csr_permute_plain(v, o),
+                    12 * order.numel(), 0,
+                    lambda v=vals, o=order: torch.index_select(v, 0, o),
+                    cupti=lvl == 0)
+        entry["shape"] = {"nnz": order.numel(), "level": lvl}
+        at_levels.append(entry)
+        if lvl == 0:
+            order0, vals0 = order, vals
+    # level 0's order less its last 3 entries (a count of 4 k + 1 here: a
+    # scalar tail), both arrays as views 4 bytes past a 16-byte boundary (the
+    # scalar route), f64
+    nnz = order0.numel()
+    permute_held(vals0, order0[:-3], "level 0's P^T, a ragged count")
+    obuf = torch.empty(nnz + 1, dtype=torch.int32, device="cuda")
+    obuf[1:] = order0
+    vbuf = torch.empty(nnz + 1, dtype=vals0.dtype, device="cuda")
+    vbuf[1:] = vals0
+    permute_held(vbuf[1:], obuf[1:], "level 0's P^T, offset views")
+    permute_held(vals0.double(), order0, "level 0's P^T, f64")
+    rows_out["csr_permute"] = dict(at_levels[0], at_levels=at_levels[1:])
     return launches, by_storage, summary, rows_out, held, ell_levels
 
 
@@ -1519,6 +1630,9 @@ def phase_batch(torch, copy_bw):
     def torch_space(argv):
         return batch_solve.run(argv + ["--executor", "torch"]).result
 
+    # spmv_batch_ell's launches by operator shape: the CG runs' and BiCGSTAB's
+    by_shape = collections.Counter()
+
     # CG through the entry point, no preconditioner and Jacobi: one SpMV for the
     # initial residual and one per sweep, one fused update per sweep
     cg_want = lambda s: {"spmv_batch_ell": s + 1, "axpy_norm_rows": s}  # noqa: E731
@@ -1529,6 +1643,7 @@ def phase_batch(torch, copy_bw):
             fail(f"batch_solve {argv} failed or miscounted")
         sweeps, err = _batch_checks(torch, f"cg/{precond}", r.result, r.xstar,
                                     counts, cg_want, torch_space(argv))
+        by_shape["cg"] += counts["spmv_batch_ell"]
         M = (tb.batch_jacobi_preconditioner(r.A, executor=r.executor)
              if precond == "jacobi" else None)
         chunks = _chunked_equal(torch, r.A, r.B, M, "cg", r.executor, r.stop)
@@ -1555,6 +1670,7 @@ def phase_batch(torch, copy_bw):
         torch, "cg/block_jacobi", res, xstar, counts,
         lambda s: {"spmv_batch_ell": s + 1, "axpy_norm_rows": s,
                    "block_jacobi_apply": s + 1}, res_t)
+    by_shape["cg"] += counts["spmv_batch_ell"]
     if bj_storage != {"float32": sweeps + 1}:
         fail(f"block_jacobi_apply by storage {bj_storage}, expected "
              f"{{'float32': {sweeps + 1}}}")
@@ -1573,6 +1689,7 @@ def phase_batch(torch, copy_bw):
         torch, "bicgstab", r.result, r.xstar, counts,
         lambda s: {"spmv_batch_ell": 2 * s + 1, "axpy_norm_rows": s},
         torch_space(BATCH_BICGSTAB_ARGS))
+    by_shape["bicgstab"] += counts["spmv_batch_ell"]
     A_bi = r.A
     chunks = _chunked_equal(torch, r.A, r.B, None, "bicgstab", r.executor,
                             r.stop)
@@ -1591,19 +1708,36 @@ def phase_batch(torch, copy_bw):
     rows = {"spmv_batch_ell": row(
         "spmv_batch_ell", "spmv_batch_ell.cu",
         "src/repro/kernels/spmv_batch_ell/kernel.py:51",
-        **held_batch_ell(torch, ex, A, X))}
+        **held_batch_ell(torch, ex, A.col_idx, A.values, X), cupti=True)}
     rows["spmv_batch_ell"]["shape"] = {"nb": nb, "m": m, "k": k}
-    # and at the BiCGSTAB run's operator, whose k = n rows take a wider
-    # subgroup than the tridiagonal systems' one thread per row
+    # and at the BiCGSTAB run's operator, whose k = n = 64 rows take the
+    # wide route
     X_bi = torch.randn(A_bi.values.shape[0], A_bi.shape[1], generator=gen,
                        device="cuda")
     at_bi = row("spmv_batch_ell", "spmv_batch_ell.cu",
                 "src/repro/kernels/spmv_batch_ell/kernel.py:51",
-                **held_batch_ell(torch, ex, A_bi, X_bi, " (bicgstab)"))
+                **held_batch_ell(torch, ex, A_bi.col_idx, A_bi.values, X_bi,
+                                 " (bicgstab)"), cupti=True)
     at_bi["shape"] = dict(zip(("nb", "m", "k"), A_bi.values.shape))
     rows["spmv_batch_ell"]["at_bicgstab_shape"] = at_bi
+    # the CG runs' operator on the wide route too (2 lanes a row)
+    wide_cg = held_batch_ell(torch, ex, A.col_idx, A.values, X,
+                             " (CG shape, wide route)", subgroup=2,
+                             library=False)
+    cases = [{"case": "CG shape, wide route", "subgroup": 2,
+              "max_abs_err": wide_cg["err"]}]
+    cases += batch_ell_cases(torch, ex, gen)
+    rows["spmv_batch_ell"]["held_cases"] = cases
+    rows["spmv_batch_ell"]["launches_by_shape"] = {
+        f"cg {nb} x {m}, k = {k}": by_shape["cg"],
+        "bicgstab {} x {}, k = {}".format(*A_bi.values.shape): by_shape["bicgstab"]}
+    say(f"[batch] spmv_batch_ell launches by shape "
+        f"{rows['spmv_batch_ell']['launches_by_shape']}")
+    if sum(by_shape.values()) != launches_total["spmv_batch_ell"]:
+        fail("spmv_batch_ell's launches by shape do not add up to the path's")
     rows["spmv_batch_ell"]["max_abs_err"] = max(
-        rows["spmv_batch_ell"]["max_abs_err"], at_bi["max_abs_err"])
+        [rows["spmv_batch_ell"]["max_abs_err"], at_bi["max_abs_err"]]
+        + [c["max_abs_err"] for c in cases])
 
     # row-batched axpy_norm at the CG runs' (nb, n), where each row is one
     # block, and at (256, 1024), where each row is cut into pieces whose

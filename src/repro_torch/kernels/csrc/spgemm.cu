@@ -24,9 +24,23 @@
 //
 // csr_permute: out[t] = values[order[t]], the value shuffle of a transpose.
 // Bound: bytes, 12 bytes per entry for f32 (order read, value gathered,
-// output written).  Design: one thread per entry; order and out are
-// coalesced, the gather goes through L2.  A copy of a value: bitwise equal to
-// values[order].
+// output written; 16 for f64).  Design: a persistent grid of one wave (the
+// occupancy API; fewer blocks where a pack a thread needs fewer),
+// grid-stride over packs of 4 entries.  A thread loads kPermuteLoads packs
+// of order as int4 (16-byte) loads, issues all of their gathers of values
+// (through L2, which holds the gathered array), and only then stores each
+// pack's 4 values as 16-byte vectors (one float4, or two double2).  order
+// and out are streamed once, so their loads and stores are marked
+// evict-first (__ldcs / __stcs) and leave L2 to the gathered values.  The
+// kernel decides its edges from the pointers: a scalar head up to order's
+// first 16-byte boundary and a scalar tail past the last whole pack; where
+// out is not 16-byte aligned at that boundary (order and out offset
+// differently), every entry takes the scalar route.  A copy of a value:
+// bitwise equal to values[order].  4 packs in flight a thread instead of 2
+// gained nothing on the H100 (0.0181 against 0.0183 ms at nnz =
+// 2,619,476).
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
@@ -43,14 +57,62 @@ __global__ void spgemm_expand_kernel(const T* __restrict__ a_vals,
   out[e] = __ldg(a_vals + e / k) * b_pad[idx[e]];
 }
 
+// packs of 4 entries a thread of csr_permute has in flight
+constexpr int kPermuteLoads = 2;
+
+// the 4 values of one pack, stored as 16-byte vectors
+__device__ __forceinline__ void store_pack(float* dst, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store_pack(double* dst, const double (&v)[4]) {
+  __stcs(reinterpret_cast<double2*>(dst), make_double2(v[0], v[1]));
+  __stcs(reinterpret_cast<double2*>(dst) + 1, make_double2(v[2], v[3]));
+}
+
 template <typename T>
 __global__ void csr_permute_kernel(const T* __restrict__ values,
                                    const int* __restrict__ order,
                                    T* __restrict__ out, long long nnz) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= nnz) return;
-  out[t] = values[order[t]];
+  // entries before order's first 16-byte boundary; all of them when out is
+  // not 16-byte aligned there (32-bit counts: the wrapper holds nnz < 2^31)
+  const unsigned total = static_cast<unsigned>(nnz);
+  unsigned head = static_cast<unsigned>(
+      (16u - reinterpret_cast<uintptr_t>(order) % 16u) % 16u / 4u);
+  if (head > total ||
+      reinterpret_cast<uintptr_t>(out + head) % 16u != 0u)
+    head = total;
+  const unsigned packs = (total - head) / 4u;
+  const unsigned stride = gridDim.x * blockDim.x;
+  const unsigned t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int4* op = reinterpret_cast<const int4*>(order + head);
+  T* outp = out + head;
+  for (unsigned base = t; base < packs; base += kPermuteLoads * stride) {
+    int4 o[kPermuteLoads];
+#pragma unroll
+    for (int u = 0; u < kPermuteLoads; ++u) {
+      const unsigned i = base + u * stride;
+      if (i < packs) o[u] = __ldcs(op + i);
+    }
+    T v[kPermuteLoads][4];
+#pragma unroll
+    for (int u = 0; u < kPermuteLoads; ++u) {
+      if (base + u * stride < packs) {
+        v[u][0] = __ldg(values + o[u].x);
+        v[u][1] = __ldg(values + o[u].y);
+        v[u][2] = __ldg(values + o[u].z);
+        v[u][3] = __ldg(values + o[u].w);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPermuteLoads; ++u) {
+      const unsigned i = base + u * stride;
+      if (i < packs) store_pack(outp + 4u * i, v[u]);
+    }
+  }
+  // the scalar edges: the head, and the fewer than 4 entries past the packs
+  const unsigned tail = head + 4u * packs;
+  for (unsigned i = t; i < head; i += stride) out[i] = values[order[i]];
+  if (t < total - tail) out[tail + t] = values[order[tail + t]];
 }
 
 unsigned grid_for(long long n, int block_threads) {
@@ -70,8 +132,21 @@ int launch_expand(const T* a_vals, const int* idx, const T* b_pad, T* out,
 template <typename T>
 int launch_permute(const T* values, const int* order, T* out, long long nnz,
                    int block_threads, cudaStream_t stream) {
-  csr_permute_kernel<T><<<grid_for(nnz, block_threads), block_threads, 0,
-                          stream>>>(values, order, out, nnz);
+  const auto kernel = csr_permute_kernel<T>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        block_threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // one wave, or a pack a thread where that needs fewer blocks
+  const long long need = (nnz / 4 + block_threads) / block_threads;
+  const long long wave = static_cast<long long>(sms) * per_sm;
+  const unsigned grid = static_cast<unsigned>(need < wave ? need : wave);
+  kernel<<<grid, block_threads, 0, stream>>>(values, order, out, nnz);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -48,11 +48,36 @@ block-Jacobi CG on ``poisson_3d(128)`` (``chip_smoke.py``'s phase 4: ELL,
 block-Jacobi baseline (300 iterations), each loop run past its stopping
 test for a fixed count after a warm-up solve.
 
+``spmv_batch_ell`` (not in the default set): the batched solves' two
+operators, the CG runs' 16,384 tridiagonal systems of 1,024 rows (k = 3)
+and BiCGSTAB's 1,024 dense nonsymmetric systems of 64 rows (k = 64), as
+``launch.batch_solve.build_batch`` makes them, each at the spec's route and
+at every ``subgroup`` the tree's kernel takes (1 to 32; a refused one is
+skipped), each held within 8 k eps of max sum |a x| and repeated bit for
+bit, with the CUPTI kernel µs beside the event ms and the block-diagonal
+CSR ``torch.sparse.mm`` as the library call; the spec's route also at 64,
+128 and 256 threads a block, and after a flush that leaves clean L2 lines
+(written over, then a 128 MiB buffer read over), by events and CUPTI, and
+warm.
+
+``csr_permute`` (not in the default set): the transpose's value shuffle
+on every coarsened level's P of the ``poisson_2d(1024)`` AMG hierarchy
+(AMG setup's R = P^T), held bitwise against ``values[order]``, at the
+spec's block size (and at 128 to 1,024 threads on level 0), with the CUPTI
+kernel µs, ``torch.index_select`` as the library call; level 0 also after
+a clean-L2 flush and warm, the library call too.
+
+``batch_loop`` (not in the default set): device time by kernel a sweep
+(``torch.profiler``) of batched CG without a preconditioner on the
+16,384 tridiagonal systems of 1,024 rows (``chip_smoke.py``'s phase 7;
+``Stop(500, 1e-6)``, 15 sweeps), after a warm-up solve.
+
 ``--kernels`` picks the families (default: the four kernels).  ``--lib PATH`` loads
 a library built elsewhere from the same entry points in place of the tree's
 own build (``nvcc ... -shared -cudart shared -I <copy> -o X.so status.cu
-spmv_ell.cu spmv_dot.cu axpy_norm.cu`` from altered copies of ``csrc/``):
-the way to A/B or ablate one part; such a library is timed, not held.
+spmv_ell.cu spmv_dot.cu axpy_norm.cu`` from altered copies of ``csrc/``;
+``status.cu spmv_batch_ell.cu spgemm.cu`` for the last two families): the
+way to A/B or ablate one part; such a library is timed, not held.
 
 Each time is the median of 30 CUDA-event runs with the L2 flushed before
 each (``sellp_probe.device_ms``); each kernel is held against its plain
@@ -529,9 +554,222 @@ def probe_loops(timer, copy_bw: float) -> dict:
     return out
 
 
+def _clean_l2(dirty, fn) -> dict:
+    """``fn`` timed after a flush that leaves clean L2 lines (``dirty`` written
+    over, then a 128 MiB buffer read over, so the timed call writes back no
+    flush line), by events and by its kernels' CUPTI time, and warm (no
+    flush); beside the empty event pair after the default (written) flush."""
+    clean = torch.ones(128 << 20, dtype=torch.uint8, device="cuda")
+
+    def read_flush():
+        dirty.zero_()
+        clean.sum()
+
+    return {"clean_ms": _timed(fn, read_flush),
+            "clean_kernel_us": _kernel_us(fn, read_flush),
+            "warm_ms": _timed(fn, lambda: None),
+            "empty_window_ms": _timed(lambda: None, dirty.zero_)}
+
+
+def _batch_ell_entry(timer, copy_bw, label, A, X, ex, dirty) -> dict:
+    """``spmv_batch_ell`` on the BatchEll ``A`` at every route it takes (see
+    the docstring): event ms and CUPTI kernel µs, the plain version and the
+    block-diagonal CSR ``torch.sparse.mm``."""
+    from repro_torch import kernels as K
+
+    nb, m, k = A.values.shape
+    n = A.shape[1]
+    size = A.values.element_size()
+    cfg = ex.launch_config("spmv_batch_ell", {"nb": nb, "m": m, "k": k, "n": n,
+                                              "itemsize": size})
+    spec = {"block_threads": cfg["block_threads"], "subgroup": cfg["subgroup"]}
+    ref = K.spmv_batch_ell_plain(A.col_idx, A.values, X)
+    scale = float(K.spmv_batch_ell_plain(A.col_idx, A.values.abs(), X.abs()).max())
+    tol = 8 * k * torch.finfo(A.values.dtype).eps * scale
+    walks, kernel_us = {}, {}
+    for sg in (1, 2, 4, 8, 16, 32):
+        geo = {"block_threads": spec["block_threads"], "subgroup": sg}
+
+        def kern(geo=geo):
+            return K.spmv_batch_ell(A.col_idx, A.values, X, **geo)
+
+        try:
+            y = kern()
+        except ValueError as exc:  # a route this tree's kernel does not take
+            print(f"[spmv_batch_ell] {label} subgroup {sg}: refused ({exc})",
+                  flush=True)
+            continue
+        err = float((y - ref).abs().max())
+        if not err <= tol or not torch.equal(kern(), y):
+            _disagree(f"spmv_batch_ell {label} at subgroup {sg}: error {err} "
+                      f"> {tol}, or not repeated bit for bit")
+        walks[sg] = timer(kern)
+        kernel_us[sg] = _kernel_us(kern, dirty.zero_)
+    block_ms = {}  # the spec's route at other block sizes
+    for bt in (64, 128, 256):
+        block_ms[bt] = timer(lambda bt=bt: K.spmv_batch_ell(
+            A.col_idx, A.values, X, block_threads=bt,
+            subgroup=spec["subgroup"]))
+    crow = torch.arange(nb * m + 1, device="cuda") * k
+    ccol = (torch.arange(nb, device="cuda")[:, None, None] * n
+            + A.col_idx.long()[None]).reshape(-1)
+    A_bd = torch.sparse_csr_tensor(crow, ccol, A.values.reshape(-1),
+                                   size=(nb * m, nb * n))
+    Xc = X.reshape(-1, 1)
+    entry = {"shape": label, "block_ms": block_ms, "nb": nb, "m": m, "n": n, "k": k, "spec": spec,
+             "ms": walks[spec["subgroup"]],
+             "kernel_us": kernel_us[spec["subgroup"]],
+             "walk_ms": walks, "walk_kernel_us": kernel_us,
+             "plain_ms": timer(lambda: K.spmv_batch_ell_plain(A.col_idx,
+                                                              A.values, X)),
+             "library_ms": timer(lambda: torch.sparse.mm(A_bd, Xc))}
+    entry.update(_bounds(nb * m * k * size + m * k * 4 + nb * (n + m) * size,
+                         copy_bw))
+    entry.update(_clean_l2(dirty, lambda: K.spmv_batch_ell(A.col_idx, A.values,
+                                                           X, **spec)))
+    print(f"[spmv_batch_ell] {label} {nb} x {m}, k = {k}: spec {spec} "
+          f"{entry['ms']:.4f} ms ({entry['kernel_us']:.2f} us kernel); walks "
+          + ", ".join(f"{sg}: {t:.4f} / {kernel_us[sg]:.2f} us"
+                      for sg, t in walks.items())
+          + "; spec route by block " + ", ".join(
+              f"{bt}: {t:.4f}" for bt, t in block_ms.items())
+          + f"; plain {entry['plain_ms']:.4f}, block-diagonal CSR "
+          f"torch.sparse.mm {entry['library_ms']:.4f}, bound "
+          f"{entry['bound_ms']:.4f}; clean L2 {entry['clean_ms']:.4f} ms "
+          f"({entry['clean_kernel_us']:.2f} us kernel), warm "
+          f"{entry['warm_ms']:.4f}, empty window {entry['empty_window_ms']:.4f}",
+          flush=True)
+    return entry
+
+
+def probe_spmv_batch_ell(timer, copy_bw: float) -> list:
+    """``spmv_batch_ell`` at the batched solves' two operators (see the
+    docstring)."""
+    from repro_torch.core import make_executor
+    from repro_torch.launch.batch_solve import build_batch
+
+    ex = make_executor("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dirty = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out = []
+    for label, nb, n, nonsym in (("cg", 16_384, 1_024, False),
+                                 ("bicgstab", 1_024, 64, True)):
+        A, _, _ = build_batch(nb, n, fmt="ell", nonsym=nonsym, device="cuda")
+        X = torch.randn(nb, n, generator=gen, device="cuda")
+        out.append(_batch_ell_entry(timer, copy_bw, label, A, X, ex, dirty))
+        del A, X
+    return out
+
+
+def probe_csr_permute(timer, copy_bw: float) -> list:
+    """``csr_permute`` on the transpose of every AMG level's P (see the
+    docstring)."""
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+    from repro_torch.precond import make_preconditioner
+    from repro_torch.sparse import csr_from_arrays, gallery, ops
+
+    ex = make_executor("cuda")
+    dirty = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    ip, ix, v, shape = gallery.poisson_2d(1024)
+    A = csr_from_arrays(ip, ix, v, shape, device="cuda")
+    M = make_preconditioner(A, "amg", executor=ex, cycle="v", theta=0.08)
+    out = []
+    for lvl, L in enumerate(M.levels):
+        order_np, _, _ = ops._transpose_structure(L.P)
+        order = torch.from_numpy(order_np.astype("int32")).cuda()
+        vals = L.P.values
+        nnz = order.numel()
+        bt = ex.launch_config("spgemm", {"nnz_a": nnz})["block_threads"]
+        blocks = (128, 256, 512, 1024) if lvl == 0 else (bt,)
+        times, kernel_us = {}, {}
+        for threads in blocks:
+            def kern(threads=threads):
+                return K.csr_permute(vals, order, block_threads=threads)
+
+            if not torch.equal(kern(), K.csr_permute_plain(vals, order)):
+                _disagree(f"csr_permute on level {lvl}'s P^T at {threads} "
+                          "threads differs from values[order]")
+            times[threads] = timer(kern)
+            kernel_us[threads] = _kernel_us(kern, dirty.zero_)
+        entry = {"level": lvl, "nnz": nnz, "spec_block_threads": bt,
+                 "ms": times[bt], "kernel_us": kernel_us[bt],
+                 "block_ms": times, "block_kernel_us": kernel_us,
+                 "plain_ms": timer(lambda: K.csr_permute_plain(vals, order)),
+                 "library_ms": timer(lambda: torch.index_select(vals, 0, order)),
+                 "library_kernel_us": _kernel_us(
+                     lambda: torch.index_select(vals, 0, order), dirty.zero_)}
+        entry.update(_bounds(nnz * (4 + 2 * vals.element_size()), copy_bw))
+        if lvl == 0:
+            entry.update(_clean_l2(dirty, lambda: K.csr_permute(
+                vals, order, block_threads=bt)))
+            entry["library_clean"] = _clean_l2(
+                dirty, lambda: torch.index_select(vals, 0, order))
+        print(f"[csr_permute] level {lvl} P^T, nnz = {nnz}: {entry['ms']:.4f} ms "
+              f"({entry['kernel_us']:.2f} us kernel) at {bt} threads; by block "
+              + ", ".join(f"{b}: {t:.4f} / {kernel_us[b]:.2f} us"
+                          for b, t in times.items())
+              + f"; plain {entry['plain_ms']:.4f}, torch.index_select "
+              f"{entry['library_ms']:.4f} ({entry['library_kernel_us']:.2f} us), "
+              f"bound {entry['bound_ms']:.4f}", flush=True)
+        if lvl == 0:
+            print(f"[csr_permute] level 0, clean L2: {entry['clean_ms']:.4f} ms "
+                  f"({entry['clean_kernel_us']:.2f} us kernel), warm "
+                  f"{entry['warm_ms']:.4f}; torch.index_select "
+                  + ", ".join(f"{key} {val:.4f}" for key, val
+                              in entry["library_clean"].items()), flush=True)
+        out.append(entry)
+    return out
+
+
+def probe_batch_loop(timer, copy_bw: float) -> dict:
+    """Device time by kernel a sweep of batched CG (see the docstring)."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import batch as tb
+    from repro_torch.core import make_executor
+    from repro_torch.launch.batch_solve import build_batch
+    from repro_torch.solvers import Stop
+
+    ex = make_executor("cuda")
+    A, B, _ = build_batch(16_384, 1_024, fmt="ell", device="cuda")
+    stop = Stop(max_iters=500, reduction_factor=1e-6)
+    tb.batch_cg(A, B, stop=stop, executor=ex)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = tb.batch_cg(A, B, stop=stop, executor=ex)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    sweeps = int(res.iterations.max())
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    out = {"sweeps": sweeps, "wall_us_per_sweep": wall_us / sweeps,
+           "device_us_per_sweep": busy / sweeps,
+           "kernels": [{"name": key[:120], "calls_per_sweep": count / sweeps,
+                        "us_per_sweep": dev / sweeps}
+                       for dev, count, key in rows]}
+    print(f"[batch_loop] batched CG, {sweeps} sweeps: "
+          f"{out['device_us_per_sweep']:.2f} us of device time a sweep, "
+          f"{out['wall_us_per_sweep']:.1f} us of wall", flush=True)
+    for row in out["kernels"][:8]:
+        print(f"[batch_loop]   {row['us_per_sweep']:9.3f} us/sweep "
+              f"{row['calls_per_sweep']:6.2f} calls/sweep  {row['name'][:90]}",
+              flush=True)
+    return out
+
+
 PROBES = {"rmsnorm": probe_rmsnorm, "spmv_ell": probe_spmv_ell,
           "spmv_dot_ell": probe_spmv_dot, "axpy_norm": probe_axpy_norm,
-          "axpy_l2": probe_axpy_l2, "loops": probe_loops}
+          "axpy_l2": probe_axpy_l2, "loops": probe_loops,
+          "spmv_batch_ell": probe_spmv_batch_ell,
+          "csr_permute": probe_csr_permute, "batch_loop": probe_batch_loop}
 DEFAULT = ("rmsnorm", "spmv_ell", "spmv_dot_ell", "axpy_norm")
 
 

@@ -5,7 +5,9 @@
   ``a_vals[:, None] * b_pad[idx]`` of shape (T, K); ``idx`` is +1-shifted
   into ``b_pad``, whose slot 0 holds 0, so padding slots give exactly 0.
 * ``csr_permute(values, order)`` — ``values[order]``, the value shuffle of a
-  sparse transpose.
+  sparse transpose (16-byte packs where ``order`` and the output line up,
+  a scalar head and tail around them; the kernel decides from the
+  pointers).
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 ``.launches``; for CPU tensors it returns the plain version.  There is no
@@ -94,6 +96,7 @@ def csr_permute(values: torch.Tensor, order: torch.Tensor, *,
         return csr_permute_plain(values, order)
     _check_threads(name, block_threads)
     nnz = order.shape[0]
+    require(nnz < 2**31, name, f"nnz {nnz} must be below 2^31")
     out = torch.empty(nnz, dtype=values.dtype, device=values.device)
     if nnz:
         fn = _build.function(_PERMUTE[values.dtype], _PERMUTE_ARGS)

@@ -8,7 +8,9 @@ expansion products, ``csr_permute`` for the transpose's value shuffle.  The
 registration is unconditional and nothing falls back to another space (the
 TPU binding fell back to XLA when its working set missed VMEM; these kernels
 keep no tile in shared memory, so nothing can miss).  Threads per block come
-from the ``spgemm`` tuning spec, one spec for both kernels.
+from the ``spgemm`` tuning spec, one spec for both kernels (``csr_permute``
+sizes its grid itself, one wave, and ran level 0's transpose within 3 % at
+128 to 1,024 threads a block on the H100).
 """
 
 from __future__ import annotations

@@ -4,6 +4,11 @@ PyTorch version.
 ``spmv_batch_ell`` launches the kernel for CUDA tensors and counts the
 launch in ``spmv_batch_ell.launches``; for CPU tensors it returns the plain
 version.  There is no fallback from a failed build or launch.
+
+The kernel has two routes, chosen by ``subgroup``: 1 is the narrow route
+(one thread a row of several systems, k at most ROWS_WALK_MAX_K); a power
+of two from 2 to 32 is the wide route, that many lanes a row, each lane
+holding one 16-byte pack of a row (a warp a row: up to WIDE_PACKS).
 """
 
 from __future__ import annotations
@@ -14,15 +19,24 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._check import on_cuda, require
-from repro_torch.kernels.spmv_ell.kernel import check_geometry
+from repro_torch.kernels.spmv_ell.kernel import (ROWS_WALK_MAX_K,
+                                                ROWS_WALK_THREADS,
+                                                check_geometry)
 
-__all__ = ["spmv_batch_ell", "spmv_batch_ell_plain"]
+__all__ = ["spmv_batch_ell", "spmv_batch_ell_plain", "vector_loads",
+           "wide_lanes", "WIDE_PACKS", "WIDE_THREADS"]
 
 _P = ctypes.c_void_p
 _ENTRY = {torch.float32: "repro_spmv_batch_ell_f32",
           torch.float64: "repro_spmv_batch_ell_f64"}
 _ARGS = (_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P)
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)
+
+#: bytes a load of the kernels moves, and the wide route's pack slots a
+#: thread (kWidePacks) and most threads a block (kWideThreads)
+PACK_BYTES = 16
+WIDE_PACKS = 4
+WIDE_THREADS = 256
 
 
 def spmv_batch_ell_plain(col_idx: torch.Tensor, values: torch.Tensor,
@@ -31,11 +45,33 @@ def spmv_batch_ell_plain(col_idx: torch.Tensor, values: torch.Tensor,
     return (values * x[:, col_idx]).sum(dim=2)
 
 
+def _packs(k: int, itemsize: int) -> int:
+    """16-byte packs of one row of k values."""
+    return -(-k // (PACK_BYTES // itemsize))
+
+
+def wide_lanes(k: int, itemsize: int) -> int:
+    """Lanes a row of the wide route: the power of two covering the row's
+    16-byte packs, at most a warp."""
+    n = _packs(k, itemsize)
+    return min(32, 1 if n <= 1 else 1 << (n - 1).bit_length())
+
+
+def vector_loads(values: torch.Tensor) -> bool:
+    """Whether the wide route may load ``values`` in 16-byte packs: its base
+    16-byte aligned and each row of k values a whole number of packs, so
+    every row starts aligned.  Otherwise it takes single entries.  (The
+    narrow route always loads single entries.)"""
+    return (values.data_ptr() % PACK_BYTES == 0
+            and values.shape[-1] * values.element_size() % PACK_BYTES == 0)
+
+
 def spmv_batch_ell(col_idx: torch.Tensor, values: torch.Tensor,
                    x: torch.Tensor, *, block_threads: int = 256,
                    subgroup: int = 1) -> torch.Tensor:
     """Y = A X for ``(m, k)`` shared ``col_idx``, ``(nb, m, k)`` values and
-    ``(nb, n)`` X; returns ``(nb, m)``."""
+    ``(nb, n)`` X; returns ``(nb, m)``.  ``subgroup`` picks the route (see
+    the module docstring)."""
     name = "spmv_batch_ell"
     require(values.dtype in _ENTRY, name, f"values dtype {values.dtype} "
             f"not in {sorted(map(str, _ENTRY))}")
@@ -52,12 +88,29 @@ def spmv_batch_ell(col_idx: torch.Tensor, values: torch.Tensor,
         return spmv_batch_ell_plain(col_idx, values, x)
     check_geometry(name, block_threads, subgroup)
     nb, m, k = values.shape
+    n = x.shape[1]
+    require(m * k < 2**31 and n < 2**31, name,
+            f"a system's m k = {m * k} and n = {n} must be below 2^31")
+    if subgroup == 1:
+        require(k <= ROWS_WALK_MAX_K and block_threads <= ROWS_WALK_THREADS,
+                name, f"the narrow route (subgroup 1) takes k <= "
+                f"{ROWS_WALK_MAX_K} and at most {ROWS_WALK_THREADS} threads a "
+                f"block, got k = {k}, {block_threads} threads")
+    else:
+        lane_packs = -(-_packs(k, values.element_size()) // subgroup)
+        require((lane_packs == 1 or subgroup == 32 and lane_packs <= WIDE_PACKS)
+                and block_threads <= WIDE_THREADS, name,
+                f"the wide route takes one 16-byte pack of a row a lane (up "
+                f"to {WIDE_PACKS} with 32 lanes) and {WIDE_THREADS} threads a "
+                f"block, got {lane_packs} at k = {k} with {subgroup} lanes, "
+                f"{block_threads} threads")
     y = torch.empty((nb, m), dtype=values.dtype, device=values.device)
     if nb * m:
         fn = _build.function(_ENTRY[values.dtype], _ARGS)
         _build.check(name, fn(
             col_idx.data_ptr(), values.data_ptr(), x.data_ptr(), y.data_ptr(),
-            nb, m, k, x.shape[1], block_threads, subgroup, _build.stream_of(x)))
+            nb, m, k, n, block_threads, subgroup,
+            int(subgroup > 1 and vector_loads(values)), _build.stream_of(x)))
         spmv_batch_ell.launches += 1
     return y
 

@@ -17,6 +17,7 @@ import functools
 import importlib
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -166,6 +167,86 @@ def test_spmv_batch_ell_matches_pallas(nb, m, k, n):
     for space in ("reference", "torch"):
         y = BO.apply_batch(A, torch.from_numpy(x), executor=make_executor(space))
         np.testing.assert_allclose(_np(y), want, rtol=RTOL, atol=RTOL * scale)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("nb,m,k,n", [(3, 37, 37, 37), (2, 24, 24, 30)])
+def test_spmv_batch_ell_wide_matches_pallas(nb, m, k, n, dtype):
+    """The wide rows the kernel's wide route takes (k > 16: a ragged k = 37
+    past a warp of packs, and the middle band's k = 24), in f32 and f64."""
+    cols, vals, x = _batch_ell_arrays(nb, m, k, n, seed=m * k)
+    vals, x = vals.astype(dtype), x.astype(dtype)
+    with jax.enable_x64(dtype == np.float64):
+        want = np.asarray(jax_spmv_batch_ell(
+            jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(x), block_m=16,
+            block_k=16, interpret=True))
+    assert want.dtype == dtype
+    got = K.spmv_batch_ell(torch.from_numpy(cols), torch.from_numpy(vals),
+                           torch.from_numpy(x))
+    assert got.dtype == torch.from_numpy(vals).dtype and got.shape == (nb, m)
+    eps = np.finfo(dtype).eps
+    scale = float(np.abs(vals).sum(axis=2).max() * np.abs(x).max())
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=8 * k * eps * scale)
+
+
+def test_spmv_batch_ell_dense_nonsym_matches_pallas():
+    """BiCGSTAB's dense nonsymmetric systems (``build_batch(..., nonsym=True)``,
+    n = 64, so k = 64: the wide route's path shape), the port's BatchEll
+    against the JAX package's."""
+    Aj, _, At, _, _ = _problem("ell", nonsym=True, nb=4, n=64)
+    assert tuple(At.values.shape) == (4, 64, 64)
+    np.testing.assert_array_equal(_np(At.col_idx), np.asarray(Aj.col_idx))
+    np.testing.assert_array_equal(_np(At.values), np.asarray(Aj.values))
+    x = np.random.default_rng(64).standard_normal((4, 64)).astype(np.float32)
+    want = np.asarray(jax_spmv_batch_ell(Aj.col_idx, Aj.values, jnp.asarray(x),
+                                         block_m=32, block_k=32, interpret=True))
+    got = K.spmv_batch_ell(At.col_idx, At.values, torch.from_numpy(x))
+    scale = float(np.abs(np.asarray(Aj.values)).sum(axis=2).max() * np.abs(x).max())
+    np.testing.assert_allclose(_np(got), want, rtol=0,
+                               atol=8 * 64 * np.finfo(np.float32).eps * scale)
+
+
+def test_spmv_batch_ell_routes_for_h100():
+    """At the H100 seed the route follows the row length and the type, never
+    the batch size: the CG runs' tridiagonal k = 3 takes the narrow route
+    (one thread a row), BiCGSTAB's dense k = 64 the wide route with a
+    subgroup covering a row's 16-byte packs (16 lanes in f32, 32 in f64),
+    the middle band 16 < k <= 32 the wide route too; each fits the block's
+    shared memory."""
+    from repro_torch.core.params import H100
+
+    ex = make_executor("h100")
+    for (m, k, n, size), want in (((1024, 3, 1024, 4), 1), ((64, 64, 64, 4), 16),
+                                  ((64, 64, 64, 8), 32), ((50, 24, 50, 4), 8),
+                                  ((50, 16, 50, 4), 1), ((61, 61, 61, 4), 16),
+                                  ((300, 200, 300, 4), 32)):
+        got = set()
+        for nb in (1, 7, 1024, 16384, 10**6):
+            cfg = ex.launch_config("spmv_batch_ell", {
+                "nb": nb, "m": m, "k": k, "n": n, "itemsize": size})
+            assert cfg.smem_bytes <= H100.smem_per_block_bytes
+            got.add((cfg["block_threads"], cfg["subgroup"]))
+        assert got == {(256, want)}, (m, k, size, got)
+
+
+def test_spmv_batch_ell_vector_loads():
+    """The host decides each call's loads on the wide route: 16-byte packs
+    where the values' base is 16-byte aligned and every row is a whole
+    number of packs (so every row starts aligned), single entries else."""
+    from repro_torch.kernels.spmv_batch_ell.kernel import vector_loads
+
+    def values(nb, m, k, dtype=torch.float32):
+        return torch.zeros(nb + 1, m, k, dtype=dtype)
+
+    vals = values(2, 64, 64)
+    assert vals.data_ptr() % 16 == 0
+    assert vector_loads(vals) and vector_loads(vals[1:])
+    # the same shape 4 bytes past a 16-byte boundary
+    assert vector_loads(vals.reshape(-1)[1:-4095].view(2, 64, 64)) is False
+    assert vector_loads(values(7, 61, 61)) is False  # 244-byte rows
+    assert vector_loads(values(5, 50, 24))  # 96-byte rows
+    assert vector_loads(values(2, 64, 62, torch.float64))  # 496-byte rows
+    assert vector_loads(values(2, 64, 61, torch.float64)) is False
 
 
 @pytest.mark.parametrize("alpha_kind", ["rows", "scalar"])

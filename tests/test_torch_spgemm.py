@@ -17,6 +17,7 @@
   instead of falling back.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,6 +107,24 @@ def test_csr_permute_plain_matches_pallas_bitwise(nnz):
     got = K.csr_permute(torch.from_numpy(values), torch.from_numpy(order))
     assert K.csr_permute.launches == before
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("nnz", [41, 43, 1001, 1003])
+def test_csr_permute_ragged_and_f64_match_pallas(nnz, dtype):
+    """Counts of 4 k + 1 and 4 k + 3 (the kernel's scalar tail after its
+    packs of 4) in f32 and f64, and an order offset by one entry (the
+    kernel's scalar route): bitwise against the Pallas kernel."""
+    rng = np.random.default_rng(nnz)
+    values = rng.standard_normal(nnz + 1).astype(dtype)
+    order = rng.permutation(nnz + 1).astype(np.int32)
+    with jax.enable_x64(dtype == np.float64):
+        want = np.asarray(jax_csr_permute(jnp.asarray(values),
+                                          jnp.asarray(order[1:]), block_t=64,
+                                          interpret=True))
+    assert want.dtype == dtype and want.shape == (nnz,)
+    got = K.csr_permute(torch.from_numpy(values), torch.from_numpy(order)[1:])
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_kernel_wrappers_check_arguments():
