@@ -27,8 +27,15 @@ Phases, each of which exits non-zero on failure:
 4. path   — solves poisson_3d(128) (2,097,152 rows, ELL k = 7, f32) with
             block-Jacobi CG through the CUDA executor, checks convergence, the
             true residual and every kernel's launch count, and repeats the
-            solve in the torch space on the card for comparison; a small solve
-            is also held against the reference space on the CPU;
+            solve in the torch space on the card for comparison; then (4b)
+            pipelined CG on the same system in f64 (f64 block-Jacobi 8;
+            in f32 its recurrences stagnate above 1e-6 at this size):
+            convergence, the true residual, iterations within 2 of classic
+            CG's on the same f64 system, the launches exactly (k + 2
+            spmv_ell, k + 1 preconditioner applies), a repeat bit for bit,
+            the torch space, device us an iteration of both loops; and
+            (4c) FCG in f32 alike; a small solve is also held against the
+            reference space on the CPU;
 5. amg    — runs ``repro_torch.launch.amg_check`` on poisson_2d(1024)
             (1,048,576 rows, CSR, f32) through the CUDA executor: the
             smoothed-aggregation hierarchy (SpGEMM and transpose kernels), AMG-CG
@@ -69,8 +76,9 @@ Phases, each of which exits non-zero on failure:
             its launches by shape; the CG operator also on the wide route;
             then, untimed, a ragged wide shape and an offset values view
             whose rows are not 16-byte aligned, the middle band k = 24 on
-            both routes, a ragged narrow shape, f64 at both path shapes and
-            the wide route below and above one wave; each within 8 k eps
+            both routes, a ragged narrow shape, f64 at both path shapes,
+            the wide route below and above one wave, and the long walk at
+            k = 600 (f32), 300 (f64) and a ragged 601; each within 8 k eps
             and repeated bit for bit), row-batched
             axpy_norm (at the CG runs' rows, one block each, and at
             256 x 1,024, rows cut into pieces) and block_jacobi_apply held
@@ -123,11 +131,31 @@ Phases, each of which exits non-zero on failure:
             path's shape (timed), a strong decay, a ragged tail, a tail of
             3 rows (shorter than one sub-chunk of 8) and f32.
 
+10. krylov — at sizes users solve, through the CUDA executor, each solve
+            counted from 0 (launches exactly), with the true residual and
+            the torch space on the card: on convection_diffusion_2d(1024,
+            Pe 5, upwind) as ELL (1,048,576 rows, k = 5, f32) with
+            block-Jacobi 8, fused BiCGSTAB (spmv_dot_ell twice an iteration,
+            with w = r-hat and w = s, axpy_norm once) and CGS (in f64 with
+            f64 blocks: in f32 it diverges on this system), each converged
+            within Stop(3000, 1e-6) to a true residual of NONSYM_TRUE_TOL
+            and repeated bit for bit;
+            GMRES(30) for at most 40 restart cycles (the residual falling
+            cycle by cycle, the torch space's within 1e-3 at the same cycle
+            count, device and wall ms a cycle); ParILU-preconditioned
+            BiCGSTAB (host setup time, iterations beside block-Jacobi's, a
+            repeat bit for bit); then mixed-precision IR on
+            poisson_3d(128) in f64 as ELL, an f32 inner CgSolver with
+            block-Jacobi under Stop(100, 1e-12): the f64 true residual below
+            1e-9 and a tenth of a pure-f32 CG's, spmv_ell's f64 and f32
+            launches counted apart.
+
 It then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
-sum over the six paths' counted runs (phases 4 to 9; phase 7 counts its
-four solves, phases 8 and 9 the serve call), each run counted from 0;
-``launches_by_path`` gives each, and
+sum over the paths' counted runs (phases 4 to 10: block-Jacobi, pipelined
+and flexible CG; the AMG check; SELL-P CG; the four batched solves; the two
+serve calls; BiCGSTAB, CGS, GMRES, ParILU-BiCGSTAB and mixed-precision IR),
+each run counted from 0; ``launches_by_path`` gives each, and
 block_jacobi_apply's storage variants carry the same per storage dtype.
 ``max_abs_err`` is the larger over the shapes the kernel was held at;
 ``at_amg_path_shape`` / ``at_batch_path_shape`` hold the times at those
@@ -176,6 +204,28 @@ SELLP_SEED = 4
 #: the batched path: batch_solve's CG runs and its BiCGSTAB run
 BATCH_ARGS = ["--batch", "16384", "--n", "1024"]
 BATCH_BICGSTAB_ARGS = ["--batch", "1024", "--n", "64", "--solver", "bicgstab"]
+#: phase 4b: pipelined CG runs phase 4's system in f64 with 8-row f64
+#: block-Jacobi (the kernel takes f64 blocks only with f64 vectors).  In f32
+#: its recurrences stagnate near 1e-5 at this size, where the recursive
+#: residual drifts from the true one: the JAX package's own tests hold it
+#: only to an f32-attainable 1e-6 on 80 rows and leave tighter stops to f64
+PIPE_OPTS = {"block_size": 8}
+#: phase 10: the nonsymmetric system convection_diffusion_2d(1024, Pe 5,
+#: upwind) as ELL (1,048,576 rows, k = 5, f32); GMRES(30) runs at most
+#: KRYLOV_GMRES_CYCLES restart cycles
+KRYLOV_N_SIDE = 1024
+KRYLOV_CONVDIFF = {"peclet": 5.0, "scheme": "upwind"}
+KRYLOV_RESTART = 30
+KRYLOV_GMRES_CYCLES = 40
+#: true relative residual (f64 plain SpMV) the f32 BiCGSTAB / CGS solves of
+#: phase 10 must reach when their recursive residual meets Stop(3000,
+#: 1e-6): over ~700 iterations the two drift apart (block-Jacobi BiCGSTAB
+#: ends at 1.8e-4 on an H100), so 1e-4 is out of f32's reach here
+NONSYM_TRUE_TOL = 1e-3
+#: mixed-precision IR on poisson_3d(N_SIDE) in f64; the pure-f32 CG it is
+#: held against runs this many iterations (it stagnates long before)
+IR_STOP = dict(max_iters=100, reduction_factor=1e-12)
+IR_F32_ITERS = 1000
 #: the serving path: Zamba2-2.7B at full width and depth (54 Mamba2 layers,
 #: bf16), 8 prompts of 2,048 tokens, 64 greedy tokens each
 LM_ARCH = "zamba2-2.7b"
@@ -623,7 +673,9 @@ def batch_ell_cases(torch, ex, gen) -> list:
     path's two shapes: a ragged wide shape whose rows are not 16-byte aligned
     and an offset values view (both single-entry loads), the middle band
     k = 24 on both routes, a ragged narrow shape, f64 at both path shapes,
-    and the wide route at a batch below and above one wave of blocks.
+    the wide route at a batch below and above one wave of blocks, and rows
+    longer than the tile kernel takes (k = 600 in f32, 300 in f64, and a
+    ragged 601: the long walk).
     Returns one record a case."""
     def arrays(nb, m, k, n, dtype, offset=0):
         cols = torch.randint(0, n, (m, k), generator=gen, device="cuda",
@@ -648,7 +700,11 @@ def batch_ell_cases(torch, ex, gen) -> list:
              ("f64 at the CG runs' shape", (16384, 1024, 3, 1024, f64), None),
              ("f64 at BiCGSTAB's shape", (1024, 64, 64, 64, f64), None),
              ("wide, below one wave", (3, 64, 64, 64, f32), None),
-             ("wide, above one wave", (5000, 64, 64, 64, f32), None)]
+             ("wide, above one wave", (5000, 64, 64, 64, f32), None),
+             # rows past the tile kernel's 32 x 4 packs: the long walk
+             ("long rows, f32 k = 600", (8, 96, 600, 700, f32), None),
+             ("long rows, f64 k = 300", (8, 96, 300, 400, f64), None),
+             ("long rows, ragged f32 k = 601", (5, 33, 601, 650, f32), None)]
     out = []
     for label, shape, subgroup in cases:
         cols, vals, X = arrays(*shape)
@@ -891,9 +947,7 @@ def phase_path(torch, A, b):
     # true residual with the plain SpMV in f64.  f32 CG stops on its
     # recursive residual; the true one drifts from it by about
     # eps32 * ||A|| ||x|| per step, so f32 cannot promise much below 1e-5.
-    xd = x.double()
-    ax = K.spmv_ell_plain(A.col_idx, A.values.double(), xd)
-    rel = float((b.double() - ax).norm() / b.double().norm())
+    rel = true_residual(torch, A, x, b)
     say(f"[path] true relative residual {rel:.4e}")
     if not rel <= 1e-4:
         fail(f"true relative residual {rel} > 1e-4")
@@ -933,22 +987,24 @@ def phase_path(torch, A, b):
 
 
 def phase_profile(torch, A, b, P, ex, iters: int = 50,
-                  tag: str = "profile", named: str = None) -> dict:
+                  tag: str = "profile", named: str = None,
+                  pipeline: bool = False) -> dict:
     """Device time by kernel over ``iters`` CG iterations preconditioned by
-    ``P`` (torch.profiler), and the device's busy share of the window's wall
-    time; with ``named``, also the device time of every kernel whose name
-    holds it (``named_us``)."""
+    ``P`` (torch.profiler; pipelined CG with ``pipeline``), and the device's
+    busy share of the window's wall time; with ``named``, also the device
+    time of every kernel whose name holds it (``named_us``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.solvers import Stop, cg
 
     stop = Stop(max_iters=iters, reduction_factor=1e-30)  # runs all iters
-    cg(A, b, M=P, stop=stop, executor=ex, strict=False)  # warm
+    cg(A, b, M=P, stop=stop, executor=ex, strict=False,
+       pipeline=pipeline)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        cg(A, b, M=P, stop=stop, executor=ex, strict=False)
+        cg(A, b, M=P, stop=stop, executor=ex, strict=False, pipeline=pipeline)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, copies): a PyTorch operator's CPU
@@ -964,11 +1020,367 @@ def phase_profile(torch, A, b, P, ex, iters: int = 50,
     for dev, count, key in rows[:16]:
         say(f"[{tag}]   {dev / iters:9.2f} us/iter  {count:6d} calls  {key[:90]}")
     out = {"iterations": iters, "wall_us": wall_us, "device_busy_us": busy,
+           "busy_share": busy / wall_us,
            "top": [{"name": key[:120], "calls": count, "us": dev}
                    for dev, count, key in rows[:16]]}
     if named:
         out["named_us"] = sum(dev for dev, _, key in rows if named in key)
     return out
+
+
+# -- counted runs of the solver phases (4b, 4c, 10) ------------------------------------
+
+
+def counted(torch, run):
+    """``run()`` with every kernel's launch count set to 0 just before it and
+    read just after: ``(result, wall s, launches, block_jacobi_apply by
+    storage, spmv_ell by value type)``."""
+    from repro_torch import kernels as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (out, wall, K.launch_counts(),
+            dict(K.block_jacobi_apply.launches_by_storage),
+            dict(K.spmv_ell.launches_by_dtype))
+
+
+def expect_launches(where: str, launches: dict, want: dict) -> None:
+    """Fails unless each kernel in ``want`` was launched exactly that many
+    times (at least once) and every other kernel not at all."""
+    for name, got in launches.items():
+        need = want.get(name, 0)
+        if got != need or (name in want and need <= 0):
+            fail(f"{where}: {name} launched {got} times, expected {need}")
+    say(f"[{where}] kernel launches as expected: "
+        f"{ {n: c for n, c in launches.items() if c} }")
+
+
+def true_residual(torch, A, x, b) -> float:
+    """||b - A x|| / ||b|| in f64 with the plain ELL SpMV."""
+    from repro_torch import kernels as K
+
+    ax = K.spmv_ell_plain(A.col_idx, A.values.double(), x.double())
+    return float((b.double() - ax).norm() / b.double().norm())
+
+
+def phase_pipelined(torch, host, b32, k_f32: int, us_f32: float):
+    """Phase 4b: pipelined CG on phase 4's system in f64 (block-Jacobi 8,
+    f64 blocks) through the cuda executor, beside classic CG on the same
+    f64 system: convergence, the true residual, iterations within 2 of
+    classic CG's (the JAX package's own allowance), the launches exactly
+    (before the loop two SpMVs, A x and A u, and one preconditioner apply;
+    an iteration one of each), a repeat bit for bit, the torch space on the
+    card, and device us an iteration of both loops.  In f32 the pipelined
+    recurrences cannot reach Stop(3000, 1e-6) at this size (see PIPE_OPTS)."""
+    import numpy as np
+
+    from repro_torch.core import make_executor
+    from repro_torch.precond import block_jacobi
+    from repro_torch.solvers import Stop, cg
+    from repro_torch.sparse import ell_from_csr_host
+
+    ip, ix, v, shape = host
+    A = ell_from_csr_host(ip, ix, v.astype(np.float64), shape, device="cuda")
+    b = b32.double()
+    stop = Stop(**STOP_KW)
+    ex = make_executor("cuda")
+    P = block_jacobi(A, PIPE_OPTS["block_size"], executor=ex)
+    classes = len(P.inv_blocks)
+    classic = cg(A, b, M=P, stop=stop, executor=ex, strict=False)
+    k_classic = classic.iterations
+    res, t_total, launches, by_storage, _ = counted(torch, lambda: cg(
+        A, b, M="block_jacobi", precond_opts=PIPE_OPTS, stop=stop,
+        executor=ex, pipeline=True))
+    k = res.iterations
+    rel = true_residual(torch, A, res.x, b)
+    rel_c = true_residual(torch, A, classic.x, b)
+    say(f"[pipelined] f64: iterations {k} (classic CG {k_classic}; f32 "
+        f"classic {k_f32}), converged {res.converged}, true relative residual "
+        f"{rel:.4e} (classic {rel_c:.4e}), time to solution {t_total:.4f} s "
+        "(setup and symmetry probe included)")
+    if not res.converged or not bool(torch.isfinite(res.x).all()):
+        fail("pipelined CG did not converge")
+    if not rel <= 1e-4:
+        fail(f"pipelined CG: true relative residual {rel} > 1e-4")
+    if abs(k - k_classic) > 2:
+        fail(f"pipelined CG took {k} iterations, classic CG {k_classic}")
+    expect_launches("pipelined", launches, {
+        "spmv_ell": k + 2, "block_jacobi_apply": (k + 1) * classes})
+    again, t_loop, *_ = counted(torch, lambda: cg(
+        A, b, M=P, stop=stop, executor=ex, strict=False, pipeline=True))
+    if again.iterations != k or not bool(torch.equal(again.x, res.x)):
+        fail("a repeated pipelined CG solve differs")
+    ex_t = make_executor("torch", device="cuda")
+    res_t, t_torch, *_ = counted(torch, lambda: cg(
+        A, b, M=P, stop=stop, executor=ex_t, strict=False, pipeline=True))
+    dx = float((res_t.x - res.x).norm() / res_t.x.norm())
+    say(f"[pipelined] repeat bit for bit; loop {t_loop:.4f} s = "
+        f"{t_loop / k * 1e3:.4f} ms an iteration; torch space: "
+        f"{res_t.iterations} iterations, {t_torch:.4f} s, solutions differ "
+        f"by {dx:.3e}")
+    if abs(res_t.iterations - k) > 2 or not dx <= 1e-3:
+        fail("pipelined CG: the torch space disagrees with the cuda space")
+    profile = phase_profile(torch, A, b, P, ex, tag="profile pipelined",
+                            pipeline=True)
+    profile_c = phase_profile(torch, A, b, P, ex, tag="profile classic f64")
+    say(f"[pipelined] device us an iteration: pipelined f64 "
+        f"{profile['device_busy_us'] / profile['iterations']:.1f}, classic "
+        f"f64 {profile_c['device_busy_us'] / profile_c['iterations']:.1f}, "
+        f"classic f32 (phase 4) {us_f32:.1f}")
+    return launches, by_storage, {
+        "dtype": "float64", "iterations": k, "classic_iterations": k_classic,
+        "true_relative_residual": rel, "classic_true_relative_residual": rel_c,
+        "time_to_solution_s": t_total, "loop_s": t_loop,
+        "ms_per_iteration": t_loop / k * 1e3,
+        "torch_space_iterations": res_t.iterations,
+        "torch_space_loop_s": t_torch, "profile": profile,
+        "classic_profile": profile_c}
+
+
+def phase_fcg(torch, A, b):
+    """Phase 4c: FCG on phase 4's system (block-Jacobi 8, adaptive) through
+    the cuda executor: convergence, the true residual, the launches exactly
+    (one SpMV before the loop and one an iteration; one preconditioner
+    apply before the loop and one an iteration) and the torch space."""
+    from repro_torch.core import make_executor
+    from repro_torch.precond import block_jacobi
+    from repro_torch.solvers import Stop, fcg
+
+    ex = make_executor("cuda")
+    P = block_jacobi(A, PRECOND_OPTS["block_size"],
+                     adaptive=PRECOND_OPTS["adaptive"], executor=ex)
+    classes = len(P.inv_blocks)
+    stop = Stop(**STOP_KW)
+    res, wall, launches, by_storage, _ = counted(torch, lambda: fcg(
+        A, b, M=P, stop=stop, executor=ex))
+    k = res.iterations
+    rel = true_residual(torch, A, res.x, b)
+    say(f"[fcg] iterations {k}, converged {res.converged}, true relative "
+        f"residual {rel:.4e}, {wall:.4f} s ({wall / k * 1e3:.4f} ms an "
+        "iteration, symmetry probe included)")
+    if not res.converged or not rel <= 1e-4:
+        fail("FCG did not converge to a true residual of 1e-4")
+    expect_launches("fcg", launches, {
+        "spmv_ell": k + 1, "block_jacobi_apply": (k + 1) * classes})
+    res_t = fcg(A, b, M=P, stop=stop, executor=make_executor("torch",
+                                                             device="cuda"))
+    dx = float((res_t.x - res.x).norm() / res_t.x.norm())
+    say(f"[fcg] torch space: {res_t.iterations} iterations; solutions differ "
+        f"by {dx:.3e}")
+    if abs(res_t.iterations - k) > 2 or not dx <= 1e-3:
+        fail("FCG: the torch space disagrees with the cuda space")
+    return launches, by_storage, {"iterations": k, "true_relative_residual": rel,
+                                  "wall_s": wall,
+                                  "torch_space_iterations": res_t.iterations}
+
+
+def _nonsym_solve(torch, tag, A, b, run, run_torch, want, iter_rel):
+    """One counted solve of phase 10 in the cuda space: converged, a true
+    residual of at most NONSYM_TRUE_TOL, the launches ``want(k)`` exactly, a
+    repeat bit for bit; then the torch space on the card: converged,
+    iterations within ``iter_rel`` of the cuda space's, x within 1e-3
+    (relative)."""
+    res, wall, launches, by_storage, _ = counted(torch, run)
+    k = res.iterations
+    rel = true_residual(torch, A, res.x, b)
+    say(f"[krylov] {tag}: iterations {k}, converged {res.converged}, true "
+        f"relative residual {rel:.4e}, {wall:.4f} s = {wall / k * 1e3:.4f} ms "
+        "an iteration")
+    if (not res.converged or not rel <= NONSYM_TRUE_TOL
+            or not bool(torch.isfinite(res.x).all())):
+        fail(f"{tag} did not converge to a true residual of {NONSYM_TRUE_TOL}")
+    expect_launches(f"krylov {tag}", launches, want(k))
+    again = run()
+    if again.iterations != k or not bool(torch.equal(again.x, res.x)):
+        fail(f"{tag}: a repeated solve differs")
+    res_t, wall_t, *_ = counted(torch, run_torch)
+    dx = float((res_t.x - res.x).norm() / res.x.norm())
+    rel_t = true_residual(torch, A, res_t.x, b)
+    say(f"[krylov] {tag}: repeat bit for bit; torch space {res_t.iterations} "
+        f"iterations, {wall_t:.4f} s, true relative residual {rel_t:.4e}; "
+        f"solutions differ by {dx:.3e}")
+    if (not res_t.converged or abs(res_t.iterations - k) > iter_rel * k
+            or not dx <= 1e-3):
+        fail(f"{tag}: the torch space disagrees with the cuda space")
+    return launches, by_storage, {
+        "iterations": k, "true_relative_residual": rel, "wall_s": wall,
+        "ms_per_iteration": wall / k * 1e3,
+        "torch_space_iterations": res_t.iterations, "torch_space_wall_s": wall_t,
+        "torch_space_true_relative_residual": rel_t, "relative_difference": dx}
+
+
+def phase_krylov(torch):
+    """Phase 10: the nonsymmetric solvers, ParILU and mixed-precision IR at
+    sizes users solve (see the module docstring)."""
+    import numpy as np
+
+    from repro_torch.core import make_executor
+    from repro_torch.precond import block_jacobi
+    from repro_torch.solvers import (CgSolver, Stop, bicgstab, cg, cgs, gmres,
+                                     mixed_precision_ir, parilu_preconditioner)
+    from repro_torch.sparse import csr_from_arrays, ell_from_csr_host, gallery
+
+    ex = make_executor("cuda")
+    ex_t = make_executor("torch", device="cuda")
+    paths, out = {}, {}
+    t0 = time.perf_counter()
+    host = gallery.convection_diffusion_2d(KRYLOV_N_SIDE, **KRYLOV_CONVDIFF)
+    A = ell_from_csr_host(*host, device="cuda")
+    n = A.shape[0]
+    b = torch.from_numpy(np.random.default_rng(SEED).standard_normal(n)
+                         .astype(np.float32)).cuda()
+    P = block_jacobi(A, PRECOND_OPTS["block_size"],
+                     adaptive=PRECOND_OPTS["adaptive"], executor=ex)
+    torch.cuda.synchronize()
+    classes = len(P.inv_blocks)
+    say(f"[krylov] convection_diffusion_2d({KRYLOV_N_SIDE}, {KRYLOV_CONVDIFF}): "
+        f"{n} rows, ELL k = {A.max_nnz}, f32; block-Jacobi "
+        f"{P.precision_counts}; setup {time.perf_counter() - t0:.2f} s")
+    stop = Stop(**STOP_KW)
+
+    # fused BiCGSTAB: spmv_dot_ell with w = r-hat and w = s, axpy_norm last
+    paths["bicgstab"] = _nonsym_solve(
+        torch, "BiCGSTAB (fused)", A, b,
+        lambda: bicgstab(A, b, M=P, stop=stop, executor=ex),
+        lambda: bicgstab(A, b, M=P, stop=stop, executor=ex_t),
+        lambda k: {"spmv_ell": 1, "spmv_dot_ell": 2 * k, "axpy_norm": k,
+                   "block_jacobi_apply": 2 * k * classes}, 0.25)
+    out["bicgstab"] = paths["bicgstab"][2]
+
+    # CGS in f64, with f64 block-Jacobi 8: in f32 its squared residual
+    # polynomial overflows on this system in both spaces, with block-Jacobi
+    # or ParILU (PERF.md §6; launch/precision_probe.py)
+    A64 = ell_from_csr_host(host[0], host[1], host[2].astype(np.float64),
+                            host[3], device="cuda")
+    b64 = b.double()
+    P64 = block_jacobi(A64, PRECOND_OPTS["block_size"], executor=ex)
+    classes64 = len(P64.inv_blocks)
+    paths["cgs"] = _nonsym_solve(
+        torch, "CGS (f64)", A64, b64,
+        lambda: cgs(A64, b64, M=P64, stop=stop, executor=ex),
+        lambda: cgs(A64, b64, M=P64, stop=stop, executor=ex_t),
+        lambda k: {"spmv_ell": 1 + 2 * k,
+                   "block_jacobi_apply": 2 * k * classes64}, 0.25)
+    out["cgs"] = paths["cgs"][2]
+    del A64, b64, P64
+
+    # GMRES(30): each cycle one SpMV for its residual, m in the Arnoldi
+    # steps and one for the new residual, m + 1 preconditioner applies;
+    # one SpMV before the first cycle
+    m = KRYLOV_RESTART
+    gstop = Stop(max_iters=KRYLOV_GMRES_CYCLES * m, reduction_factor=1e-6)
+    res, wall, launches, by_storage, _ = counted(torch, lambda: gmres(
+        A, b, restart=m, M=P, stop=gstop, executor=ex, history=True))
+    cycles = res.iterations // m
+    expect_launches("krylov GMRES", launches, {
+        "spmv_ell": 1 + cycles * (m + 2),
+        "block_jacobi_apply": cycles * (m + 1) * classes})
+    hist = res.history[:cycles].double()
+    rel = true_residual(torch, A, res.x, b)
+    res_t, wall_t, *_ = counted(torch, lambda: gmres(
+        A, b, restart=m, M=P, stop=gstop, executor=ex_t, history=True))
+    hist_t = res_t.history[:cycles].double()
+    d_res = float((hist - hist_t).abs().max() / hist_t.abs().max())
+    prof = _device_profile(torch, lambda: gmres(
+        A, b, restart=m, M=P, stop=Stop(2 * m, 1e-30), executor=ex),
+        "GMRES(30), 2 cycles", 2, "cycle", tag="profile krylov")
+    say(f"[krylov] GMRES({m}): {cycles} cycles ({res.iterations} iterations), "
+        f"converged {res.converged}, true relative residual {rel:.4e}, "
+        f"{wall:.4f} s = {wall / cycles * 1e3:.2f} ms wall a cycle; residual "
+        f"by cycle {hist[0].item():.4e} .. {hist[-1].item():.4e}; torch space "
+        f"{res_t.iterations} iterations, {wall_t / cycles * 1e3:.2f} ms a "
+        f"cycle, residuals within {d_res:.3e}")
+    if not bool(torch.isfinite(res.x).all()) or not bool(
+            (hist[1:] <= hist[:-1] * (1 + 1e-3)).all()) or not hist[-1] < hist[0]:
+        fail("GMRES: the residual is not decreasing cycle by cycle")
+    if res_t.iterations != res.iterations or not d_res <= 1e-3:
+        fail("GMRES: the torch space disagrees with the cuda space")
+    again = gmres(A, b, restart=m, M=P, stop=gstop, executor=ex)
+    if not bool(torch.equal(again.x, res.x)):
+        fail("GMRES: a repeated solve differs")
+    paths["gmres"] = (launches, by_storage, None)
+    out["gmres"] = {"iterations": res.iterations, "cycles": cycles,
+                    "converged": res.converged, "true_relative_residual": rel,
+                    "wall_s": wall, "ms_per_cycle": wall / cycles * 1e3,
+                    "torch_space_ms_per_cycle": wall_t / cycles * 1e3,
+                    "residual_by_cycle": [float(h) for h in hist],
+                    "profile": prof}
+
+    # ParILU-preconditioned BiCGSTAB: setup on the host from the CSR form
+    t0 = time.perf_counter()
+    Mp = parilu_preconditioner(csr_from_arrays(*host, device="cuda"))
+    torch.cuda.synchronize()
+    t_parilu = time.perf_counter() - t0
+    say(f"[krylov] ParILU setup and factorisation {t_parilu:.2f} s "
+        f"({Mp.storage_bytes} bytes)")
+    paths["parilu_bicgstab"] = _nonsym_solve(
+        torch, "BiCGSTAB + ParILU", A, b,
+        lambda: bicgstab(A, b, M=Mp, stop=stop, executor=ex),
+        lambda: bicgstab(A, b, M=Mp, stop=stop, executor=ex_t),
+        lambda k: {"spmv_ell": 1, "spmv_dot_ell": 2 * k, "axpy_norm": k}, 0.25)
+    out["parilu_bicgstab"] = dict(paths["parilu_bicgstab"][2],
+                                  setup_s=t_parilu,
+                                  block_jacobi_iterations=out["bicgstab"]["iterations"])
+    prof_b = _device_profile(torch, lambda: bicgstab(
+        A, b, M=P, stop=Stop(50, 1e-30), executor=ex),
+        "BiCGSTAB + block-Jacobi, 50 iterations", 50, "iteration",
+        tag="profile krylov")
+    out["bicgstab"]["profile"] = prof_b
+    del A, b, P, Mp
+
+    # mixed-precision IR: poisson_3d(128) in f64, an f32 inner CgSolver
+    ip, ix, v, shape = gallery.poisson_3d(N_SIDE)
+    A64 = ell_from_csr_host(ip, ix, v.astype(np.float64), shape, device="cuda")
+    b64 = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        shape[0])).cuda()
+    inner, solvers = [], []
+
+    class Recorded(CgSolver):
+        """The inner CG, recording each solve's iterations."""
+
+        def solve(self, r, x0=None, *, executor=None):
+            got = super().solve(r, x0, executor=executor)
+            inner.append(got.iterations)
+            solvers.append(self)
+            return got
+
+    res, wall, launches, by_storage, by_dtype = counted(torch, lambda: (
+        mixed_precision_ir(A64, b64, stop=Stop(**IR_STOP), executor=ex,
+                           inner_solver=Recorded,
+                           inner_opts={"M": "block_jacobi",
+                                       "precond_opts": PRECOND_OPTS})))
+    k, k_in = res.iterations, sum(inner)
+    rel = true_residual(torch, A64, res.x, b64)
+    P32 = solvers[0].M  # the inner solver's block-Jacobi, on A in f32
+    classes = len(P32.inv_blocks)
+    expect_launches("krylov IR", launches, {
+        "spmv_ell": 1 + 2 * k, "spmv_dot_ell": k_in, "axpy_norm": k_in,
+        "block_jacobi_apply": (k_in + len(inner)) * classes})
+    if by_dtype != {"float64": 1 + k, "float32": k}:
+        fail(f"IR: spmv_ell launches by type {by_dtype}, expected f64 "
+             f"{1 + k}, f32 {k}")
+    A32 = A64.astype(torch.float32)
+    pure = cg(A32, b64.float(), M=P32, stop=Stop(IR_F32_ITERS, 1e-12),
+              executor=ex, strict=False)
+    rel32 = true_residual(torch, A64, pure.x, b64)
+    say(f"[krylov] mixed-precision IR: {k} outer sweeps, inner iterations "
+        f"{inner}, converged {res.converged}, f64 true relative residual "
+        f"{rel:.4e} (pure f32 CG after {pure.iterations} iterations: "
+        f"{rel32:.4e}); {wall:.4f} s; spmv_ell by type {by_dtype}")
+    if not res.converged or not rel < 1e-9 or not rel < 0.1 * rel32:
+        fail("mixed-precision IR did not reach the f64 tolerance")
+    if res.x.dtype != torch.float64:
+        fail("mixed-precision IR returned another dtype than f64")
+    paths["mixed_ir"] = (launches, by_storage, None)
+    out["mixed_ir"] = {"outer_sweeps": k, "inner_iterations": inner,
+                       "true_relative_residual": rel,
+                       "pure_f32_true_relative_residual": rel32,
+                       "wall_s": wall, "spmv_ell_by_dtype": by_dtype}
+    return {name: (p[0], p[1]) for name, p in paths.items()}, out
 
 
 class SpanTotals:
@@ -1848,7 +2260,8 @@ def _lm_counts(torch, K, want: dict, where: str) -> dict:
     return counts
 
 
-def _device_profile(torch, run, label: str, per: int, unit: str) -> dict:
+def _device_profile(torch, run, label: str, per: int, unit: str,
+                    tag: str = "profile lm") -> dict:
     """Device time by kernel over ``run()`` (torch.profiler) and the device's
     busy share of its wall time; ``per`` divides the totals (steps)."""
     from torch.autograd import DeviceType
@@ -1867,11 +2280,11 @@ def _device_profile(torch, run, label: str, per: int, unit: str) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    say(f"[profile lm] {label}: wall {wall_us:.0f} us, device busy {busy:.0f} us "
+    say(f"[{tag}] {label}: wall {wall_us:.0f} us, device busy {busy:.0f} us "
         f"({busy / wall_us:.1%}); per {unit} {wall_us / per:.1f} us wall, "
         f"{busy / per:.1f} us device")
     for dev, count, key in rows[:12]:
-        say(f"[profile lm]   {dev / per:10.2f} us/{unit}  {count:6d} calls  "
+        say(f"[{tag}]   {dev / per:10.2f} us/{unit}  {count:6d} calls  "
             f"{key[:90]}")
     return {unit + "s": per, "wall_us": wall_us, "device_busy_us": busy,
             "busy_share": busy / wall_us,
@@ -2657,6 +3070,14 @@ def main() -> None:
     rows = phase_kernels(torch, A, A_host, P, ex, copy_bw)
     del P
     launches, by_storage, path = phase_path(torch, A, b)
+    paths = {"block_jacobi_cg": (launches, by_storage)}
+    prof4 = path["profile"]
+    pipe_launches, pipe_storage, path["pipelined_cg"] = phase_pipelined(
+        torch, (ip, ix, v, shape), b, path["iterations"],
+        prof4["device_busy_us"] / prof4["iterations"])
+    fcg_launches, fcg_storage, path["fcg"] = phase_fcg(torch, A, b)
+    paths.update({"pipelined_cg": (pipe_launches, pipe_storage),
+                  "fcg": (fcg_launches, fcg_storage)})
     phase_small_reference(torch)
     del A, b
     amg_launches, amg_storage, path["amg"], amg_rows, held_amg, ell_levels = \
@@ -2674,6 +3095,12 @@ def main() -> None:
     rows.update(lm_rows)
     rwkv_launches, path["rwkv6_serve"], rwkv_rows = phase_rwkv(torch, copy_bw)
     rows.update(rwkv_rows)
+    krylov_paths, path["krylov"] = phase_krylov(torch)
+    paths.update({"amg_check": (amg_launches, amg_storage),
+                  "sellp_cg": (sellp_launches, {}),
+                  "batch_solve": (batch_launches, batch_storage),
+                  "zamba2_serve": (lm_launches, {}),
+                  "rwkv6_serve": (rwkv_launches, {}), **krylov_paths})
 
     # a kernel also held at a later path's shapes: that row, and the larger
     # error (for block_jacobi_apply, in the variant of its storage)
@@ -2691,24 +3118,16 @@ def main() -> None:
         if variants:
             entry["max_abs_err"] = max(v["max_abs_err"] for v in variants)
 
-    # launches: the sum over the six paths' counted runs, and each path's;
+    # launches: the sum over the paths' counted runs, and each path's;
     # block_jacobi_apply's storage variants likewise, per storage dtype
     for name, entry in rows.items():
-        entry["launches_by_path"] = {"block_jacobi_cg": launches.get(name, 0),
-                                     "amg_check": amg_launches[name],
-                                     "sellp_cg": sellp_launches[name],
-                                     "batch_solve": batch_launches[name],
-                                     "zamba2_serve": lm_launches[name],
-                                     "rwkv6_serve": rwkv_launches[name]}
+        entry["launches_by_path"] = {p: counts.get(name, 0)
+                                     for p, (counts, _) in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
         for var in entry.get("storage_variants", ()):
             var["launches_by_path"] = {
-                "block_jacobi_cg": by_storage.get(var["storage"], 0),
-                "amg_check": amg_storage.get(var["storage"], 0),
-                "sellp_cg": 0,
-                "batch_solve": batch_storage.get(var["storage"], 0),
-                "zamba2_serve": 0,
-                "rwkv6_serve": 0}
+                p: storage.get(var["storage"], 0)
+                for p, (_, storage) in paths.items()}
             var["launches"] = sum(var["launches_by_path"].values())
     for name, entry in rows.items():
         if entry["launches"] <= 0:

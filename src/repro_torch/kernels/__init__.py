@@ -85,6 +85,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     block_jacobi_apply.launches_by_storage = {}
+    spmv_ell.launches_by_dtype = {}
 
 
 __all__ = [

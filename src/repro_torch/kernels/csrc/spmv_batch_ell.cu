@@ -52,6 +52,14 @@
 //       * each lane sums its entries in index order, a __shfl_xor_sync
 //         butterfly adds the G lanes, and the warp's rows, which are
 //         consecutive, are stored from consecutive lanes.
+//     Rows of more than 32 kWidePacks packs (k > 512 in f32, 256 in f64)
+//     take the long walk: a warp a (row, system) item, each lane walking
+//     its packs j, j + 32, ... in groups of kWidePacks (column indices and
+//     values of a group loaded together, then its gathers of x from global
+//     memory), summing them in pack order into one accumulator across the
+//     groups, then the same butterfly.  So a lane's first kWidePacks packs
+//     are added as the tile kernel adds them, and the order stays a
+//     function of k and the type alone.
 //
 // Summation order: a row's k products are added in an order that depends
 // only on k, the type and the route (one thread in index order; or each
@@ -66,8 +74,9 @@
 
 namespace {
 
-// pack slots a thread of the wide route holds; a row may have at most
-// 32 kWidePacks packs (k <= 512 in f32, 256 in f64); 2 slots ran the
+// pack slots a thread of the wide route holds; a row of at most 32
+// kWidePacks packs (k <= 512 in f32, 256 in f64) takes the tile kernel,
+// a longer one the long walk in groups of kWidePacks packs; 2 slots ran the
 // BiCGSTAB shape no faster (11.20 against 11.36 us of kernel time, H100)
 constexpr int kWidePacks = 4;
 // most threads a block of the wide route has
@@ -341,6 +350,89 @@ int launch_wide(const int* cols, const T* vals, const T* x, T* y, long long nb,
                                      block_threads, vec, stream);
 }
 
+// The long walk: warp `gw` of the grid takes the (row, system) items
+// gw, gw + warps, ... (system-minor, so the warps of one row share its
+// column indices in L1).  Lane j sums its packs j, j + 32, ... in order:
+// kWidePacks at a time, each group's column indices and values loaded
+// before its gathers of x; then the butterfly, and lane 0 stores the row.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    spmv_batch_ell_long_kernel(const int* __restrict__ cols,
+                               const T* __restrict__ vals,
+                               const T* __restrict__ x, T* __restrict__ y,
+                               long long nb, long long m, int k, long long n,
+                               bool vec) {
+  constexpr int W = 16 / static_cast<int>(sizeof(T));
+  constexpr int NP = kWidePacks;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const long long warps =
+      static_cast<long long>(gridDim.x) * (blockDim.x / kWarp);
+  const long long items = m * nb;
+  const int packs = (k + W - 1) / W;
+#pragma unroll 1
+  for (long long w = static_cast<long long>(blockIdx.x) * (blockDim.x / kWarp) +
+                     threadIdx.x / kWarp;
+       w < items; w += warps) {
+    const long long row = w / nb, b = w - row * nb;
+    const int* crow = cols + row * k;
+    const T* vrow = vals + (b * m + row) * k;
+    const T* xb = x + b * n;
+    T acc = T(0);
+#pragma unroll 1
+    for (int p0 = lane; p0 < packs; p0 += NP * kWarp) {
+      T v[NP][W];
+      int c[NP][W];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const int e0 = (p0 + i * kWarp) * W;
+        const int cnt = e0 < k ? min(W, k - e0) : 0;
+        if (vec && cnt == W) {
+          *reinterpret_cast<uint4*>(&v[i][0]) =
+              __ldg(reinterpret_cast<const uint4*>(vrow + e0));
+        } else {
+#pragma unroll
+          for (int e = 0; e < W; ++e)
+            v[i][e] = e < cnt ? __ldg(vrow + e0 + e) : T(0);
+        }
+#pragma unroll
+        for (int e = 0; e < W; ++e) c[i][e] = e < cnt ? __ldg(crow + e0 + e) : -1;
+      }
+#pragma unroll
+      for (int i = 0; i < NP; ++i)
+#pragma unroll
+        for (int e = 0; e < W; ++e)
+          if (c[i][e] >= 0) acc += v[i][e] * __ldg(xb + c[i][e]);
+    }
+    const T sum = subgroup_sum<kWarp>(acc, 0xffffffffu);
+    if (lane == 0) y[b * m + row] = sum;
+  }
+}
+
+template <typename T>
+int launch_long(const int* cols, const T* vals, const T* x, T* y, long long nb,
+                long long m, int k, long long n, int block_threads, bool vec,
+                cudaStream_t stream) {
+  // a persistent grid of one wave (occupancy API), a warp an item
+  const auto kernel = spmv_batch_ell_long_kernel<T>;
+  if (block_threads > kWideThreads || block_threads % kWarp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        block_threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long per_block = block_threads / kWarp;
+  const long long blocks = (m * nb + per_block - 1) / per_block;
+  const long long wave = static_cast<long long>(sms) * per_sm;
+  kernel<<<static_cast<unsigned>(blocks < wave ? blocks : wave), block_threads,
+           0, stream>>>(cols, vals, x, y, nb, m, k, n, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const int* cols, const T* vals, const T* x, T* y, long long nb,
            long long m, int k, long long n, int block_threads, int subgroup,
@@ -363,7 +455,11 @@ int launch(const int* cols, const T* vals, const T* x, T* y, long long nb,
     break;
     CASE(2) CASE(4) CASE(8) CASE(16)
 #undef CASE
-    case 32:  // a warp a row: up to kWidePacks packs a lane
+    case 32:  // a warp a row: the tile kernel up to kWidePacks packs a
+              // lane, the long walk past that
+      if (lane_packs > kWidePacks)
+        return launch_long(cols, vals, x, y, nb, m, k, n, block_threads, vec,
+                           stream);
       switch (lane_packs) {
         case 1: return launch_wide<32, 1>(cols, vals, x, y, nb, m, k, n, block_threads, vec, stream);
         case 2: return launch_wide<32, 2>(cols, vals, x, y, nb, m, k, n, block_threads, vec, stream);

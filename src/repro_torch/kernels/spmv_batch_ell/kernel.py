@@ -8,7 +8,9 @@ version.  There is no fallback from a failed build or launch.
 The kernel has two routes, chosen by ``subgroup``: 1 is the narrow route
 (one thread a row of several systems, k at most ROWS_WALK_MAX_K); a power
 of two from 2 to 32 is the wide route, that many lanes a row, each lane
-holding one 16-byte pack of a row (a warp a row: up to WIDE_PACKS).
+holding one 16-byte pack of a row (a warp a row: up to WIDE_PACKS in the
+tile kernel; a longer row takes the long walk, WIDE_PACKS packs a lane at a
+time, so a warp a row takes any k).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from repro_torch.kernels.spmv_ell.kernel import (ROWS_WALK_MAX_K,
                                                 ROWS_WALK_THREADS,
                                                 check_geometry)
 
-__all__ = ["spmv_batch_ell", "spmv_batch_ell_plain", "vector_loads",
+__all__ = ["check_route", "spmv_batch_ell", "spmv_batch_ell_plain",
+           "vector_loads",
            "wide_lanes", "WIDE_PACKS", "WIDE_THREADS"]
 
 _P = ctypes.c_void_p
@@ -66,6 +69,26 @@ def vector_loads(values: torch.Tensor) -> bool:
             and values.shape[-1] * values.element_size() % PACK_BYTES == 0)
 
 
+def check_route(k: int, itemsize: int, block_threads: int,
+                subgroup: int) -> None:
+    """Raises unless the route ``subgroup`` picks takes rows of k entries of
+    ``itemsize`` bytes at ``block_threads`` threads a block."""
+    name = "spmv_batch_ell"
+    if subgroup == 1:
+        require(k <= ROWS_WALK_MAX_K and block_threads <= ROWS_WALK_THREADS,
+                name, f"the narrow route (subgroup 1) takes k <= "
+                f"{ROWS_WALK_MAX_K} and at most {ROWS_WALK_THREADS} threads a "
+                f"block, got k = {k}, {block_threads} threads")
+    else:
+        lane_packs = -(-_packs(k, itemsize) // subgroup)
+        require((lane_packs == 1 or subgroup == 32)
+                and block_threads <= WIDE_THREADS, name,
+                f"the wide route takes one 16-byte pack of a row a lane (any "
+                f"number with 32 lanes) and {WIDE_THREADS} threads a block, "
+                f"got {lane_packs} at k = {k} with {subgroup} lanes, "
+                f"{block_threads} threads")
+
+
 def spmv_batch_ell(col_idx: torch.Tensor, values: torch.Tensor,
                    x: torch.Tensor, *, block_threads: int = 256,
                    subgroup: int = 1) -> torch.Tensor:
@@ -91,19 +114,7 @@ def spmv_batch_ell(col_idx: torch.Tensor, values: torch.Tensor,
     n = x.shape[1]
     require(m * k < 2**31 and n < 2**31, name,
             f"a system's m k = {m * k} and n = {n} must be below 2^31")
-    if subgroup == 1:
-        require(k <= ROWS_WALK_MAX_K and block_threads <= ROWS_WALK_THREADS,
-                name, f"the narrow route (subgroup 1) takes k <= "
-                f"{ROWS_WALK_MAX_K} and at most {ROWS_WALK_THREADS} threads a "
-                f"block, got k = {k}, {block_threads} threads")
-    else:
-        lane_packs = -(-_packs(k, values.element_size()) // subgroup)
-        require((lane_packs == 1 or subgroup == 32 and lane_packs <= WIDE_PACKS)
-                and block_threads <= WIDE_THREADS, name,
-                f"the wide route takes one 16-byte pack of a row a lane (up "
-                f"to {WIDE_PACKS} with 32 lanes) and {WIDE_THREADS} threads a "
-                f"block, got {lane_packs} at k = {k} with {subgroup} lanes, "
-                f"{block_threads} threads")
+    check_route(k, values.element_size(), block_threads, subgroup)
     y = torch.empty((nb, m), dtype=values.dtype, device=values.device)
     if nb * m:
         fn = _build.function(_ENTRY[values.dtype], _ARGS)

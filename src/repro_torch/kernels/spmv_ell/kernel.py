@@ -2,7 +2,9 @@
 PyTorch version.
 
 ``spmv_ell`` launches the kernel for CUDA tensors and counts the launch in
-``spmv_ell.launches``; for CPU tensors it returns the plain version.  There
+``spmv_ell.launches`` (and by value type, ``"float32"`` / ``"float64"``, in
+``spmv_ell.launches_by_dtype``); for CPU tensors it returns the plain
+version.  There
 is no fallback from a failed build or launch: the error propagates.
 """
 
@@ -80,7 +82,11 @@ def spmv_ell(col_idx: torch.Tensor, values: torch.Tensor, x: torch.Tensor, *,
             col_idx.data_ptr(), values.data_ptr(), x.data_ptr(), y.data_ptr(),
             m, k, block_threads, subgroup, _build.stream_of(x)))
         spmv_ell.launches += 1
+        by = spmv_ell.launches_by_dtype
+        key = str(values.dtype).removeprefix("torch.")
+        by[key] = by.get(key, 0) + 1
     return y
 
 
 spmv_ell.launches = 0
+spmv_ell.launches_by_dtype = {}

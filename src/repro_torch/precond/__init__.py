@@ -55,8 +55,9 @@ def make_preconditioner(A, kind: str, *, executor=None, **opts):
     ``block_jacobi`` (accepts ``block_size``/``blocks``/``adaptive``/``tau``),
     ``amg`` (smoothed-aggregation multigrid on a CSR ``A``; accepts
     ``theta``/``cycle``/``smoother``/``coarse_solver``/... — see
-    :class:`repro_torch.precond.amg.Multigrid`).  ``parilu`` is not ported
-    yet and raises.
+    :class:`repro_torch.precond.amg.Multigrid`), ``parilu`` (on a CSR ``A``;
+    accepts ``factor_sweeps``/``solve_sweeps``/``structure`` — see
+    :func:`repro_torch.solvers.parilu.parilu_preconditioner`).
     """
     if kind == "identity":
         if opts:
@@ -75,10 +76,10 @@ def make_preconditioner(A, kind: str, *, executor=None, **opts):
     if kind == "amg":
         return amg_preconditioner(A, executor=executor, **opts)
     if kind == "parilu":
-        raise NotImplementedError(
-            f"the {kind!r} preconditioner is not ported to repro_torch yet"
-        )
+        from repro_torch.solvers.parilu import parilu_preconditioner
+
+        return parilu_preconditioner(A, **opts)
     raise KeyError(
         f"unknown preconditioner kind {kind!r}; known: "
-        "identity, jacobi, block_jacobi, amg (parilu: not ported yet)"
+        "identity, jacobi, block_jacobi, parilu, amg"
     )

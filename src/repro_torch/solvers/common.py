@@ -196,6 +196,7 @@ def ensure_symmetric(A, *, solver: str, strict: bool = True, seed: int = 0) -> N
         raise ValueError(
             f"{solver} requires a symmetric (SPD) operator, but a seeded "
             "symmetry probe found u^T A v != v^T A u. CG-family iterations "
-            "silently produce garbage on nonsymmetric systems; pass "
-            "strict=False if the operator is symmetric in exact arithmetic."
+            "silently produce garbage on nonsymmetric systems - use gmres, "
+            "bicgstab, or cgs instead, or pass strict=False if the operator "
+            "is symmetric in exact arithmetic."
         )

@@ -78,6 +78,11 @@ class MatrixLinOp(LinOp):
     def dtype(self):
         return self.values.dtype
 
+    def astype(self, dtype) -> "MatrixLinOp":
+        """Same structure, values cast to ``dtype`` (indices untouched): the
+        reduced-precision operator of mixed-precision IR's inner solve."""
+        return dataclasses.replace(self, values=self.values.to(dtype))
+
     def transpose(self):
         """Transpose through the host CSR triplet, rebuilt in this format on
         this matrix's device (setup time).  Dense, COO and CSR override it."""

@@ -13,8 +13,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["HostCsr", "anisotropic_2d", "poisson_2d", "poisson_3d",
-           "power_law_laplacian", "spd_banded"]
+__all__ = ["HostCsr", "anisotropic_2d", "convection_diffusion_2d",
+           "poisson_2d", "poisson_3d", "power_law_laplacian", "spd_banded"]
 
 #: (indptr, indices, values, shape) — the host-side CSR quadruple
 HostCsr = Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]
@@ -99,6 +99,69 @@ def anisotropic_2d(n_side: int, epsilon: float = 0.01) -> HostCsr:
         rows.append(idx[m])
         cols.append((ni * n_side + nj)[m])
         vals.append(np.full(int(m.sum()), w, np.float32))
+    return _coo_to_csr(
+        np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
+    )
+
+
+def convection_diffusion_2d(
+    n_side: int,
+    peclet: float = 1.0,
+    *,
+    scheme: str = "upwind",
+    velocity: Tuple[float, float] = (1.0, 0.5),
+) -> HostCsr:
+    """Nonsymmetric convection-diffusion ``-Δu + w·∇u`` on an ``n_side``² grid.
+
+    ``peclet`` is the mesh Péclet number ``Pe = |w| h / (2ε)``; rows are
+    scaled by ``h²/ε`` so entries stay O(1) at every size.
+    ``scheme="upwind"`` (first-order upwind convection) gives an M-matrix,
+    weakly diagonally dominant at any Péclet; ``scheme="centered"`` (central
+    differences) loses diagonal dominance past ``Pe = 1``.  Either way the
+    matrix is not symmetric: ``cg``/``fcg`` refuse it; use ``gmres``,
+    ``bicgstab`` or ``cgs``.
+    """
+    if scheme not in ("upwind", "centered"):
+        raise ValueError(
+            f"unknown scheme {scheme!r} (expected 'upwind' or 'centered')"
+        )
+    wx, wy = float(velocity[0]), float(velocity[1])
+    wmag = float(np.hypot(wx, wy))
+    if wmag == 0.0:
+        raise ValueError("velocity must be nonzero for a convective term")
+    # per-direction mesh Péclet: gamma_d = w_d * h / (2 eps)
+    gx = float(peclet) * wx / wmag
+    gy = float(peclet) * wy / wmag
+
+    n = n_side * n_side
+    idx = np.arange(n)
+    gi, gj = idx // n_side, idx % n_side
+    if scheme == "centered":
+        diag = np.full(n, 4.0, np.float64)
+        # (di, dj) -> stencil weight; +dj is +x (east), +di is +y (north)
+        weights = {
+            (0, 1): -1.0 + gx,
+            (0, -1): -1.0 - gx,
+            (1, 0): -1.0 + gy,
+            (-1, 0): -1.0 - gy,
+        }
+    else:  # first-order upwind: donor cell against the flow direction
+        diag = np.full(n, 4.0 + 2.0 * (abs(gx) + abs(gy)), np.float64)
+        weights = {
+            (0, 1): -1.0 - (2.0 * -gx if gx < 0 else 0.0),
+            (0, -1): -1.0 - (2.0 * gx if gx > 0 else 0.0),
+            (1, 0): -1.0 - (2.0 * -gy if gy < 0 else 0.0),
+            (-1, 0): -1.0 - (2.0 * gy if gy > 0 else 0.0),
+        }
+    rows = [idx]
+    cols = [idx]
+    vals = [diag]
+    for (di, dj), w in weights.items():
+        ni, nj = gi + di, gj + dj
+        m = (ni >= 0) & (ni < n_side) & (nj >= 0) & (nj < n_side)
+        rows.append(idx[m])
+        cols.append((ni * n_side + nj)[m])
+        vals.append(np.full(int(m.sum()), w, np.float64))
     return _coo_to_csr(
         np.concatenate(rows), np.concatenate(cols), np.concatenate(vals), n
     )

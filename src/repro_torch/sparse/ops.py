@@ -53,6 +53,8 @@ __all__ = [
     "axpy",
     "scal",
     "norm2",
+    "dot_batch",
+    "segment_spmv",
     "spmv_dot",
     "axpy_norm",
     "has_fused_ops",
@@ -80,18 +82,20 @@ def _scatter_rows(A, rows, cols, x):
     return y.index_add_(0, rows, vals * x[cols])
 
 
-def _segment_rows(A, offsets, cols, x):
+def segment_spmv(values, offsets, cols, x):
     """y[r] = sum of values[t] * x[cols[t]] over t in [offsets[r],
-    offsets[r + 1]): the torch space's COO / CSR SpMV.  Each row is one
-    segment summed in a fixed order with no atomics, so a product repeats
-    bit for bit on the card; on the CPU the sums are the scatter-add's.
-    The terms are always 2-D (entries, right-hand sides): on the card each
-    row's sum is then one thread's loop, where 1-D terms would take one block
-    of a segmented reduction per row, slow for many short rows."""
-    vals = A.values[:, None]
+    offsets[r + 1]): the torch space's COO / CSR SpMV, and ParILU's
+    triangular sweeps.  Each row is one segment summed in a fixed order with
+    no atomics, so a product repeats bit for bit on the card; on the CPU the
+    sums are the scatter-add's.  The terms are always 2-D (entries,
+    right-hand sides): on the card each row's sum is then one thread's loop,
+    where 1-D terms would take one block of a segmented reduction per row,
+    slow for many short rows."""
+    vals = values[:, None]
     contrib = vals * x[cols] if x.ndim == 2 else vals * x[cols][:, None]
     y = torch.segment_reduce(contrib, "sum", offsets=offsets, axis=0)
     return y if x.ndim == 2 else y[:, 0]
+
 
 
 def _coo_offsets(A: Coo) -> torch.Tensor:
@@ -108,7 +112,7 @@ def _spmv_coo_ref(ex, A: Coo, x):
 
 @spmv_coo.register("torch")
 def _spmv_coo_torch(ex, A: Coo, x):
-    return _segment_rows(A, _coo_offsets(A), A.col_idx, x)
+    return segment_spmv(A.values, _coo_offsets(A), A.col_idx, x)
 
 
 def _csr_row_ids(A: Csr) -> torch.Tensor:
@@ -125,7 +129,7 @@ def _spmv_csr_ref(ex, A: Csr, x):
 
 @spmv_csr.register("torch")
 def _spmv_csr_torch(ex, A: Csr, x):
-    return _segment_rows(A, A.indptr, A.indices, x)
+    return segment_spmv(A.values, A.indptr, A.indices, x)
 
 
 def _spmv_ell_plain(ex, A: Ell, x):
@@ -295,6 +299,17 @@ def scal(alpha, x, *, executor=None):
 
 def norm2(x, *, executor=None):
     return norm2_op(x, executor=executor)
+
+
+def dot_batch(pairs, *, executor=None):
+    """Batched dot products: ``[(x₁, y₁), ...] -> (len(pairs),)``.
+
+    The reduction pipelined Krylov methods restructure their recurrences
+    for: one ``dot`` dispatch a pair, stacked on the vectors' device.  (The
+    JAX package reduces the stack in one collective under its distributed
+    context; the port has no distributed layer yet.)
+    """
+    return torch.stack([dot_op(x, y, executor=executor) for x, y in pairs])
 
 
 # =============================================================================

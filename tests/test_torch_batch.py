@@ -189,6 +189,37 @@ def test_spmv_batch_ell_wide_matches_pallas(nb, m, k, n, dtype):
     np.testing.assert_allclose(_np(got), want, rtol=0, atol=8 * k * eps * scale)
 
 
+@pytest.mark.parametrize("dtype,k", [(np.float32, 600), (np.float64, 300)])
+def test_spmv_batch_ell_long_rows_match_pallas(dtype, k):
+    """Rows longer than the wide route's tile kernel takes (k > 512 in f32,
+    256 in f64), which the cuda kernel walks a warp a row in groups of
+    WIDE_PACKS packs a lane: the plain version against the Pallas kernel,
+    and the wrapper's route check accepts the configuration the binding
+    picks (a warp a row) at those shapes."""
+    from repro_torch.kernels.spmv_batch_ell.kernel import check_route
+
+    nb, m, n = 2, 16, k + 50
+    cols, vals, x = _batch_ell_arrays(nb, m, k, n, seed=k)
+    vals, x = vals.astype(dtype), x.astype(dtype)
+    with jax.enable_x64(dtype == np.float64):
+        want = np.asarray(jax_spmv_batch_ell(
+            jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(x), block_m=16,
+            block_k=128, interpret=True))
+    assert want.dtype == dtype
+    got = K.spmv_batch_ell(torch.from_numpy(cols), torch.from_numpy(vals),
+                           torch.from_numpy(x))
+    eps = np.finfo(dtype).eps
+    scale = float(np.abs(vals).sum(axis=2).max() * np.abs(x).max())
+    np.testing.assert_allclose(_np(got), want, rtol=0, atol=8 * k * eps * scale)
+    size = np.dtype(dtype).itemsize
+    cfg = make_executor("h100").launch_config("spmv_batch_ell", {
+        "nb": nb, "m": m, "k": k, "n": n, "itemsize": size})
+    assert cfg["subgroup"] == 32
+    check_route(k, size, cfg["block_threads"], cfg["subgroup"])  # no raise
+    with pytest.raises(ValueError, match="wide route"):  # 16 lanes: 1 pack each
+        check_route(k, size, cfg["block_threads"], 16)
+
+
 def test_spmv_batch_ell_dense_nonsym_matches_pallas():
     """BiCGSTAB's dense nonsymmetric systems (``build_batch(..., nonsym=True)``,
     n = 64, so k = 64: the wide route's path shape), the port's BatchEll

@@ -191,7 +191,7 @@ def test_default_block_size_and_factory():
     _, At = _pair(block_spd(24, 8))
     P = make_preconditioner(At, "block_jacobi", executor=make_executor("torch"))
     assert P.block_size == 8  # the executor's subgroup width
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="CSR"):  # ParILU takes CSR, as in JAX
         make_preconditioner(At, "parilu")
     with pytest.raises(TypeError, match="CSR"):  # AMG takes CSR, as in JAX
         make_preconditioner(At, "amg")

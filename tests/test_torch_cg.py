@@ -129,8 +129,7 @@ def test_solver_factory_and_guards():
     direct = cg(A, b, M="block_jacobi", stop=Stop(**STOP_KW), executor=ex)
     solver = CgSolver(A, M="block_jacobi", stop=Stop(**STOP_KW), executor=ex)
     assert torch.equal(solver.apply(b), direct.x)
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        cg(A, b, executor=ex, pipeline=True)
+    assert cg(A, b, stop=Stop(**STOP_KW), executor=ex, pipeline=True).converged
     with pytest.raises(ValueError, match="degenerate"):
         cg(A, b, executor=ex, stop=Stop(reduction_factor=0.0))
     a = np.triu(np.ones((6, 6), np.float32)) + 6 * np.eye(6, dtype=np.float32)

@@ -163,6 +163,6 @@ def test_torch_space_spmv_has_no_index_add(op, fmt):
     for cell in impl.__closure__ or ():  # the fused op wraps the SpMV
         if callable(cell.cell_contents):
             sources.append(inspect.getsource(cell.cell_contents))
-    sources.append(inspect.getsource(O._segment_rows))
+    sources.append(inspect.getsource(O.segment_spmv))
     sources.append(inspect.getsource(K.spmv_sellp_plain))
     assert not any("index_add" in src for src in sources), fmt
