@@ -149,17 +149,41 @@ Phases, each of which exits non-zero on failure:
             block-Jacobi under Stop(100, 1e-12): the f64 true residual below
             1e-9 and a tenth of a pure-f32 CG's, spmv_ell's f64 and f32
             launches counted apart.
+11. serve — repro_torch.serve on the CUDA executor: (a) 4,096 requests of
+            1,024 rows (4 banded SPD patterns, 60 % repeats) unpaced through
+            SolveService, 256-slot ELL lanes, block-Jacobi 4, CG to 1e-5:
+            SERVE-GATE, every host f64 true residual within SERVE_TRUE_TOL,
+            4 pattern generates in the cold pass and none for a full-hit
+            request, spmv_batch_ell, axpy_norm_rows and block_jacobi_apply
+            launched exactly as the lanes' counted refreshes and advance
+            sweeps imply, 8 busy-lane responses bitwise equal to solo
+            engines', the inline engine twice bit for bit (and equal to the
+            service), the torch space on the card (iterations within 1, x
+            within 1e-3), solves/s, latency p50/p99, and torch.profiler over
+            the inline drain of the first 256 requests (device busy share,
+            device µs an advance sweep, top kernels); (b) the first 1,024
+            requests paced at half (a)'s rate: p50/p99; (c) 512 requests
+            each on CSR lanes with ParILU and with AMG, and BiCGSTAB on ELL
+            lanes with half the fresh matrices convection-diffusion
+            patterns: launches exact, true residuals, hit accounting, a
+            repeat bit for bit; (d) the first 256 requests traced: a valid
+            Chrome trace, no dispatch above 1.05 of the HBM bound in the
+            roofline summary, the metrics JSONL round-tripped; then the
+            three kernels held and timed at a lane's operator and blocks,
+            and a NaN system held to its own row in each.
 
 It then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
-sum over the paths' counted runs (phases 4 to 10: block-Jacobi, pipelined
+sum over the paths' counted runs (phases 4 to 11: block-Jacobi, pipelined
 and flexible CG; the AMG check; SELL-P CG; the four batched solves; the two
-serve calls; BiCGSTAB, CGS, GMRES, ParILU-BiCGSTAB and mixed-precision IR),
+serve calls; BiCGSTAB, CGS, GMRES, ParILU-BiCGSTAB and mixed-precision IR;
+the served stream of 11a and the three lanes of 11c),
 each run counted from 0; ``launches_by_path`` gives each, and
 block_jacobi_apply's storage variants carry the same per storage dtype.
 ``max_abs_err`` is the larger over the shapes the kernel was held at;
-``at_amg_path_shape`` / ``at_batch_path_shape`` hold the times at those
-paths' shapes of a kernel whose row is timed at phase 3's, and
+``at_amg_path_shape`` / ``at_batch_path_shape`` / ``at_serve_path_shape``
+hold the times at those paths' shapes of a kernel whose row is timed at
+phase 3's, and
 ``at_bicgstab_shape`` / ``at_row_pieces_shape`` those of phase 7's second
 shapes; rmsnorm's ``at_decode_shape`` holds its rows at a decode step's 8
 rows and spmv_ell's ``at_amg_levels`` one row per AMG level operator and
@@ -256,6 +280,34 @@ RWKV_CMP_STEPS = 8
 #: added error of the size of the bf16 noise would double it
 RWKV_F32_REF_MARGIN = 1.25
 RWKV_F32_LAYERS, RWKV_F32_BATCH, RWKV_F32_PROMPT = 8, 2, 1024
+
+# phase 11: solve serving.  The stream: 4,096 systems of 1,024 rows over 4
+# banded SPD patterns, 60 % of them repeating an earlier matrix (with a fresh
+# right-hand side); 256 slots a lane, 8 sweeps a chunk, ELL lanes with
+# 4-row block-Jacobi, so the three batched kernels carry the solves
+SERVE_TRAFFIC = dict(num_requests=4096, gallery_size=4, repeat_ratio=0.6,
+                     n=1024, seed=0)
+SERVE_CONFIG = dict(slots=256, chunk_sweeps=8, solver="cg", fmt="ell",
+                    precond="block_jacobi", block_size=4)
+SERVE_STOP = (500, 1e-5)
+#: true relative residual of every served solve (f64, on the host)
+SERVE_TRUE_TOL = 1e-4
+#: SERVE-GATE's p99 bound: 11a submits the whole stream at once, so its
+#: p99 is the stream's own length and the bound only catches a stall; 11b
+#: (half load) is held to the entry point's default
+SERVE_UNPACED_P99_BOUND = 60.0
+SERVE_P99_BOUND = 2.0
+SERVE_HALF_LOAD_REQUESTS = 1024
+SERVE_PROFILE_REQUESTS = 256
+SERVE_TRACE_REQUESTS = 256
+SERVE_LANE_REQUESTS = 512
+#: 11c: (label, ServeConfig changes, TrafficConfig changes)
+SERVE_LANES = (
+    ("ParILU CG, CSR", dict(fmt="csr", precond="parilu"), {}),
+    ("AMG CG, CSR", dict(fmt="csr", precond="amg"), {}),
+    ("block-Jacobi BiCGSTAB, ELL, nonsymmetric", dict(solver="bicgstab"),
+     {"nonsym_ratio": 0.5}),
+)
 
 
 def fail(msg: str) -> None:
@@ -3031,6 +3083,513 @@ def phase_rwkv(torch, copy_bw):
     return {n: launches[n] for n in K.KERNELS}, summary, rows
 
 
+# -- phase 11: solve serving ---------------------------------------------------------
+
+
+def _serve_host_residual(req, x) -> float:
+    """||b - A x|| / ||b|| of one request in f64 on the host (CSR rows)."""
+    import numpy as np
+
+    xd = x.astype(np.float64)
+    terms = req.values.astype(np.float64) * xd[req.indices]
+    ax = np.add.reduceat(terms, req.indptr[:-1].astype(np.int64))
+    ax[np.diff(req.indptr) == 0] = 0.0
+    b = req.b.astype(np.float64)
+    return float(np.linalg.norm(b - ax) / np.linalg.norm(b))
+
+
+def _fresh(req):
+    """A copy of a request that an engine or service numbers and stamps
+    anew."""
+    import copy
+
+    out = copy.copy(req)
+    out.request_id = out.submitted_s = out.admitted_s = None
+    return out
+
+
+class ServeSweeps:
+    """Counts the lanes' refresh calls and advance sweeps: wraps the
+    (refresh, advance) pair every lane builds, each call in a profiler range
+    (``serve.refresh``, ``serve.advance``)."""
+
+    def __init__(self):
+        from repro_torch.serve import engine
+
+        self.engine = engine
+        self.orig = engine._build_closures
+        self.refreshes = self.sweeps = 0
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        def counting(setup, config, ex):
+            refresh, advance = self.orig(setup, config, ex)
+
+            def c_refresh(*args):
+                self.refreshes += 1
+                with record_function("serve.refresh"):
+                    return refresh(*args)
+
+            def c_advance(values, inv, state, thresh):
+                with record_function("serve.advance"):
+                    out = advance(values, inv, state, thresh)
+                self.sweeps += out.k - state.k
+                return out
+
+            return c_refresh, c_advance
+
+        self.engine._build_closures = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.engine._build_closures = self.orig
+        return False
+
+    def reset(self):
+        self.refreshes = self.sweeps = 0
+
+    def want(self, config) -> dict:
+        """The launches of the three kernels these refreshes and sweeps
+        imply: CG applies A and M once at a refresh and once a sweep,
+        BiCGSTAB A once at a refresh and A and M twice a sweep; each sweep
+        one fused residual update; CSR lanes reach no spmv_batch_ell, ParILU
+        and AMG lanes no block_jacobi_apply."""
+        per = 1 if config.solver == "cg" else 2
+        at_refresh = 1 if config.solver == "cg" else 0
+        want = {"axpy_norm_rows": self.sweeps}
+        if config.fmt == "ell":
+            want["spmv_batch_ell"] = self.refreshes + per * self.sweeps
+        if config.precond == "block_jacobi":
+            want["block_jacobi_apply"] = at_refresh * self.refreshes + per * self.sweeps
+        return want
+
+
+def _serve_profile(torch, run, label: str) -> dict:
+    """Device time by kernel over ``run()`` (torch.profiler), the device's
+    busy share of its wall time, and the device time of the kernels each
+    ``serve.advance`` / ``serve.refresh`` range launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ranges = ("serve.advance", "serve.refresh")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    rows = [(e.self_device_time_total, e.count, e.key) for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in ranges
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    by_range = {e.key: {"calls": e.count, "device_us": e.device_time_total}
+                for e in events
+                if e.device_type == DeviceType.CPU and e.key in ranges}
+    say(f"[profile serve] {label}: wall {wall_us:.0f} us, device busy "
+        f"{busy:.0f} us ({busy / wall_us:.1%}); ranges {by_range}")
+    for dev, count, key in rows[:12]:
+        say(f"[profile serve]   {dev:12.1f} us  {count:7d} calls  {key[:90]}")
+    return {"wall_us": wall_us, "device_busy_us": busy,
+            "busy_share": busy / wall_us, "ranges": by_range,
+            "top": [{"name": key[:120], "calls": count, "us": dev}
+                    for dev, count, key in rows[:12]]}
+
+
+def _serve_inline(torch, config, ex, traffic):
+    """The stream through a fresh inline engine: ``({id: response}, wall s)``;
+    ids count from 0 in stream order."""
+    from repro_torch.serve import ContinuousBatchEngine
+
+    eng = ContinuousBatchEngine(config, executor=ex)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _, req in traffic:
+        eng.submit(_fresh(req))
+    out = {r.request_id: r for r in eng.drain()}
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, eng
+
+
+def _serve_checks(tag, traffic, by_id, first_id=0):
+    """Every response converged to a host true residual <= SERVE_TRUE_TOL;
+    returns the largest."""
+    worst = 0.0
+    for i, (_, req) in enumerate(traffic):
+        resp = by_id[first_id + i]
+        rel = _serve_host_residual(req, resp.x)
+        worst = max(worst, rel)
+        if not resp.converged or not rel <= SERVE_TRUE_TOL:
+            fail(f"serve {tag}: request {resp.request_id} converged "
+                 f"{resp.converged}, true relative residual {rel:.3e} (at most "
+                 f"{SERVE_TRUE_TOL})")
+    return worst
+
+
+def _bitwise(tag, a: dict, b: dict, offset=0) -> None:
+    import numpy as np
+
+    for rid, r in a.items():
+        o = b[rid + offset]
+        if not (np.array_equal(r.x, o.x) and r.iterations == o.iterations):
+            fail(f"serve {tag}: request {rid} differs bit for bit")
+
+
+def _nan_rows_check(torch, ex, col_idx, vals, X, Y, inv, vp, gen) -> None:
+    """A NaN row (a frozen slot may hold one after 0/0) stays in its row:
+    at a lane's shapes, with one system's inputs NaN, every other row of
+    spmv_batch_ell, axpy_norm_rows and block_jacobi_apply is bitwise that
+    of the NaN-free call, and the NaN row is NaN."""
+    from repro_torch import kernels as K
+
+    S, n = X.shape
+    m, k = col_idx.shape
+    nbl = inv.shape[0] // S
+    r = 3
+    nan = float("nan")
+    cfg = ex.launch_config("spmv_batch_ell", {"m": m, "k": k, "n": n,
+                                              "itemsize": 4})
+    ell = dict(block_threads=cfg["block_threads"], subgroup=cfg["subgroup"])
+    cfg = ex.launch_config("axpy_norm_rows", {"nb": S, "n": n, "itemsize": 4})
+    rows = dict(block_threads=cfg["block_threads"], grid_blocks=cfg["grid_blocks"])
+    bt = ex.launch_config("block_jacobi", {"nb": inv.shape[0],
+                                           "bs": inv.shape[1]})["block_threads"]
+    alpha = torch.randn(S, generator=gen, device="cuda")
+    Xn, valsn, vpn = X.clone(), vals.clone(), vp.clone()
+    Xn[r] = nan
+    valsn[r] = nan
+    vpn[r * nbl:(r + 1) * nbl] = nan
+    keep = torch.ones(S, dtype=torch.bool, device="cuda")
+    keep[r] = False
+    keep_b = keep.repeat_interleave(nbl)
+    pairs = {
+        "spmv_batch_ell": (K.spmv_batch_ell(col_idx, vals, X, **ell),
+                           K.spmv_batch_ell(col_idx, valsn, Xn, **ell), keep),
+        "axpy_norm_rows Z": (K.axpy_norm_rows(alpha, X, Y, **rows)[0],
+                             K.axpy_norm_rows(alpha, Xn, Y, **rows)[0], keep),
+        "axpy_norm_rows Z.Z": (K.axpy_norm_rows(alpha, X, Y, **rows)[1],
+                               K.axpy_norm_rows(alpha, Xn, Y, **rows)[1], keep),
+        "block_jacobi_apply": (K.block_jacobi_apply(inv, vp, block_threads=bt),
+                               K.block_jacobi_apply(inv, vpn, block_threads=bt),
+                               keep_b),
+    }
+    for name, (clean, dirty, kept) in pairs.items():
+        if not (torch.equal(clean[kept], dirty[kept])
+                and bool(torch.isnan(dirty[~kept]).all())):
+            fail(f"serve: {name} lets a NaN row reach another row")
+    say(f"[serve] a NaN system stays in its row in {', '.join(pairs)}")
+
+
+def phase_serve(torch, card: str, copy_bw: float):
+    """Phase 11: solve serving on the card (see the module docstring).
+    Returns ``(paths, summary, held)``."""
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+    from repro_torch.core.params import H100
+    from repro_torch.launch import solve_serve
+    from repro_torch.observability import metrics, roofline_summary, trace
+    from repro_torch.serve import (ContinuousBatchEngine, ServeConfig, SetupCache,
+                                   SolveService, TrafficConfig, generate_traffic)
+    from repro_torch.solvers import Stop
+
+    t_phase = time.perf_counter()
+    ex = make_executor("cuda")
+    stop = Stop(*SERVE_STOP)
+    config = ServeConfig(**SERVE_CONFIG, stop=stop)
+    tcfg = TrafficConfig(**SERVE_TRAFFIC)
+    t0 = time.perf_counter()
+    traffic = generate_traffic(tcfg)
+    gen_s = time.perf_counter() - t0
+    say(f"[serve] ({card}) traffic: {len(traffic)} requests of n = {tcfg.n}, "
+        f"gallery {tcfg.gallery_size}, repeat {tcfg.repeat_ratio}: built on the "
+        f"host in {gen_s:.3f} s")
+    paths, summary, held = {}, {"card": card, "traffic_s": gen_s}, {}
+    sweeps = ServeSweeps()
+    with sweeps:
+        # 11a: the stream unpaced through the service, counted from 0
+        svc = SolveService(config, executor=ex)
+        with svc:
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            sweeps.reset()
+            ex.dispatch_log.clear()
+            t_run = time.perf_counter()
+            solve_serve._warmup(svc, tcfg)
+            cold = dict(ex.dispatch_log)
+            metrics.reset()
+            t1 = time.perf_counter()
+            ids = [svc.submit(req) for _, req in traffic]
+            responses = svc.gather(ids, timeout=600.0)
+            wall = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t_run
+            launches = K.launch_counts()
+            storage = dict(K.block_jacobi_apply.launches_by_storage)
+            want = sweeps.want(config)
+            refreshes, n_sweeps = sweeps.refreshes, sweeps.sweeps
+            ok = solve_serve.report(responses, wall, SERVE_UNPACED_P99_BOUND)
+            h = metrics.histogram("serve_latency_s")
+            p50, p99 = h.quantile(0.5), h.quantile(0.99)
+            # a guaranteed full hit: the last request's matrix, whose factors
+            # are the newest in its pattern's values tier
+            ex.dispatch_log.clear()
+            (hit,) = svc.gather([svc.submit(_fresh(traffic[-1][1]))],
+                                timeout=60.0)
+            hit_log = dict(ex.dispatch_log)
+        if not ok:
+            fail("serve 11a: SERVE-GATE failed")
+        if cold.get("serve_generate_pattern") != tcfg.gallery_size:
+            fail(f"serve 11a: the cold pass generated {cold} patterns, expected "
+                 f"{tcfg.gallery_size}")
+        hit_gen = (hit_log.get("serve_generate_pattern", 0)
+                   + hit_log.get("serve_generate_factors", 0))
+        if hit_gen or not (hit.pattern_hit and hit.factors_hit and hit.converged):
+            fail(f"serve 11a: the full-hit request launched {hit_gen} generate "
+                 f"operations (pattern hit {hit.pattern_hit}, factors hit "
+                 f"{hit.factors_hit})")
+        expect_launches("serve 11a", launches, want)
+        by_id = {r.request_id: r for r in responses}
+        worst = _serve_checks("11a", traffic, by_id, first_id=ids[0])
+        rate = len(responses) / wall
+        iters = [r.iterations for r in responses]
+        p_hits = sum(r.pattern_hit for r in responses)
+        f_hits = sum(r.factors_hit for r in responses)
+        say(f"[serve] ({card}) 11a: {len(responses)} solves in {wall:.4f} s = "
+            f"{rate:.1f} solves/s; latency p50 {p50} s, p99 {p99} s (bucket "
+            f"bounds, every request submitted at once); iterations "
+            f"{min(iters)}-{max(iters)} (mean {np.mean(iters):.2f}); "
+            f"{refreshes} refreshes and {n_sweeps} advance sweeps in the run "
+            f"(warm-up included, {run_s:.4f} s); pattern hits {p_hits}, factor "
+            f"hits {f_hits}; largest true residual {worst:.3e}; cold pass "
+            f"{cold.get('serve_generate_pattern')} pattern generates, full-hit "
+            f"request {hit_gen}")
+        paths["solve_serve"] = (launches, storage)
+        summary["throughput"] = {
+            "requests": len(responses), "wall_s": wall, "solves_per_s": rate,
+            "latency_p50_s": p50, "latency_p99_s": p99, "run_s": run_s,
+            "refreshes": refreshes, "sweeps": n_sweeps,
+            "iterations_mean": float(np.mean(iters)), "pattern_hits": p_hits,
+            "factor_hits": f_hits, "max_true_residual": worst,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+        # busy = solo for 8 requests: solo engines of the same configuration
+        solo_cache = SetupCache()
+        for i in range(8):
+            solo = ContinuousBatchEngine(config, executor=ex, cache=solo_cache)
+            solo.submit(_fresh(traffic[i][1]))
+            (s,) = solo.drain()
+            b = by_id[ids[i]]
+            if not (np.array_equal(s.x, b.x) and s.iterations == b.iterations):
+                fail(f"serve 11a: request {ids[i]} in the busy lane differs "
+                     "from a solo engine's")
+        say(f"[serve] 11a: 8 busy-lane responses equal solo engines' bit for bit")
+
+        # the inline engine twice, bit for bit alike and equal to the
+        # service's responses; then the first SERVE_PROFILE_REQUESTS of the
+        # stream under torch.profiler (the whole stream's 10^6 events would
+        # take minutes to collect)
+        sweeps.reset()
+        inline1, wall_i, _ = _serve_inline(torch, config, ex, traffic)
+        sweeps_1 = sweeps.sweeps
+        inline2, wall_i2, _ = _serve_inline(torch, config, ex, traffic)
+        _bitwise("inline repeat", inline1, inline2)
+        _bitwise("service against inline", inline1, by_id, offset=ids[0])
+        sweeps.reset()
+        prof = _serve_profile(
+            torch, lambda: _serve_inline(torch, config, ex,
+                                         traffic[:SERVE_PROFILE_REQUESTS]),
+            f"({card}) inline engine drain, the first "
+            f"{SERVE_PROFILE_REQUESTS} requests")
+        adv = prof["ranges"].get("serve.advance", {})
+        per_sweep = (adv.get("device_us", 0.0) / sweeps.sweeps
+                     if sweeps.sweeps else None)
+        say(f"[serve] ({card}) 11a: inline engine {wall_i:.4f} / "
+            f"{wall_i2:.4f} s ({len(traffic) / wall_i:.1f} solves/s), {sweeps_1} "
+            f"sweeps, repeat bit for bit, equal to the service's; profiled "
+            f"window: device busy {prof['busy_share']:.1%}, {sweeps.sweeps} "
+            f"sweeps at {per_sweep} us of device time an advance sweep, "
+            f"{prof['wall_us'] / max(sweeps.sweeps, 1):.1f} us of wall a sweep "
+            "(admissions included)")
+        summary["inline"] = {"wall_s": [wall_i, wall_i2], "sweeps": sweeps_1,
+                             "profile_requests": SERVE_PROFILE_REQUESTS,
+                             "profile_sweeps": sweeps.sweeps,
+                             "device_us_per_advance_sweep": per_sweep,
+                             "profile": prof}
+
+        # the torch space on the card
+        ex_t = make_executor("torch", device="cuda")
+        inline_t, wall_t, _ = _serve_inline(torch, config, ex_t, traffic)
+        worst_dx, worst_di = 0.0, 0
+        for rid, r in inline1.items():
+            o = inline_t[rid]
+            dx = float(np.linalg.norm(o.x - r.x) / np.linalg.norm(r.x))
+            worst_dx, worst_di = max(worst_dx, dx), max(worst_di,
+                                                        abs(o.iterations - r.iterations))
+            if not o.converged or abs(o.iterations - r.iterations) > 1 or not dx <= 1e-3:
+                fail(f"serve 11a: request {rid} in the torch space: iterations "
+                     f"{o.iterations} against {r.iterations}, x within {dx:.3e}")
+        say(f"[serve] ({card}) 11a: torch space on the card {wall_t:.4f} s "
+            f"({len(traffic) / wall_t:.1f} solves/s); iterations within "
+            f"{worst_di}, x within {worst_dx:.3e} (relative)")
+        summary["torch_space"] = {"wall_s": wall_t, "max_iteration_delta": worst_di,
+                                  "max_relative_dx": worst_dx}
+
+        # 11b: the first 1,024 requests at half 11a's rate (Poisson gaps scaled)
+        half = traffic[:SERVE_HALF_LOAD_REQUESTS]
+        scale = tcfg.rate_hz / (0.5 * rate)
+        paced = [(gap * scale, _fresh(req)) for gap, req in half]
+        responses_b, wall_b = solve_serve.run_serve(config, tcfg, executor=ex,
+                                                    traffic=paced)
+        ok_b = solve_serve.report(responses_b, wall_b, SERVE_P99_BOUND)
+        hb = metrics.histogram("serve_latency_s")
+        lat = sorted(r.latency_s for r in responses_b)
+        exact = {q: lat[min(len(lat) - 1, int(q * len(lat)))] for q in (0.5, 0.99)}
+        if not ok_b:
+            fail("serve 11b: SERVE-GATE failed at half load")
+        by_b = {r.request_id: r for r in responses_b}
+        _serve_checks("11b", half, by_b, first_id=min(by_b))
+        say(f"[serve] ({card}) 11b: {len(responses_b)} requests at "
+            f"{0.5 * rate:.1f} requests/s (half of 11a): {wall_b:.4f} s, "
+            f"latency p50 {hb.quantile(0.5)} s, p99 {hb.quantile(0.99)} s "
+            f"(bucket bounds; from the responses {exact[0.5] * 1e3:.3f} ms and "
+            f"{exact[0.99] * 1e3:.3f} ms)")
+        summary["half_load"] = {"requests": len(responses_b), "rate": 0.5 * rate,
+                                "wall_s": wall_b, "p50_s": hb.quantile(0.5),
+                                "p99_s": hb.quantile(0.99),
+                                "p50_exact_s": exact[0.5],
+                                "p99_exact_s": exact[0.99]}
+
+        # 11c: the other lanes, counted from 0, repeated bit for bit
+        lane_launches = collections.Counter()
+        lane_storage = collections.Counter()
+        summary["lanes"] = {}
+        for label, kw, extra in SERVE_LANES:
+            cfg_l = ServeConfig(**{**SERVE_CONFIG, **kw}, stop=stop)
+            tc = TrafficConfig(**{**SERVE_TRAFFIC, **extra,
+                                  "num_requests": SERVE_LANE_REQUESTS})
+            tr = generate_traffic(tc)
+            K.reset_launch_counts()
+            sweeps.reset()
+            metrics.reset()
+            got, wall_l, eng = _serve_inline(torch, cfg_l, ex, tr)
+            counts = K.launch_counts()
+            expect_launches(f"serve 11c {label}", counts, sweeps.want(cfg_l))
+            lane_launches.update(counts)
+            lane_storage.update(K.block_jacobi_apply.launches_by_storage)
+            worst_l = _serve_checks(f"11c {label}", tr, got)
+            resp = list(got.values())
+            p_h = sum(r.pattern_hit for r in resp)
+            f_h = sum(r.factors_hit for r in resp)
+            st = eng.cache.stats()
+            if (st["serve_cache_hits_pattern"] != p_h
+                    or st["serve_cache_misses_pattern"] != len(resp) - p_h
+                    or st["serve_cache_hits_values"] != f_h or not p_h or not f_h):
+                fail(f"serve 11c {label}: cache accounting {st} against "
+                     f"{p_h} pattern and {f_h} factor hits")
+            again, _, _ = _serve_inline(torch, cfg_l, ex, tr)
+            _bitwise(f"11c {label} repeat", got, again)
+            its = [r.iterations for r in resp]
+            say(f"[serve] ({card}) 11c {label}: {len(resp)} solves in "
+                f"{wall_l:.4f} s ({len(resp) / wall_l:.1f} solves/s), "
+                f"iterations {min(its)}-{max(its)}, largest true residual "
+                f"{worst_l:.3e}, pattern hits {p_h}, factor hits {f_h}, "
+                f"{sweeps.sweeps} sweeps; repeat bit for bit")
+            summary["lanes"][label] = {
+                "wall_s": wall_l, "solves_per_s": len(resp) / wall_l,
+                "iterations": [min(its), max(its)], "sweeps": sweeps.sweeps,
+                "max_true_residual": worst_l, "pattern_hits": p_h,
+                "factor_hits": f_h,
+                "launches": {k: v for k, v in counts.items() if v}}
+        paths["solve_serve_lanes"] = (dict(lane_launches), dict(lane_storage))
+
+        # 11d: the first 256 requests traced
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            tpath, mpath = f"{tmp}/serve_trace.json", f"{tmp}/serve.jsonl"
+            ex.dispatch_log.clear()
+            trace.reset()
+            with trace.tracing(tpath):
+                responses_d, wall_d = solve_serve.run_serve(
+                    config, tcfg, executor=ex, pace=False,
+                    traffic=[(g, _fresh(r)) for g, r in
+                             traffic[:SERVE_TRACE_REQUESTS]])
+            errors = trace.validate_trace(tpath)
+            with open(tpath) as f:
+                n_events = len(json.load(f)["traceEvents"])
+            trace.reset()
+            rows = roofline_summary(ex.dispatch_events,
+                                    hbm_bandwidth=H100.hbm_bandwidth)
+            metrics.export_jsonl(mpath)
+            back = metrics.load_jsonl(mpath)
+            same = back == json.loads(json.dumps(metrics.samples(), default=str))
+        if errors:
+            fail(f"serve 11d: the trace is invalid: {errors[:5]}")
+        if not all(r.converged for r in responses_d):
+            fail("serve 11d: a traced request did not converge")
+        top = max(rows, key=lambda r: r["frac_of_bound"])
+        for r in rows:
+            if r["op"] in ("spmv_batch_ell", "axpy_norm", "block_jacobi_apply",
+                           "batch_blas_dot", "batch_blas_norm2"):
+                say(f"[serve] ({card}) 11d roofline {r['op']}/{r['space']}: "
+                    f"{r['count']} dispatches, {r['est_bytes']} bytes, "
+                    f"{r['wall_us']:.1f} us (synchronised), {r['gbs']:.2f} GB/s, "
+                    f"{r['frac_of_bound']:.4f} of 3.35 TB/s")
+        if not top["frac_of_bound"] <= 1.05:
+            fail(f"serve 11d: {top['op']} at {top['frac_of_bound']:.3f} of the "
+                 "HBM bound")
+        if not same or not any(r["name"] == "dispatch_total" for r in back):
+            fail("serve 11d: the metrics JSONL does not round-trip")
+        say(f"[serve] ({card}) 11d: {len(responses_d)} requests traced in "
+            f"{wall_d:.4f} s, {n_events} trace events valid; {len(rows)} "
+            f"roofline rows, the highest {top['op']} at "
+            f"{top['frac_of_bound']:.4f} of the bound; {len(back)} metric "
+            "series round-trip through JSONL")
+        summary["traced"] = {"requests": len(responses_d), "wall_s": wall_d,
+                             "trace_events": n_events,
+                             "max_frac_of_bound": top["frac_of_bound"],
+                             "max_frac_op": top["op"],
+                             "metric_series": len(back)}
+
+    # the three kernels at this path's shapes: a lane's operator and blocks
+    lane = next(iter(svc.engine.lanes.values()))
+    S, n = lane.B.shape
+    col_idx = lane.setup.col_idx
+    vals = lane.values.reshape(S, *col_idx.shape)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    X = torch.randn(S, n, generator=gen, device="cuda")
+    Y = torch.randn(S, n, generator=gen, device="cuda")
+    inv = lane.inv
+    vp = torch.randn(inv.shape[0], inv.shape[1], generator=gen, device="cuda")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    row = functools.partial(kernel_row, torch, flush, copy_bw)
+    held["spmv_batch_ell"] = [row(
+        "spmv_batch_ell", "spmv_batch_ell.cu",
+        "src/repro/kernels/spmv_batch_ell/kernel.py:51",
+        **held_batch_ell(torch, ex, col_idx, vals, X, " (serve)"), cupti=True)]
+    held["spmv_batch_ell"][-1]["shape"] = {"nb": S, "m": col_idx.shape[0],
+                                           "k": col_idx.shape[1]}
+    held["axpy_norm_rows"] = [row(
+        "axpy_norm_rows", "axpy_norm.cu", "src/repro/kernels/axpy_norm/kernel.py:39",
+        **held_axpy_norm_rows(torch, ex, X, Y, gen, " (serve)"))]
+    held["axpy_norm_rows"][-1]["shape"] = {"nb": S, "n": n}
+    held["block_jacobi_apply"] = [row(
+        "block_jacobi_apply", "block_jacobi.cu",
+        "src/repro/kernels/block_jacobi/kernel.py:36",
+        **held_block_jacobi(torch, ex, inv, vp, " (serve)"))]
+    held["block_jacobi_apply"][-1]["storage"] = "float32"
+    held["block_jacobi_apply"][-1]["shape"] = {"blocks": inv.shape[0],
+                                               "bs": inv.shape[1]}
+    _nan_rows_check(torch, ex, col_idx, vals, X, Y, inv, vp, gen)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    say(f"[serve] ({card}) phase 11: {summary['phase_s']:.1f} s")
+    return paths, summary, held
+
+
 def main() -> None:
     import torch
 
@@ -3096,16 +3655,20 @@ def main() -> None:
     rwkv_launches, path["rwkv6_serve"], rwkv_rows = phase_rwkv(torch, copy_bw)
     rows.update(rwkv_rows)
     krylov_paths, path["krylov"] = phase_krylov(torch)
+    serve_paths, path["solve_serve"], held_serve = phase_serve(torch, card,
+                                                               copy_bw)
     paths.update({"amg_check": (amg_launches, amg_storage),
                   "sellp_cg": (sellp_launches, {}),
                   "batch_solve": (batch_launches, batch_storage),
                   "zamba2_serve": (lm_launches, {}),
-                  "rwkv6_serve": (rwkv_launches, {}), **krylov_paths})
+                  "rwkv6_serve": (rwkv_launches, {}), **krylov_paths,
+                  **serve_paths})
 
     # a kernel also held at a later path's shapes: that row, and the larger
     # error (for block_jacobi_apply, in the variant of its storage)
     for key, held in (("at_amg_path_shape", held_amg),
-                      ("at_batch_path_shape", held_batch)):
+                      ("at_batch_path_shape", held_batch),
+                      ("at_serve_path_shape", held_serve)):
         for name, extra in held.items():
             for e in extra:
                 targets = [v for v in rows[name].get("storage_variants", ())

@@ -59,6 +59,9 @@ class Executor:
         self.strict = strict
         self.device = torch.device(device)
         self.dispatch_log: DispatchLog = DispatchLog()
+        #: the LaunchConfig of the last ``launch_config`` call (a traced
+        #: dispatch clears it first and records what the kernel resolved)
+        self._last_launch_config = None
 
     @property
     def name(self) -> str:
@@ -77,7 +80,9 @@ class Executor:
         """Tile geometry for ``op_name`` at ``shapes`` on this target."""
         from repro_torch.core import tuning
 
-        return tuning.resolve(op_name, shapes, self.hw)
+        cfg = tuning.resolve(op_name, shapes, self.hw)
+        self._last_launch_config = cfg
+        return cfg
 
     @contextlib.contextmanager
     def activate(self):

@@ -19,7 +19,10 @@ import functools
 import time
 from typing import Any, Callable, Dict, Tuple
 
+import torch
+
 from repro_torch.observability import events as _events
+from repro_torch.observability import metrics as _metrics
 from repro_torch.observability import trace as _trace
 
 __all__ = [
@@ -98,27 +101,42 @@ class Operation:
         return self._traced_call(ex, space, impl, args, kwargs)
 
     def _traced_call(self, ex, space, impl, args, kwargs):
-        """Dispatch with a structured event.  Wall time is host time of the
-        call: kernels launch asynchronously, so it is enqueue cost, not
-        device time."""
+        """Dispatch with a structured event: op, space, operand shapes, the
+        LaunchConfig the kernel resolved, a bytes estimate and wall time,
+        handed to the tracer and folded into the metrics registry.
+
+        Kernels launch asynchronously, so on a CUDA device the call is
+        synchronised before and after: the wall time then covers the device
+        work of this dispatch alone, and the achieved GB/s of
+        :func:`~repro_torch.observability.events.roofline_summary` is a rate
+        the device reached.  The untraced path never synchronises."""
+        sync = ex.device.type == "cuda"
+        if sync:
+            torch.cuda.synchronize(ex.device)
         tracer = _trace.get_tracer()
+        ex._last_launch_config = None  # set again if the kernel resolves one
         t0 = time.perf_counter()
         out = impl(ex, *args, **kwargs)
+        if sync:
+            torch.cuda.synchronize(ex.device)
         wall_us = (time.perf_counter() - t0) * 1e6
         ts_us = tracer.rel_us(t0) if tracer is not None else 0.0
-        event = _events.DispatchEvent(
+        event = _events.make_event(
             op=self.name,
             space=space,
-            executor=type(ex).__name__,
-            target=ex.hw.name,
+            executor=ex,
+            launch=ex._last_launch_config,
             wall_us=wall_us,
             ts_us=ts_us,
+            operands=args,
+            out=out,
         )
         ex.dispatch_log.record(self.name, event)
         if tracer is not None:
             tracer.complete(
                 self.name, ts_us, wall_us, cat="dispatch", args=event.to_args()
             )
+        _metrics.observe_dispatch(event, ex.hw.hbm_bandwidth)
         return out
 
     def __repr__(self) -> str:

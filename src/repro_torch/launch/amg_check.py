@@ -14,7 +14,8 @@ kernels) unless asked otherwise::
     python -m repro_torch.launch.amg_check                  # poisson_2d(1024)
     python -m repro_torch.launch.amg_check --executor torch --device cpu --smoke
 
-Exits 0 when the gate passes, 1 when it fails.
+``--trace OUT_JSON`` writes a Chrome trace of the run's dispatches and the
+setup's spans.  Exits 0 when the gate passes, 1 when it fails.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import LinOp, default_device, default_executor, make_executor
 from repro_torch.core.executor import synchronize
+from repro_torch.observability import trace
 from repro_torch.precond import make_preconditioner
 from repro_torch.precond.amg import Multigrid
 from repro_torch.solvers import SolveResult, Stop, cg
@@ -164,6 +166,7 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="device of the torch/reference executors (default: "
                          "the card; 'cpu' asks for the CPU)")
+    trace.add_cli_flag(ap)
     args = ap.parse_args(argv)
 
     if args.executor == "cuda":
@@ -174,6 +177,7 @@ def main(argv=None) -> int:
     else:
         device = args.device if args.device is not None else default_device()
         ex = make_executor(args.executor, device=device)
+    trace.enable_from_args(args)
     r = run_amg_check(
         64 if args.smoke else args.n_side,
         cycle=args.cycle,
@@ -183,6 +187,10 @@ def main(argv=None) -> int:
         tol=args.tol,
         executor=ex,
     )
+    if args.trace:
+        trace.export(args.trace)
+        trace.reset()
+        print(f"  trace -> {args.trace}")
     return 0 if r.ok else 1
 
 

@@ -1,1 +1,46 @@
-"""repro_torch.observability — dispatch log, tracing switch, convergence history."""
+"""Observability: tracing, dispatch events, metrics, convergence telemetry.
+
+The port's ``gko::log`` layer, four pieces usable alone:
+
+* :mod:`repro_torch.observability.trace` — span tracer with Chrome
+  trace-event export (``REPRO_TRACE=1`` or ``--trace out.json`` on the
+  entry points);
+* :mod:`repro_torch.observability.events` — structured dispatch events
+  behind ``Executor.dispatch_log`` and their roofline summary;
+* :mod:`repro_torch.observability.metrics` — counters, gauges and
+  histograms with JSONL and table exporters;
+* :mod:`repro_torch.observability.convergence` — the residual-history ring
+  buffer behind every solver's ``history=`` option.
+
+``trace``, ``events`` and ``metrics`` are stdlib only, so the dispatch layer
+imports them unconditionally; ``convergence`` needs torch and is imported
+lazily here.
+"""
+
+from repro_torch.observability import events, metrics, trace
+from repro_torch.observability.events import (
+    DispatchEvent,
+    DispatchLog,
+    roofline_summary,
+)
+from repro_torch.observability.trace import span, validate_trace
+
+__all__ = [
+    "events",
+    "metrics",
+    "trace",
+    "convergence",
+    "DispatchEvent",
+    "DispatchLog",
+    "roofline_summary",
+    "span",
+    "validate_trace",
+]
+
+
+def __getattr__(name):
+    if name == "convergence":
+        import importlib
+
+        return importlib.import_module("repro_torch.observability.convergence")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,39 +3,152 @@
 :class:`DispatchLog` is a ``Counter`` of operation names (the face the
 launch-count pins read) plus a bounded deque of :class:`DispatchEvent`
 records that fills only while :data:`repro_torch.observability.trace.TRACING`
-is on.  Stdlib only.
+is on.  Each event holds what Ginkgo's operation logger sees at a launch:
+
+* the operation, the **kernel space** that served it (``reference`` /
+  ``torch`` / ``cuda``), the executor and its hardware **target**;
+* the operand **shapes** and their power-of-two **shape bucket** (the
+  bucketing of :func:`repro_torch.core.tuning.bucket_shapes`);
+* the :class:`~repro_torch.core.tuning.LaunchConfig` the kernel resolved,
+  where it resolved one;
+* **wall time** of the dispatch and **estimated bytes moved** (each operand
+  and result once), the roofline numerator of :func:`roofline_summary`.
+
+Stdlib only: the registry imports it at module load.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["EVENT_CAPACITY", "DispatchEvent", "DispatchLog"]
+__all__ = [
+    "EVENT_CAPACITY",
+    "DispatchEvent",
+    "DispatchLog",
+    "make_event",
+    "roofline_summary",
+    "shape_bucket",
+    "summarize_operands",
+]
 
 #: bounded so a long traced run cannot grow without limit
 EVENT_CAPACITY = 4096
 
 
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
+
+
+def shape_bucket(shapes) -> int:
+    """Power-of-two bucket of the largest operand's element count."""
+    biggest = 0
+    for shp in shapes:
+        size = 1
+        for d in shp:
+            size *= int(d)
+        biggest = max(biggest, size)
+    return _next_pow2(biggest)
+
+
+def summarize_operands(objs) -> Tuple[List[tuple], int]:
+    """``(shapes, estimated_bytes)`` of a bag of operands.
+
+    A format object with ``memory_bytes`` (``Csr``, ``Ell``, ``Sellp``,
+    ``Coo``, ``Dense``, ``BatchCsr``, ``BatchEll``) counts those bytes; a
+    tensor or array counts its elements times ``dtype.itemsize``; tuples,
+    lists and dicts are walked.  Scalars and other objects count nothing.
+    """
+    shapes: List[tuple] = []
+    nbytes = 0
+    stack = list(objs)
+    budget = 256  # bound on pathological nesting
+    while stack and budget:
+        budget -= 1
+        o = stack.pop()
+        if o is None or isinstance(o, (bool, int, float, complex, str, bytes)):
+            continue
+        shp = getattr(o, "shape", None)
+        if shp is not None:
+            try:
+                shp = tuple(int(d) for d in shp)
+            except (TypeError, ValueError):
+                continue
+            shapes.append(shp)
+            mb = getattr(o, "memory_bytes", None)
+            if mb is not None:
+                nbytes += int(mb)
+                continue
+            itemsize = int(getattr(getattr(o, "dtype", None), "itemsize", 0) or 4)
+            size = 1
+            for d in shp:
+                size *= d
+            nbytes += size * itemsize
+        elif isinstance(o, (tuple, list)):
+            stack.extend(o)
+        elif isinstance(o, dict):
+            stack.extend(o.values())
+    return shapes, nbytes
+
+
 @dataclasses.dataclass(frozen=True)
 class DispatchEvent:
-    """One operation dispatch: which op, which kernel space served it, where."""
+    """One operation dispatch, fully described."""
 
     op: str
     space: str
     executor: str
     target: str
+    shapes: Tuple[tuple, ...]
+    shape_bucket: int
+    launch: Optional[Dict[str, Any]]
     wall_us: float
+    est_bytes: int
     ts_us: float
 
-    def to_args(self) -> dict:
-        """The ``args`` payload of a trace event for this dispatch."""
-        return {
+    def to_args(self) -> Dict[str, Any]:
+        """The ``args`` payload of the trace event for this dispatch."""
+        args: Dict[str, Any] = {
             "space": self.space,
             "executor": self.executor,
             "target": self.target,
+            "shapes": [list(s) for s in self.shapes],
+            "shape_bucket": self.shape_bucket,
+            "est_bytes": self.est_bytes,
         }
+        if self.launch is not None:
+            args["launch"] = self.launch
+        return args
+
+    @property
+    def gbs(self) -> float:
+        """Achieved GB/s (bytes estimate over wall time; 0 when unknown)."""
+        if self.wall_us <= 0.0:
+            return 0.0
+        return self.est_bytes / (self.wall_us * 1e-6) / 1e9
+
+
+def make_event(*, op: str, space: str, executor, launch, wall_us: float,
+               ts_us: float, operands, out) -> DispatchEvent:
+    """A :class:`DispatchEvent` for a finished dispatch."""
+    in_shapes, in_bytes = summarize_operands(operands)
+    _, out_bytes = summarize_operands([out])
+    launch_dict = None
+    if launch is not None and dataclasses.is_dataclass(launch):
+        launch_dict = dataclasses.asdict(launch)
+    return DispatchEvent(
+        op=op,
+        space=space,
+        executor=type(executor).__name__,
+        target=executor.hw.name,
+        wall_us=wall_us,
+        ts_us=ts_us,
+        shapes=tuple(in_shapes),
+        shape_bucket=shape_bucket(in_shapes),
+        launch=launch_dict,
+        est_bytes=in_bytes + out_bytes,
+    )
 
 
 class DispatchLog(collections.Counter):
@@ -53,3 +166,31 @@ class DispatchLog(collections.Counter):
     def clear(self) -> None:  # counts and events clear as one unit
         super().clear()
         self.events.clear()
+
+
+def roofline_summary(events, hbm_bandwidth: Optional[float] = None
+                     ) -> List[Dict[str, Any]]:
+    """Dispatch events aggregated per (op, space, target): count, bytes, wall
+    µs and achieved GB/s, and with ``hbm_bandwidth`` (bytes/s; the ``h100``
+    target's 3.35e12) the fraction of that bound."""
+    agg: Dict[tuple, Dict[str, Any]] = {}
+    for ev in events:
+        key = (ev.op, ev.space, ev.target)
+        row = agg.get(key)
+        if row is None:
+            row = agg[key] = {"op": ev.op, "space": ev.space,
+                              "target": ev.target, "count": 0,
+                              "est_bytes": 0, "wall_us": 0.0}
+        row["count"] += 1
+        row["est_bytes"] += ev.est_bytes
+        row["wall_us"] += ev.wall_us
+    rows = []
+    for key in sorted(agg):
+        row = agg[key]
+        wall_s = row["wall_us"] * 1e-6
+        row["gbs"] = row["est_bytes"] / wall_s / 1e9 if wall_s > 0 else 0.0
+        if hbm_bandwidth:
+            row["bound_gbs"] = hbm_bandwidth / 1e9
+            row["frac_of_bound"] = row["gbs"] / (hbm_bandwidth / 1e9)
+        rows.append(row)
+    return rows

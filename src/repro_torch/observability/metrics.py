@@ -1,31 +1,42 @@
-"""Metrics registry: counters, gauges and histograms, named and labelled.
+"""Metrics registry: counters, gauges and histograms, with JSONL/table export.
 
-A copy of the JAX package's registry core (stdlib only):
+A copy of the JAX package's registry (stdlib only):
 
-* :class:`Counter` — monotonically increasing;
-* :class:`Gauge` — last write wins (AMG's ``amg_level_rows``,
-  ``amg_level_nnz`` and ``amg_operator_complexity``);
-* :class:`Histogram` — count/sum/min/max and power-of-two bucket counts.
+* :class:`Counter` — monotonically increasing (dispatches, iterations,
+  serve-cache hits);
+* :class:`Gauge` — last write wins (AMG's ``amg_level_rows``, achieved GB/s
+  of a dispatch);
+* :class:`Histogram` — count/sum/min/max, power-of-two bucket counts
+  (sub-unit ones for wall times in seconds) and bucket quantiles (the solve
+  service's p50/p99 latency).
 
 A ``(name, labels)`` pair identifies one series: ``gauge("amg_level_rows",
-level=0).set(n)``.  :func:`samples` lists every series as a dict.  The JSONL
-and table exporters and the histogram quantiles are not ported yet.
+level=0).set(n)``.  :func:`samples` lists every series as a dict;
+:func:`export_jsonl` writes them one JSON object a line (:func:`load_jsonl`
+reads them back) and :func:`render_table` as an aligned table.
+:func:`observe_dispatch` folds a traced dispatch event into the registry.
 """
 
 from __future__ import annotations
 
+import json
 import threading
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "default_registry",
     "counter",
     "gauge",
     "histogram",
     "samples",
+    "export_jsonl",
+    "load_jsonl",
+    "render_table",
+    "observe_dispatch",
     "reset",
 ]
 
@@ -107,6 +118,23 @@ class Histogram:
     def mean(self) -> float:
         return self.sum / self.count if self.count else 0.0
 
+    def quantile(self, q: float) -> Optional[float]:
+        """Upper bound of the bucket holding the ``q``-quantile (0 <= q <= 1);
+        None on an empty histogram.  One power of two of resolution."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        if not self.count:
+            return None
+        target = q * self.count
+        cum = 0
+        bound = None
+        for b in sorted(self.buckets):
+            bound = b
+            cum += self.buckets[b]
+            if cum >= target:
+                break
+        return float(bound)
+
     def sample(self) -> Dict[str, Any]:
         return {
             "count": self.count,
@@ -160,12 +188,45 @@ class MetricsRegistry:
             out.append(rec)
         return out
 
+    def export_jsonl(self, path: str) -> str:
+        with open(path, "w") as f:
+            for rec in self.samples():
+                f.write(json.dumps(rec, default=str))
+                f.write("\n")
+        return path
+
+    def render_table(self) -> str:
+        rows = []
+        for rec in self.samples():
+            labels = ",".join(f"{k}={v}" for k, v in sorted(rec["labels"].items()))
+            if rec["kind"] == "histogram":
+                val = (f"n={rec['count']} mean={rec['mean']:.3g} "
+                       f"min={rec['min']:.3g} max={rec['max']:.3g}"
+                       if rec["count"] else "n=0")
+            else:
+                val = f"{rec['value']:.6g}"
+            rows.append((rec["name"], labels, rec["kind"], val))
+        if not rows:
+            return "(no metrics recorded)"
+        widths = [max(len(r[i]) for r in rows) for i in range(3)]
+        header = ("metric".ljust(widths[0]), "labels".ljust(widths[1]),
+                  "kind".ljust(widths[2]), "value")
+        lines = ["  ".join(header), "  ".join("-" * len(h) for h in header)]
+        for r in rows:
+            lines.append("  ".join((r[0].ljust(widths[0]), r[1].ljust(widths[1]),
+                                    r[2].ljust(widths[2]), r[3])))
+        return "\n".join(lines)
+
     def reset(self) -> None:
         with self._lock:
             self._series.clear()
 
 
 _DEFAULT = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    return _DEFAULT
 
 
 def counter(name: str, **labels) -> Counter:
@@ -186,3 +247,33 @@ def samples() -> List[Dict[str, Any]]:
 
 def reset() -> None:
     _DEFAULT.reset()
+
+
+def export_jsonl(path: str) -> str:
+    return _DEFAULT.export_jsonl(path)
+
+
+def render_table() -> str:
+    return _DEFAULT.render_table()
+
+
+def load_jsonl(path: str) -> List[Dict[str, Any]]:
+    """Read back an exported metrics JSONL file."""
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def observe_dispatch(event, hbm_bandwidth: Optional[float] = None) -> None:
+    """Fold one :class:`~repro_torch.observability.events.DispatchEvent` into
+    the default registry: ``dispatch_total`` and ``dispatch_wall_us`` per
+    op x space x target, and, when the event carries a bytes estimate, the
+    achieved ``dispatch_gbs`` with ``dispatch_frac_of_bound`` against
+    ``hbm_bandwidth`` (bytes/s)."""
+    labels = {"op": event.op, "space": event.space, "target": event.target}
+    counter("dispatch_total", **labels).inc()
+    histogram("dispatch_wall_us", **labels).observe(event.wall_us)
+    if event.est_bytes and event.wall_us > 0:
+        g = event.gbs
+        gauge("dispatch_gbs", **labels).set(g)
+        if hbm_bandwidth:
+            gauge("dispatch_frac_of_bound", **labels).set(g / (hbm_bandwidth / 1e9))

@@ -26,14 +26,18 @@ Setup emits ``amg.setup`` / ``amg.level`` / ``amg.coarse_solver`` trace
 spans (:func:`repro_torch.observability.trace.span`) and the gauges
 ``amg_level_rows``, ``amg_level_nnz`` and ``amg_operator_complexity``.
 
-The serve-path half of the JAX module (``amg_serve_pattern``,
-``amg_serve_factors``, ``batch_amg_apply``) is not ported yet.
+The serve path's two-level half (``amg_serve_pattern``,
+``amg_serve_factors``, ``batch_amg_apply``) splits the hierarchy as the
+serve cache does: aggregation and the Galerkin maps from the pattern alone,
+the factors from the values.  Its sums (coarse values, restriction) are
+fixed-order segment sums, so a slot's apply repeats bit for bit on the card
+whatever the other slots hold.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -58,9 +62,13 @@ from repro_torch.sparse.ops import (
 
 __all__ = [
     "AmgLevel",
+    "AmgServePattern",
     "Multigrid",
     "aggregate",
     "amg_preconditioner",
+    "amg_serve_factors",
+    "amg_serve_pattern",
+    "batch_amg_apply",
     "strength_mask",
     "tentative_prolongator",
 ]
@@ -401,3 +409,159 @@ def amg_preconditioner(A: Csr, *, executor=None, **opts) -> Multigrid:
             f"amg preconditioner needs a CSR operand, got {type(A).__name__}"
         )
     return Multigrid(A, executor=executor, **opts)
+
+
+# =============================================================================
+# Serve-path AMG: pattern-tier hierarchy + values-tier refresh
+# =============================================================================
+#
+# The serve engine caches per *pattern* and refreshes per *values*, so the
+# hierarchy splits the same way: aggregation from the pattern alone (every
+# off-diagonal strong), the unsmoothed unit prolongator (values-free), and
+# Galerkin coarse values that are segment sums of the fine values over a
+# pattern-derived map.  The cycle is the additive two-level correction
+# M⁻¹ r = ω·D⁻¹ r + P·A_c⁻¹·Pᵀ r, batched over a lane's slots, from the flat
+# factor row ``[inv_diag | A_c⁻¹.flatten()]`` the values tier stores.
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class AmgServePattern:
+    """Pattern-tier hierarchy data: values-independent, cacheable (the JAX
+    package's arrays)."""
+
+    agg: np.ndarray        # (n,)  fine row -> aggregate
+    n_agg: int
+    coarse_indptr: np.ndarray   # coarse pattern (n_agg + 1,)
+    coarse_indices: np.ndarray  # (coarse_nnz,)
+    #: fine nnz slot -> coarse nnz slot (the Galerkin product is a segment
+    #: sum because P is the unit tentative prolongator)
+    seg: np.ndarray
+    #: fine nnz slots holding the diagonal
+    diag_slots: np.ndarray
+    n: int
+    #: device -> the index tensors of the applies (built on first use)
+    _tables: Dict[str, "_ServeTables"] = dataclasses.field(
+        default_factory=dict, repr=False)
+
+    @property
+    def flat_len(self) -> int:
+        return self.n + self.n_agg * self.n_agg
+
+    def tables(self, device) -> "_ServeTables":
+        key = str(device)
+        tb = self._tables.get(key)
+        if tb is None:
+            tb = self._tables[key] = _ServeTables.of(self, device)
+        return tb
+
+
+def _segments(keys: np.ndarray, count: int):
+    """Stable order grouping equal ``keys`` and the ``(count + 1,)`` offsets of
+    each key's run in it: a fixed summation order per segment."""
+    order = np.argsort(keys, kind="stable")
+    offsets = np.zeros(count + 1, np.int64)
+    offsets[1:] = np.cumsum(np.bincount(keys, minlength=count))
+    return order, offsets
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _ServeTables:
+    agg: torch.Tensor          # (n,) fine row -> aggregate
+    agg_order: torch.Tensor    # fine rows grouped by aggregate
+    agg_offsets: torch.Tensor  # (n_agg + 1,)
+    seg_order: torch.Tensor    # fine slots grouped by coarse slot
+    seg_offsets: torch.Tensor  # (coarse_nnz + 1,)
+    diag_slots: torch.Tensor
+    crows: torch.Tensor        # coarse slot -> (row, column)
+    ccols: torch.Tensor
+
+    @classmethod
+    def of(cls, pat: AmgServePattern, device) -> "_ServeTables":
+        def on(a):
+            return torch.as_tensor(np.asarray(a, np.int64), device=device)
+
+        agg_order, agg_offsets = _segments(pat.agg, pat.n_agg)
+        nc_nnz = int(pat.coarse_indices.shape[0])
+        seg_order, seg_offsets = _segments(pat.seg, nc_nnz)
+        crows = np.repeat(np.arange(pat.n_agg, dtype=np.int64),
+                          np.diff(pat.coarse_indptr))
+        return cls(on(pat.agg), on(agg_order), on(agg_offsets), on(seg_order),
+                   on(seg_offsets), on(pat.diag_slots), on(crows),
+                   on(pat.coarse_indices))
+
+
+def amg_serve_pattern(indptr: np.ndarray, indices: np.ndarray,
+                      n: int) -> AmgServePattern:
+    """The values-free two-level hierarchy of a sparsity pattern (host numpy,
+    the JAX package's construction)."""
+    indptr = np.asarray(indptr)
+    indices = np.asarray(indices)
+    nnz = indices.shape[0]
+    strong = np.ones(nnz, bool)
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(indptr))
+    strong[rows == indices] = False
+    agg, n_agg = aggregate(indptr, indices, strong, n)
+    # Galerkin pattern: fine entry (i, j) lands at coarse (agg[i], agg[j])
+    crows = agg[rows]
+    ccols = agg[indices]
+    order = np.lexsort((ccols, crows))
+    head = np.ones(nnz, bool)
+    head[1:] = (crows[order][1:] != crows[order][:-1]) | (
+        ccols[order][1:] != ccols[order][:-1])
+    group = np.cumsum(head) - 1  # coarse slot per *sorted* fine entry
+    seg = np.empty(nnz, np.int64)
+    seg[order] = group
+    starts = np.flatnonzero(head)
+    c_indptr = np.zeros(n_agg + 1, np.int64)
+    c_indptr[1:] = np.cumsum(np.bincount(crows[order][starts], minlength=n_agg))
+    c_indices = ccols[order][starts].astype(np.int32)
+    return AmgServePattern(
+        agg=agg,
+        n_agg=n_agg,
+        coarse_indptr=c_indptr,
+        coarse_indices=c_indices,
+        seg=seg,
+        diag_slots=np.flatnonzero(rows == indices),
+        n=n,
+    )
+
+
+def amg_serve_factors(pat: AmgServePattern, values: torch.Tensor) -> torch.Tensor:
+    """Values-tier refresh: the flat row ``[inv_diag | A_c⁻¹.flatten()]``.
+
+    Gathers and one segment sum over the pattern's maps, no re-aggregation.
+    Each coarse value sums its fine entries in a fixed order (the JAX
+    package's ``segment_sum`` becomes ``segment_reduce``), and every coarse
+    slot is a distinct (row, column), so the dense coarse matrix is a plain
+    scatter: no atomic adds.
+    """
+    tb = pat.tables(values.device)
+    diag = values[tb.diag_slots]
+    inv_diag = torch.where(diag != 0, 1.0 / diag, torch.zeros_like(diag))
+    c_vals = torch.segment_reduce(values[tb.seg_order][:, None], "sum",
+                                  offsets=tb.seg_offsets, axis=0)[:, 0]
+    dense = values.new_zeros((pat.n_agg, pat.n_agg))
+    dense[tb.crows, tb.ccols] = c_vals
+    c_inv = torch.linalg.inv(dense.float()).to(values.dtype)
+    return torch.cat([inv_diag, c_inv.reshape(-1)])
+
+
+def batch_amg_apply(pat: AmgServePattern, flat: torch.Tensor, R: torch.Tensor,
+                    omega: float = 2.0 / 3.0) -> torch.Tensor:
+    """Additive two-level correction over a batch, ``(nb, n) -> (nb, n)``.
+
+    ``flat`` stacks per-system :func:`amg_serve_factors` rows, ``(nb,
+    flat_len)``.  ``M⁻¹ R = ω·D⁻¹ R + P·A_c⁻¹·Pᵀ R`` with the unit P: the
+    restriction sums each aggregate's rows as one fixed-order segment (the
+    JAX package's scatter-add), the coarse solve is a batched dense matvec
+    and the interpolation a gather.  Every op reduces row by row, so a
+    slot's apply does not depend on the other slots.
+    """
+    n, nc = pat.n, pat.n_agg
+    tb = pat.tables(R.device)
+    inv_diag = flat[:, :n]
+    c_inv = flat[:, n:].reshape(-1, nc, nc)
+    rc = torch.segment_reduce(R[:, tb.agg_order].T, "sum",
+                              offsets=tb.agg_offsets, axis=0).T
+    xc = torch.bmm(c_inv, rc[:, :, None])[:, :, 0]
+    return omega * inv_diag * R + xc[:, tb.agg]

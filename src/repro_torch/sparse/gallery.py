@@ -13,11 +13,25 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["HostCsr", "anisotropic_2d", "convection_diffusion_2d",
-           "poisson_2d", "poisson_3d", "power_law_laplacian", "spd_banded"]
+__all__ = ["BANDED_OFFSETS", "HostCsr", "anisotropic_2d",
+           "convection_diffusion_2d", "poisson_2d", "poisson_3d",
+           "power_law_laplacian", "spd_banded"]
 
 #: (indptr, indices, values, shape) — the host-side CSR quadruple
 HostCsr = Tuple[np.ndarray, np.ndarray, np.ndarray, Tuple[int, int]]
+
+#: off-diagonal offset sets for :func:`spd_banded`, each a distinct sparsity
+#: pattern (the serve traffic gallery indexes into this tuple)
+BANDED_OFFSETS = (
+    (1,),
+    (1, 2),
+    (1, 3),
+    (1, 2, 4),
+    (2,),
+    (1, 2, 3),
+    (1, 5),
+    (3,),
+)
 
 
 def _coo_to_csr(
@@ -217,19 +231,35 @@ def spd_banded(
     shift: float,
     rng: np.random.Generator,
 ) -> HostCsr:
-    """Diagonally dominant SPD banded matrix (the serve-traffic family)."""
-    a = np.zeros((n, n), np.float32)
+    """Diagonally dominant SPD banded matrix (the serve-traffic family).
+
+    The JAX package's draw and arithmetic: the diagonal ``shift + U(0,
+    0.5)``, ``-1/off`` on each offset band, then the diagonal plus its row's
+    absolute sum (numpy's f32 row sum over the dense row, so the same
+    rounding).  The CSR arrays come from the band structure directly rather
+    than from a scan of the dense matrix: every band entry is nonzero.
+    """
     idx = np.arange(n)
-    a[idx, idx] = shift + rng.uniform(0.0, 0.5, size=n).astype(np.float32)
-    for off in offsets:
-        w = np.float32(-1.0 / off)
+    diag = shift + rng.uniform(0.0, 0.5, size=n).astype(np.float32)
+    # the absolute values in place: -w for the bands, the diagonal as drawn
+    a = np.zeros((n, n), np.float32)
+    a[idx, idx] = diag
+    offs = sorted({int(o) for o in offsets if 0 < int(o) < n})
+    for off in offs:
+        w = np.float32(1.0 / off)
         a[idx[off:], idx[:-off]] = w
         a[idx[:-off], idx[off:]] = w
-    # diagonal dominance keeps every draw SPD
-    a[idx, idx] += np.abs(a).sum(axis=1).astype(np.float32)
-    nz = a != 0
+    diag = diag + a.sum(axis=1).astype(np.float32)
+    # row i's columns ascending: i - offsets (widest first), i, i + offsets
+    shifts = np.array([-o for o in offs[::-1]] + [0] + offs, np.int64)
+    band = [np.float32(-1.0 / o) for o in offs[::-1]]
+    band += [np.float32(0.0)] + [np.float32(-1.0 / o) for o in offs]
+    cols = idx[:, None] + shifts[None, :]
+    vals = np.broadcast_to(np.asarray(band, np.float32), cols.shape).copy()
+    vals[:, len(offs)] = diag
+    keep = (cols >= 0) & (cols < n)
     indptr = np.zeros(n + 1, np.int64)
-    indptr[1:] = np.cumsum(nz.sum(axis=1))
-    indices = np.nonzero(nz)[1].astype(np.int32)
-    values = a[nz].astype(np.float32)
+    indptr[1:] = np.cumsum(keep.sum(axis=1))
+    indices = cols[keep].astype(np.int32)
+    values = vals[keep].astype(np.float32)
     return indptr, indices, values, (n, n)

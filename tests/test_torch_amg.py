@@ -184,8 +184,10 @@ def test_dispatch_log_counts_per_level(smooth):
     names = [n for n, _ in events]
     assert names.count("amg.level") == levels and names.count("amg.setup") == 1
     assert names.count("spgemm.numeric") == ex.dispatch_log["spgemm"]
+    # a traced dispatch also folds into the registry (dispatch_total, the
+    # dispatch_wall_us histogram): the gauges are the valued series
     gauges = {(s["name"], s["labels"].get("level")): s["value"]
-              for s in metrics.samples()}
+              for s in metrics.samples() if s["kind"] == "gauge"}
     assert gauges[("amg_level_rows", "0")] == 256
     assert gauges[("amg_level_nnz", str(levels))] == M.coarse_A.nnz
     assert gauges[("amg_operator_complexity", None)] == M.operator_complexity
