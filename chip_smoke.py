@@ -149,7 +149,7 @@ Phases, each of which exits non-zero on failure:
             block-Jacobi under Stop(100, 1e-12): the f64 true residual below
             1e-9 and a tenth of a pure-f32 CG's, spmv_ell's f64 and f32
             launches counted apart.
-11. serve — repro_torch.serve on the CUDA executor: (a) 4,096 requests of
+11. serve — repro_torch.serve on the CUDA executor: (a) 2,048 requests of
             1,024 rows (4 banded SPD patterns, 60 % repeats) unpaced through
             SolveService, 256-slot ELL lanes, block-Jacobi 4, CG to 1e-5:
             SERVE-GATE, every host f64 true residual within SERVE_TRUE_TOL,
@@ -158,9 +158,9 @@ Phases, each of which exits non-zero on failure:
             launched exactly as the lanes' counted refreshes and advance
             sweeps imply, 8 busy-lane responses bitwise equal to solo
             engines', the inline engine twice bit for bit (and equal to the
-            service), the torch space on the card (iterations within 1, x
-            within 1e-3), solves/s, latency p50/p99, and torch.profiler over
-            the inline drain of the first 256 requests (device busy share,
+            service), the torch space on the card over the first 1,024
+            requests (iterations within 1, x within 1e-3), solves/s,
+            latency p50/p99, and torch.profiler over the inline drain of the first 256 requests (device busy share,
             device µs an advance sweep, top kernels); (b) the first 1,024
             requests paced at half (a)'s rate: p50/p99; (c) 512 requests
             each on CSR lanes with ParILU and with AMG, and BiCGSTAB on ELL
@@ -171,14 +171,37 @@ Phases, each of which exits non-zero on failure:
             roofline summary, the metrics JSONL round-tripped; then the
             three kernels held and timed at a lane's operator and blocks,
             and a NaN system held to its own row in each.
+12. dist  — repro_torch.distributed on phase 4's system (block-Jacobi 8 in
+            the one storage class phase 4's adaptive rule picked): (a) a
+            one-part DistEll on one rank (NCCL, this process) through
+            dist_solve: iterations within 1 of phase 4's, x within 1e-3,
+            the true residual, the launches and reductions exactly, a repeat
+            bit for bit, device us an iteration; (b) DIST_RANKS ranks of
+            524,288 rows time-sharing the card (gloo, spawned; every
+            collective staged through host memory): CG in f32 within 1
+            iteration and 1e-3 of (a), the launches exactly on every rank,
+            three reductions an iteration, a repeat (profiled on rank 0)
+            bit for bit and every rank's x the same bits; then a window of
+            pipelined CG in f64 at exactly one reduction an iteration; (c)
+            repro_torch.launch.dist_solve's entry point at 1,048,576 rows
+            (Jacobi-CG on ELL, one rank): DIST-PARITY: PASS;
+13. implicit — (a) make_implicit_solve on convection_diffusion_2d(1024,
+            Pe 5, upwind), CSR, GMRES(30): one forward and one backward,
+            the forward's true residual and the transposed solve's within
+            1e-5, the values gradient equal to -lam[row] x[col] in f64
+            within 1e-5, wall and device time; (b) the DEQ model
+            (DeqConfig()) at batch 8 on the card: loss and gradients within
+            1e-4 of the CPU's torch space, and in f64 the gradient along a
+            seeded direction within 1e-3 of central differences.
 
 It then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
-sum over the paths' counted runs (phases 4 to 11: block-Jacobi, pipelined
+sum over the paths' counted runs (phases 4 to 12: block-Jacobi, pipelined
 and flexible CG; the AMG check; SELL-P CG; the four batched solves; the two
 serve calls; BiCGSTAB, CGS, GMRES, ParILU-BiCGSTAB and mixed-precision IR;
-the served stream of 11a and the three lanes of 11c),
-each run counted from 0; ``launches_by_path`` gives each, and
+the served stream of 11a and the three lanes of 11c; the distributed CG on
+one rank, on four ranks (each rank's counts, summed) and its pipelined
+window, and the launcher), each run counted from 0; ``launches_by_path`` gives each, and
 block_jacobi_apply's storage variants carry the same per storage dtype.
 ``max_abs_err`` is the larger over the shapes the kernel was held at;
 ``at_amg_path_shape`` / ``at_batch_path_shape`` / ``at_serve_path_shape``
@@ -281,11 +304,11 @@ RWKV_CMP_STEPS = 8
 RWKV_F32_REF_MARGIN = 1.25
 RWKV_F32_LAYERS, RWKV_F32_BATCH, RWKV_F32_PROMPT = 8, 2, 1024
 
-# phase 11: solve serving.  The stream: 4,096 systems of 1,024 rows over 4
+# phase 11: solve serving.  The stream: 2,048 systems of 1,024 rows over 4
 # banded SPD patterns, 60 % of them repeating an earlier matrix (with a fresh
 # right-hand side); 256 slots a lane, 8 sweeps a chunk, ELL lanes with
 # 4-row block-Jacobi, so the three batched kernels carry the solves
-SERVE_TRAFFIC = dict(num_requests=4096, gallery_size=4, repeat_ratio=0.6,
+SERVE_TRAFFIC = dict(num_requests=2048, gallery_size=4, repeat_ratio=0.6,
                      n=1024, seed=0)
 SERVE_CONFIG = dict(slots=256, chunk_sweeps=8, solver="cg", fmt="ell",
                     precond="block_jacobi", block_size=4)
@@ -297,7 +320,25 @@ SERVE_TRUE_TOL = 1e-4
 #: (half load) is held to the entry point's default
 SERVE_UNPACED_P99_BOUND = 60.0
 SERVE_P99_BOUND = 2.0
+#: phase 12: ranks of 12b (time-sharing the one card, gloo) and their
+#: collective timeout, and 12c's launcher arguments
+DIST_RANKS = 4
+DIST_TIMEOUT_S = 120.0
+#: 12b's pipelined CG: a window (its reductions an iteration are the check;
+#: phase 4b holds its convergence on one card)
+DIST_PIPE_STOP = dict(max_iters=20, reduction_factor=1e-30)
+DIST_LAUNCH = ["--n", "1048576", "--format", "ell", "--solver", "cg",
+               "--precond", "jacobi"]
+#: phase 13: 13a's stop, its profiled window of GMRES cycles, 13b's batch
+IMPLICIT_STOP = dict(max_iters=3600, reduction_factor=1e-6)
+IMPLICIT_WINDOW = 2
+DEQ_BATCH = 8
+
 SERVE_HALF_LOAD_REQUESTS = 1024
+#: 11a's torch-space comparison runs the stream's first requests only (the
+#: stream and this comparison were cut, from 4,096 requests, so that phases
+#: 12-13 fit the smoke's time)
+SERVE_TORCH_REQUESTS = 1024
 SERVE_PROFILE_REQUESTS = 256
 SERVE_TRACE_REQUESTS = 256
 SERVE_LANE_REQUESTS = 512
@@ -1026,7 +1067,8 @@ def phase_path(torch, A, b):
     say(f"[path] torch space loop {t_torch_loop:.4f} s = "
         f"{t_torch_loop / res_tl.iterations * 1e3:.4f} ms per iteration")
     profile = phase_profile(torch, A, b, P, ex)
-    return launches, by_storage, {"iterations": k, "time_to_solution_s": t_total,
+    return launches, by_storage, {"iterations": k, "x": x,
+                      "time_to_solution_s": t_total,
                       "setup_s": t_setup, "loop_s": t_loop,
                       "ms_per_iteration": t_loop / k * 1e3,
                       "precision_counts": P.precision_counts,
@@ -3420,20 +3462,23 @@ def phase_serve(torch, card: str, copy_bw: float):
                              "device_us_per_advance_sweep": per_sweep,
                              "profile": prof}
 
-        # the torch space on the card
+        # the torch space on the card, over the stream's first
+        # SERVE_TORCH_REQUESTS requests
         ex_t = make_executor("torch", device="cuda")
-        inline_t, wall_t, _ = _serve_inline(torch, config, ex_t, traffic)
+        inline_t, wall_t, _ = _serve_inline(torch, config, ex_t,
+                                            traffic[:SERVE_TORCH_REQUESTS])
         worst_dx, worst_di = 0.0, 0
-        for rid, r in inline1.items():
-            o = inline_t[rid]
+        for rid, o in inline_t.items():
+            r = inline1[rid]
             dx = float(np.linalg.norm(o.x - r.x) / np.linalg.norm(r.x))
             worst_dx, worst_di = max(worst_dx, dx), max(worst_di,
                                                         abs(o.iterations - r.iterations))
             if not o.converged or abs(o.iterations - r.iterations) > 1 or not dx <= 1e-3:
                 fail(f"serve 11a: request {rid} in the torch space: iterations "
                      f"{o.iterations} against {r.iterations}, x within {dx:.3e}")
-        say(f"[serve] ({card}) 11a: torch space on the card {wall_t:.4f} s "
-            f"({len(traffic) / wall_t:.1f} solves/s); iterations within "
+        say(f"[serve] ({card}) 11a: torch space on the card, the first "
+            f"{len(inline_t)} requests in {wall_t:.4f} s "
+            f"({len(inline_t) / wall_t:.1f} solves/s); iterations within "
             f"{worst_di}, x within {worst_dx:.3e} (relative)")
         summary["torch_space"] = {"wall_s": wall_t, "max_iteration_delta": worst_di,
                                   "max_relative_dx": worst_dx}
@@ -3590,6 +3635,435 @@ def phase_serve(torch, card: str, copy_bw: float):
     return paths, summary, held
 
 
+# -- phase 12: the distributed solver layer -------------------------------------------
+
+
+def _host_residual(host, x, b) -> float:
+    """||b - A x|| / ||b|| in f64 on the host, A a host CSR triplet."""
+    import numpy as np
+
+    ip, ix, v = host[:3]
+    rows = np.repeat(np.arange(len(ip) - 1), np.diff(ip))
+    x = np.asarray(x, np.float64)
+    b = np.asarray(b, np.float64)
+    ax = np.bincount(rows, weights=np.asarray(v, np.float64) * x[ix],
+                     minlength=len(b))
+    return float(np.linalg.norm(b - ax) / np.linalg.norm(b))
+
+
+def _counted_world(torch, run):
+    """``run()`` with the kernel and collective counts set to 0 just before
+    it and read just after: ``(result, wall s, launches, block_jacobi_apply
+    by storage, collectives)``."""
+    from repro_torch import kernels as K
+    from repro_torch.distributed import comm
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    comm.reset_collective_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, K.launch_counts(),
+            dict(K.block_jacobi_apply.launches_by_storage),
+            comm.collective_counts())
+
+
+def _dist_cg_launches(k: int, one_block: bool) -> dict:
+    """A distributed block-Jacobi CG's launches on one rank over ``k``
+    iterations (one storage class): with one block and no padding the fused
+    loop's SpMV + dot is one spmv_dot_ell; with a halo every apply is three
+    spmv_ell (interior, boundary, halo) and the dot a torch op."""
+    if one_block:
+        return {"spmv_ell": 1, "spmv_dot_ell": k, "axpy_norm": k,
+                "block_jacobi_apply": k + 1}
+    return {"spmv_ell": 3 * (k + 1), "axpy_norm": k, "block_jacobi_apply": k + 1}
+
+
+def _dist_rank(cfg: dict) -> dict:
+    """Phase 12b's rank (spawned into a gloo world of DIST_RANKS sharing the
+    card): its rows of phase 4's system, block-Jacobi CG in f32 (counted,
+    then repeated, the repeat profiled on rank 0), and DIST_PIPE_STOP's
+    window of pipelined CG in f64 (counted).  Returns counts, times and a
+    digest of every x."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.core import make_executor
+    from repro_torch.distributed import DistEll, Partition, comm, dist_preconditioner
+    from repro_torch.solvers import Stop, cg
+    from repro_torch.sparse import gallery
+
+    import torch
+
+    marks = {"enter": time.time()}
+    rank, size = comm.world()
+    ip, ix, v, shape = gallery.poisson_3d(cfg["n_side"])
+    marks["gallery"] = time.time()
+    n = shape[0]
+    b = torch.from_numpy(np.random.default_rng(cfg["seed"]).standard_normal(n)
+                         .astype(np.float32)).cuda()
+    ex = make_executor("cuda")
+    t0 = time.perf_counter()
+    Ad = DistEll.from_host(ip, ix, v, Partition.uniform(n, size), device="cuda")
+    Pd = dist_preconditioner(Ad, "block_jacobi", executor=ex, **cfg["precond"])
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    marks["setup"] = time.time()
+    stop = Stop(**cfg["stop"])
+
+    def digest(x):
+        return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()
+
+    res, wall, launches, storage, coll = _counted_world(
+        torch, lambda: cg(Ad, b, M=Pd, stop=stop, executor=ex))
+    # the repeat, profiled on rank 0 (every rank runs it; the others
+    # unprofiled): the device time of a whole solve
+    box = []
+    run = lambda: box.append(cg(Ad, b, M=Pd, stop=stop, executor=ex))  # noqa: E731
+    prof = (_device_profile(torch, run, "12b f32 CG repeat", res.iterations,
+                            "iteration", tag="dist 4 ranks")
+            if rank == 0 else run())
+    again = box[0]
+    marks["cg_and_repeat"] = time.time()
+    out = {"rank": rank, "setup_s": setup, "halo_cols": Ad.num_halo_cols,
+           "iterations": res.iterations, "converged": res.converged,
+           "wall_s": wall, "launches": launches, "storage": storage,
+           "collectives": coll, "digest": digest(res.x), "profile": prof,
+           "repeat_equal": (again.iterations == res.iterations
+                            and bool(torch.equal(again.x, res.x))),
+           "x": res.x.cpu().numpy() if rank == 0 else None}
+    A64 = Ad.astype(torch.float64)
+    P64 = dist_preconditioner(A64, "block_jacobi", executor=ex,
+                              block_size=cfg["precond"]["block_size"])
+    pres, pwall, plaunch, pstorage, pcoll = _counted_world(
+        torch, lambda: cg(A64, b.double(), M=P64, executor=ex, pipeline=True,
+                          stop=Stop(**cfg["pipe_stop"])))
+    marks["pipelined"] = time.time()
+    out["marks"] = marks
+    out["pipelined"] = {"iterations": pres.iterations,
+                        "converged": pres.converged, "wall_s": pwall,
+                        "launches": plaunch, "storage": pstorage,
+                        "collectives": pcoll, "digest": digest(pres.x),
+                        "x": pres.x.cpu().numpy() if rank == 0 else None}
+    return out
+
+
+def _sum_counts(dicts) -> dict:
+    out = collections.Counter()
+    for d in dicts:
+        out.update({k: c for k, c in d.items() if c})
+    return dict(out)
+
+
+def phase_dist(torch, host, b, k4: int, x4, storage4) -> tuple:
+    """Phase 12: the distributed solver layer (see the module docstring).
+    Returns the counted paths (launches and block_jacobi_apply by storage)
+    and the phase's record."""
+    import numpy as np
+
+    from repro_torch.core import make_executor
+    from repro_torch.distributed import (DistEll, Partition, comm,
+                                         dist_preconditioner)
+    from repro_torch.solvers import Stop, cg
+
+    t_phase = time.perf_counter()
+    ip, ix, v, shape = host
+    n = shape[0]
+    stop = Stop(**STOP_KW)
+    # phase 4's adaptive rule stored every block in one class: that dtype,
+    # named, is the uniform storage a distributed block-Jacobi takes
+    if len(storage4) != 1:
+        fail(f"phase 4's block-Jacobi has {len(storage4)} storage classes; "
+             "the distributed one needs one")
+    precond = {"block_size": PRECOND_OPTS["block_size"],
+               "adaptive": storage4[0][0]}
+    b_np = b.cpu().numpy()
+    out = {}
+
+    # 12a: one rank, NCCL, in this process
+    def one_rank():
+        ex = make_executor("cuda")
+        t0 = time.perf_counter()
+        Ad = DistEll.from_host(ip, ix, v, Partition.uniform(n, 1), device="cuda")
+        Pd = dist_preconditioner(Ad, "block_jacobi", executor=ex, **precond)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        # the first solve is counted (it also opens the NCCL communicator);
+        # the repeat is the loop's wall
+        res, _, launches, storage, coll = _counted_world(
+            torch, lambda: cg(Ad, b, M=Pd, stop=stop, executor=ex))
+        again, wall, *_ = _counted_world(
+            torch, lambda: cg(Ad, b, M=Pd, stop=stop, executor=ex))
+        prof = phase_profile(torch, Ad, b, Pd, ex, tag="profile dist 1 rank")
+        return (setup, res, wall, launches, storage, coll,
+                again.iterations == res.iterations
+                and bool(torch.equal(again.x, res.x)), prof)
+
+    (setup, res, wall, launches_a, storage_a, coll, repeat_ok,
+     prof_a) = comm.run_world(one_rank, 1, backend="nccl", in_process=True)[0]
+    k = res.iterations
+    dx = float((res.x - x4).norm() / x4.norm())
+    rel = _host_residual(host, res.x.cpu().numpy(), b_np)
+    us_a = prof_a["device_busy_us"] / prof_a["iterations"]
+    say(f"[dist 1 rank] DistEll over 1 rank (NCCL): setup {setup:.2f} s; CG "
+        f"{k} iterations (phase 4: {k4}), converged {res.converged}, x "
+        f"against phase 4's {dx:.3e} (relative), true relative residual "
+        f"{rel:.4e}; loop {wall:.4f} s = {wall / k * 1e3:.4f} ms an "
+        f"iteration, {us_a:.1f} us of device time an iteration; collectives "
+        f"{coll} ({coll['reduction'] / k:.2f} reductions an iteration); "
+        f"repeat bit for bit {repeat_ok}")
+    if not res.converged or abs(k - k4) > 1:
+        fail(f"12a: {k} iterations against phase 4's {k4}")
+    if not dx <= 1e-3 or not rel <= 1e-4 or not repeat_ok:
+        fail("12a: x, the true residual or the repeat is off")
+    expect_launches("dist 1 rank", launches_a, _dist_cg_launches(k, True))
+    if coll["reduction"] != 3 + 3 * k or coll["halo"] != 0:
+        fail(f"12a: collectives {coll}, expected {3 + 3 * k} reductions")
+    out["one_rank"] = {"iterations": k, "x_rel_diff": dx, "true_rel_res": rel,
+                       "setup_s": setup, "loop_s": wall,
+                       "ms_per_iteration": wall / k * 1e3,
+                       "device_us_per_iteration": us_a, "collectives": coll,
+                       "profile": prof_a}
+
+    # 12b: DIST_RANKS ranks sharing the card, gloo, spawned
+    cfg = {"n_side": N_SIDE, "seed": SEED, "stop": STOP_KW, "precond": precond,
+           "pipe_stop": DIST_PIPE_STOP}
+    t0 = time.perf_counter()
+    t_spawn = time.time()
+    ranks = comm.run_world(_dist_rank, DIST_RANKS, (cfg,), backend="gloo",
+                           timeout_s=DIST_TIMEOUT_S, join_timeout_s=300.0,
+                           threads=2)
+    t_world = time.perf_counter() - t0
+    t_back = time.time()
+    # where the world's time went: each mark the latest rank's, from spawn
+    steps = ["enter", "gallery", "setup", "cg_and_repeat", "pipelined"]
+    at = {k: max(r["marks"][k] for r in ranks) - t_spawn for k in steps}
+    say(f"[dist 4 ranks] world timeline from spawn (s, slowest rank): "
+        + ", ".join(f"{k} {at[k]:.1f}" for k in steps)
+        + f", back in the parent {t_back - t_spawn:.1f}")
+    r0 = ranks[0]
+    kb = r0["iterations"]
+    for key in ("iterations", "digest"):
+        if len({r[key] for r in ranks}) != 1:
+            fail(f"12b: the ranks disagree on {key}")
+    if not all(r["repeat_equal"] and r["converged"] for r in ranks):
+        fail("12b: a rank did not converge or its repeat differs")
+    dxb = float(np.linalg.norm(r0["x"] - res.x.cpu().numpy())
+                / np.linalg.norm(r0["x"]))
+    relb = _host_residual(host, r0["x"], b_np)
+    collb = r0["collectives"]
+    prof_b = r0["profile"]
+    us_b = prof_b["device_busy_us"] / prof_b["iterations"]
+    say(f"[dist 4 ranks] {DIST_RANKS} ranks time-sharing one H100, gloo "
+        f"(no interconnect measured): world {t_world:.1f} s (spawn, setup "
+        f"{max(r['setup_s'] for r in ranks):.2f} s); CG f32 {kb} iterations "
+        f"(12a: {k}), x against 12a's {dxb:.3e}, true relative residual "
+        f"{relb:.4e}; loop {r0['wall_s']:.3f} s = "
+        f"{r0['wall_s'] / kb * 1e3:.3f} ms an iteration; rank 0 "
+        f"{us_b:.1f} us of device time an iteration; collectives {collb} "
+        f"({collb['reduction'] / kb:.2f} reductions and "
+        f"{collb['halo'] / kb:.2f} halo exchanges an iteration); halo "
+        f"columns {r0['halo_cols']}; repeat bit for bit on every rank")
+    if abs(kb - k) > 1 or not dxb <= 1e-3 or not relb <= 1e-4:
+        fail("12b: CG on 4 ranks disagrees with 12a")
+    for r in ranks:
+        expect_launches(f"dist 4 ranks, rank {r['rank']}", r["launches"],
+                        _dist_cg_launches(kb, False))
+    if collb["reduction"] != 3 + 3 * kb:
+        fail(f"12b: classic CG took {collb['reduction']} reductions, "
+             f"expected 3 an iteration")
+    pipe = [r["pipelined"] for r in ranks]
+    kp = pipe[0]["iterations"]
+    collp = pipe[0]["collectives"]
+    if len({p["digest"] for p in pipe}) != 1:
+        fail("12b: pipelined CG: the ranks disagree on x")
+    relp = _host_residual(host, pipe[0]["x"], b_np)
+    say(f"[dist 4 ranks] pipelined CG f64, a window of {kp} iterations: true "
+        f"relative residual {relp:.4e}, loop {pipe[0]['wall_s']:.3f} s = "
+        f"{pipe[0]['wall_s'] / kp * 1e3:.3f} ms an iteration; collectives "
+        f"{collp} ({(collp['reduction'] - 2) / kp:.2f} reductions an "
+        f"iteration past the two before the loop)")
+    if collp["reduction"] != kp + 2 or kp != DIST_PIPE_STOP["max_iters"]:
+        fail(f"12b: pipelined CG took {collp['reduction']} reductions for "
+             f"{kp} iterations (one an iteration expected)")
+    for p in pipe:
+        expect_launches("dist 4 ranks pipelined", p["launches"], {
+            "spmv_ell": 3 * (kp + 2), "block_jacobi_apply": kp + 1})
+    out["four_ranks"] = {
+        "label": "4 ranks time-sharing one H100; no interconnect measured",
+        "world_s": t_world, "timeline_s": at, "iterations": kb, "x_rel_diff_12a": dxb,
+        "true_rel_res": relb, "loop_s": r0["wall_s"],
+        "ms_per_iteration": r0["wall_s"] / kb * 1e3,
+        "device_us_per_iteration_rank0": us_b, "collectives": collb,
+        "pipelined": {"iterations": kp, "collectives": collp,
+                      "loop_s": pipe[0]["wall_s"], "true_rel_res": relp},
+        "profile_rank0": prof_b}
+
+    # 12c: the launcher's entry point, as `python -m` calls it, in this
+    # process (one card: one rank, NCCL); counted from 0
+    from repro_torch.launch import dist_solve
+
+    rep, t_launch, launches_c, storage_c, _ = _counted_world(
+        torch, lambda: dist_solve.run(DIST_LAUNCH))
+    if not rep["ok"]:
+        fail("12c: repro_torch.launch.dist_solve ended DIST-PARITY: FAIL")
+    out["launcher"] = {"args": DIST_LAUNCH, "seconds": t_launch,
+                       "iterations": rep["iterations"],
+                       "wall_s": rep["wall_s"], "diff": rep["diff"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"[dist] phase 12 took {out['seconds']:.1f} s")
+    paths = {
+        "dist_cg_1_rank": (launches_a, storage_a),
+        "dist_cg_4_ranks": (_sum_counts(r["launches"] for r in ranks),
+                            _sum_counts(r["storage"] for r in ranks)),
+        "dist_pipelined_cg_4_ranks": (_sum_counts(p["launches"] for p in pipe),
+                                      _sum_counts(p["storage"] for p in pipe)),
+        "dist_launcher": (launches_c, storage_c),
+    }
+    return paths, out
+
+
+# -- phase 13: the implicit layer ------------------------------------------------------
+
+
+def phase_implicit(torch) -> dict:
+    """Phase 13: the implicit layer at a user's size (13a) and the DEQ model
+    (13b); see the module docstring."""
+    import numpy as np
+
+    from repro_torch.core import make_executor
+    from repro_torch.models import deq
+    from repro_torch.nn.implicit import make_implicit_solve
+    from repro_torch.solvers import Stop
+    from repro_torch.sparse import gallery
+
+    t_phase = time.perf_counter()
+    ex = make_executor("cuda")
+    out = {}
+    marks = {}
+    # 13a: one forward and one backward of GMRES(30) on phase 10's operator
+    ip, ix, v, shape = gallery.convection_diffusion_2d(KRYLOV_N_SIDE,
+                                                       **KRYLOV_CONVDIFF)
+    n = shape[0]
+    rng = np.random.default_rng(SEED)
+    b_np = rng.standard_normal(n).astype(np.float32)
+    g_np = rng.standard_normal(n).astype(np.float32)
+    solve = make_implicit_solve(ip, ix, shape, restart=KRYLOV_RESTART,
+                                stop=Stop(**IMPLICIT_STOP), executor=ex)
+    vals = torch.tensor(v, device="cuda", requires_grad=True)
+    b = torch.tensor(b_np, device="cuda", requires_grad=True)
+    g = torch.from_numpy(g_np).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = solve(vals, b)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x.backward(g)
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    marks["13a solves"] = time.perf_counter() - t_phase
+    x_np = x.detach().cpu().numpy()
+    lam = b.grad.cpu().numpy()
+    rel = _host_residual((ip, ix, v), x_np, b_np)
+    # the transposed residual ||g - A^T lam|| / ||g||, in f64 on the host
+    at_lam = np.bincount(ix, weights=v.astype(np.float64)
+                         * lam.astype(np.float64)[np.repeat(np.arange(n),
+                                                            np.diff(ip))],
+                         minlength=n)
+    rel_t = float(np.linalg.norm(g_np - at_lam) / np.linalg.norm(g_np))
+    rows = np.repeat(np.arange(n), np.diff(ip))
+    want = -lam.astype(np.float64)[rows] * x_np.astype(np.float64)[ix]
+    got = vals.grad.cpu().numpy().astype(np.float64)
+    dv = float(np.abs(got - want).max() / np.abs(want).max())
+    marks["13a host checks"] = time.perf_counter() - t_phase
+    # device time: a capped forward of IMPLICIT_WINDOW cycles, profiled
+    window = make_implicit_solve(
+        ip, ix, shape, restart=KRYLOV_RESTART, executor=ex,
+        stop=Stop(max_iters=IMPLICIT_WINDOW * KRYLOV_RESTART,
+                  reduction_factor=1e-30))
+    prof = _device_profile(torch, lambda: window(vals.detach(), b.detach()),
+                           f"13a forward, {IMPLICIT_WINDOW} GMRES cycles",
+                           IMPLICIT_WINDOW, "cycle", tag="implicit")
+    us_cycle = prof["device_busy_us"] / IMPLICIT_WINDOW
+    marks["13a profile"] = time.perf_counter() - t_phase
+    say(f"[implicit] convection_diffusion_2d({KRYLOV_N_SIDE}, "
+        f"{KRYLOV_CONVDIFF}): {n} rows, CSR, GMRES({KRYLOV_RESTART}) "
+        f"{IMPLICIT_STOP}: forward {t_fwd:.3f} s, true relative residual "
+        f"{rel:.3e}; backward {t_bwd:.3f} s, transposed residual "
+        f"{rel_t:.3e}; values gradient against -lam[row] x[col] in f64 "
+        f"{dv:.3e} (relative); {us_cycle:.0f} us of device time a cycle")
+    if not (rel <= 1e-5 and rel_t <= 1e-5 and dv <= 1e-5):
+        fail("13a: a residual or the values gradient is off")
+    out["implicit"] = {"n": n, "forward_s": t_fwd, "backward_s": t_bwd,
+                       "true_rel_res": rel, "transposed_rel_res": rel_t,
+                       "values_grad_rel_err": dv,
+                       "device_us_per_cycle": us_cycle, "profile": prof}
+
+    # 13b: the DEQ model, batch DEQ_BATCH, on the card against the CPU
+    def loss_and_grads(cfg, params, batch):
+        params = {k: p.detach().clone().requires_grad_(True)
+                  for k, p in params.items()}
+        loss = deq.deq_loss(params, batch, cfg)
+        loss.backward()
+        return loss.detach(), {k: p.grad for k, p in params.items()}
+
+    cfg = deq.DeqConfig(device="cuda", executor=ex)
+    cfg_cpu = deq.DeqConfig(device="cpu", executor=make_executor("torch"))
+    params = deq.init_deq(torch.Generator().manual_seed(SEED), cfg)
+    params["theta"] = torch.from_numpy(
+        rng.standard_normal(cfg.nnz).astype(np.float32)).cuda()
+    # the teacher's targets are data: drawn on the CPU, then moved
+    u, y = (t.cuda() for t in deq.synthetic_batch(SEED, DEQ_BATCH, cfg_cpu))
+    t0 = time.perf_counter()
+    loss, grads = loss_and_grads(cfg, params, (u, y))
+    torch.cuda.synchronize()
+    t_deq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, grads_c = loss_and_grads(
+        cfg_cpu, {k: p.cpu() for k, p in params.items()}, (u.cpu(), y.cpu()))
+    t_cpu = time.perf_counter() - t0
+    d_loss = abs(float(loss) - float(loss_c)) / abs(float(loss_c))
+    d_grad = max(float((grads[k].cpu() - grads_c[k]).abs().max()
+                       / grads_c[k].abs().max()) for k in grads)
+    # f64: the directional derivative against central differences
+    t0 = time.perf_counter()
+    cfg64 = deq.DeqConfig(device="cuda", executor=ex, dtype=torch.float64)
+    p64 = {k: p.double() for k, p in params.items()}
+    batch64 = (u.double(), y.double())
+    _, g64 = loss_and_grads(cfg64, p64, batch64)
+    gen = np.random.default_rng(SEED + 1)
+    dirs = {k: torch.from_numpy(gen.standard_normal(tuple(p.shape))).cuda()
+            for k, p in p64.items()}
+    eps = 1e-6
+    with torch.no_grad():
+        lp = deq.deq_loss({k: p64[k] + eps * dirs[k] for k in p64}, batch64, cfg64)
+        lm = deq.deq_loss({k: p64[k] - eps * dirs[k] for k in p64}, batch64, cfg64)
+    fd = float((lp - lm) / (2 * eps))
+    an = float(sum((g64[k] * dirs[k]).sum() for k in g64))
+    d_fd = abs(an - fd) / max(abs(fd), 1e-30)
+    t_f64 = time.perf_counter() - t0
+    say(f"[implicit] DEQ {cfg.n_side}x{cfg.n_side}, d_in {cfg.d_in}, batch "
+        f"{DEQ_BATCH}: loss {float(loss):.6e}, forward + backward "
+        f"{t_deq:.3f} s (CPU {t_cpu:.3f} s; the f64 check {t_f64:.3f} s); against the CPU's torch space: loss {d_loss:.2e}, "
+        f"gradients {d_grad:.2e} (relative); f64 directional derivative "
+        f"{an:.6e} against central differences {fd:.6e} ({d_fd:.2e})")
+    if not (d_loss <= 1e-4 and d_grad <= 1e-4 and d_fd <= 1e-3):
+        fail("13b: the DEQ's loss or gradients disagree")
+    out["deq"] = {"batch": DEQ_BATCH, "loss": float(loss), "seconds": t_deq,
+                  "cpu_seconds": t_cpu, "f64_check_seconds": t_f64,
+                  "loss_rel_err_cpu": d_loss, "grad_rel_err_cpu": d_grad,
+                  "fd_rel_err_f64": d_fd}
+    out["seconds"] = time.perf_counter() - t_phase
+    marks["13b"] = out["seconds"]
+    out["timeline_s"] = marks
+    say(f"[implicit] phase 13 took {out['seconds']:.1f} s; timeline (s): "
+        + ", ".join(f"{k} {t:.1f}" for k, t in marks.items()))
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3629,6 +4103,7 @@ def main() -> None:
     rows = phase_kernels(torch, A, A_host, P, ex, copy_bw)
     del P
     launches, by_storage, path = phase_path(torch, A, b)
+    x4 = path.pop("x")
     paths = {"block_jacobi_cg": (launches, by_storage)}
     prof4 = path["profile"]
     pipe_launches, pipe_storage, path["pipelined_cg"] = phase_pipelined(
@@ -3638,7 +4113,7 @@ def main() -> None:
     paths.update({"pipelined_cg": (pipe_launches, pipe_storage),
                   "fcg": (fcg_launches, fcg_storage)})
     phase_small_reference(torch)
-    del A, b
+    del A
     amg_launches, amg_storage, path["amg"], amg_rows, held_amg, ell_levels = \
         phase_amg(torch, copy_bw)
     rows.update(amg_rows)
@@ -3657,12 +4132,16 @@ def main() -> None:
     krylov_paths, path["krylov"] = phase_krylov(torch)
     serve_paths, path["solve_serve"], held_serve = phase_serve(torch, card,
                                                                copy_bw)
+    dist_paths, path["distributed"] = phase_dist(
+        torch, (ip, ix, v, shape), b, path["iterations"], x4,
+        path["precision_counts"])
+    path["implicit"] = phase_implicit(torch)
     paths.update({"amg_check": (amg_launches, amg_storage),
                   "sellp_cg": (sellp_launches, {}),
                   "batch_solve": (batch_launches, batch_storage),
                   "zamba2_serve": (lm_launches, {}),
                   "rwkv6_serve": (rwkv_launches, {}), **krylov_paths,
-                  **serve_paths})
+                  **serve_paths, **dist_paths})
 
     # a kernel also held at a later path's shapes: that row, and the larger
     # error (for block_jacobi_apply, in the variant of its storage)

@@ -28,7 +28,7 @@ from repro_torch.sparse.formats import Coo, Csr, Ell, Sellp, _device, host_array
 
 __all__ = ["tensor", "coo", "csr", "ell", "sellp", "batch_csr", "batch_ell",
            "block_jacobi", "batch_block_jacobi", "multigrid", "host_array",
-           "lm_params"]
+           "lm_params", "deq_params_from_jax", "dist_csr", "dist_ell"]
 
 
 def tensor(a, *, device=None, dtype=None) -> torch.Tensor:
@@ -244,3 +244,58 @@ def lm_params(cfg, params: Mapping, *, device=None):
                 for k in ref.keys()}
 
     return ParamTree(build(src, expected, ""))
+
+
+def deq_params_from_jax(params: Mapping, cfg=None, *, device=None):
+    """The JAX package's ``init_deq`` parameters (``theta``, ``w_in``,
+    ``w_out``, numpy arrays) as the port's parameter dict, on ``cfg``'s
+    device and dtype when a :class:`~repro_torch.models.deq.DeqConfig` is
+    given, else on ``device``; shapes checked against ``cfg``."""
+    want = None if cfg is None else {"theta": (cfg.nnz,),
+                                     "w_in": (cfg.n, cfg.d_in),
+                                     "w_out": (cfg.n,)}
+    if set(params) != {"theta", "w_in", "w_out"}:
+        raise ValueError(f"DEQ parameters are theta, w_in and w_out, got "
+                         f"{sorted(params)}")
+    out = {}
+    for key, a in params.items():
+        a = np.asarray(a)
+        if want is not None and tuple(a.shape) != want[key]:
+            raise ValueError(f"{key}: shape {a.shape} != {want[key]}")
+        out[key] = tensor(a, device=cfg.device if cfg is not None else device,
+                          dtype=None if cfg is None else cfg.dtype)
+    return out
+
+
+def _dist(cls, fields: Mapping, shape, nnz: int, offsets, halo_counts, rank,
+          device):
+    from repro_torch.distributed import Partition
+
+    fields = {k: np.asarray(v) for k, v in fields.items()}
+    fields["halo_counts"] = tuple(halo_counts)
+    return cls.from_stacked(fields, shape=tuple(shape), nnz=nnz,
+                            partition=Partition(tuple(offsets)), rank=rank,
+                            device=device)
+
+
+def dist_csr(fields: Mapping, shape, nnz: int, offsets, halo_counts, *,
+             rank=None, device=None):
+    """The JAX package's ``DistCsr`` (its stacked ``(P, ...)`` fields as
+    numpy arrays, keyed by field name, and its static ``shape``, ``nnz``,
+    partition offsets and ``_halo_counts``) as this rank's port
+    :class:`~repro_torch.distributed.DistCsr`; ``rank`` defaults to the
+    process group's."""
+    from repro_torch.distributed import DistCsr
+
+    return _dist(DistCsr, fields, shape, nnz, offsets, halo_counts, rank,
+                 device)
+
+
+def dist_ell(fields: Mapping, shape, nnz: int, offsets, halo_counts, *,
+             rank=None, device=None):
+    """The JAX package's ``DistEll`` as this rank's port
+    :class:`~repro_torch.distributed.DistEll` (arguments as :func:`dist_csr`)."""
+    from repro_torch.distributed import DistEll
+
+    return _dist(DistEll, fields, shape, nnz, offsets, halo_counts, rank,
+                 device)

@@ -35,9 +35,23 @@ class LinOp:
     #: executor this operator prefers; ``None`` defers to the caller/ambient
     executor = None
 
+    #: the distributed apply protocol (gko::experimental::distributed):
+    #: operators whose rows are split over the ranks of a process group set
+    #: this True and implement :meth:`local_operator`; the solvers then hand
+    #: the whole solve to :func:`repro_torch.distributed.dist_solve`
+    is_distributed = False
+
     def _apply(self, b: torch.Tensor, executor) -> torch.Tensor:
         raise NotImplementedError(
             f"{type(self).__name__} does not implement _apply"
+        )
+
+    def local_operator(self, executor=None) -> "LinOp":
+        """This rank's operator on its padded local vectors (halo exchange
+        and collectives inside).  Only meaningful when ``is_distributed``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} is not a distributed operator "
+            "(is_distributed is False)"
         )
 
     def apply(self, *args, executor=None) -> torch.Tensor:

@@ -10,8 +10,8 @@ unless ``--device cpu`` is given, and raises without a card::
     python -m repro_torch.launch.batch_solve --batch 16384 --n 1024 --precond jacobi
     python -m repro_torch.launch.batch_solve --smoke --device cpu --executor torch
 
-The JAX package's entry point also shards the batch over a device mesh
-(``shard_batch``); that needs several cards and is not part of this one.
+:func:`shard_batch` gives one rank of a ``torch.distributed`` world its
+rows of the batch (the JAX package places the batch on a device mesh).
 Exits 0 when every system converged, 1 otherwise.
 """
 
@@ -20,7 +20,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -33,7 +33,8 @@ from repro_torch.observability import trace
 from repro_torch.solvers.common import Stop
 from repro_torch.sparse.formats import _device
 
-__all__ = ["BatchRun", "build_batch", "solve_batch", "run", "main"]
+__all__ = ["BatchRun", "build_batch", "shard_batch", "solve_batch", "run",
+           "main"]
 
 
 def _tridiagonal_batch(nb: int, n: int, fmt: str, device):
@@ -98,6 +99,20 @@ def build_batch(nb: int, n: int, *, fmt: str = "ell", nonsym: bool = False,
         prod = values.astype(np.float64) * xstar[:, cols]
         B = np.add.reduceat(prod, indptr[:-1], axis=1).astype(np.float32)
     return A, torch.as_tensor(B, device=dev), xstar
+
+
+def shard_batch(A, B, *, rank: Optional[int] = None,
+                world_size: Optional[int] = None):
+    """This rank's systems of the batch: the values and right-hand sides cut
+    on the batch axis (a uniform split, the first ``nb % P`` ranks one system
+    more), the shared index structure whole (it is the same for every
+    system).  ``rank`` / ``world_size`` default to the process group's."""
+    from repro_torch.distributed import Partition, comm
+
+    if rank is None or world_size is None:
+        rank, world_size = comm.world()
+    lo, hi = Partition.uniform(A.num_batch, world_size).range_of(rank)
+    return dataclasses.replace(A, values=A.values[lo:hi]), B[lo:hi]
 
 
 def solve_batch(A, B, *, solver: str = "cg", precond: str = "none",

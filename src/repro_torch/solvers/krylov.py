@@ -13,8 +13,9 @@ Each function has a factory-style LinOp twin (``CgSolver``, ``GmresSolver``,
 can precondition another solver or be the inner solve of iterative
 refinement (:mod:`repro_torch.solvers.ir`).
 
-Distributed operands (the JAX package's ``is_distributed`` route) are not
-ported yet: the solvers raise ``NotImplementedError`` on them.
+A distributed operand (``is_distributed``) hands the whole solve to
+:func:`repro_torch.distributed.dist_solve`, which re-enters the same
+function on the rank's local operator, so the delegation happens once.
 """
 
 from __future__ import annotations
@@ -55,11 +56,14 @@ __all__ = [
 Precond = Union[LinOp, Callable, str]
 
 
-def _local_only(A, solver: str) -> None:
-    if getattr(A, "is_distributed", False):
-        raise NotImplementedError(
-            f"{solver}: distributed operands are not ported to repro_torch yet"
-        )
+def _dist_route(solver_fn, A, b, x0, *, stop, M, precond_opts, executor,
+                **options):
+    """Delegate to the distributed solve when ``A`` is a distributed
+    operator (it re-enters ``solver_fn`` with the rank's local operator)."""
+    from repro_torch.distributed.solvers import dist_solve
+
+    return dist_solve(solver_fn, A, b, x0, stop=stop, M=M,
+                      precond_opts=precond_opts, executor=executor, **options)
 
 
 def _resolve_precond(A, M, executor, precond_opts):
@@ -124,7 +128,13 @@ def cg(
     reassociates the recurrences, so its iteration count may differ from
     classic CG's by a step or two.
     """
-    _local_only(A, "cg")
+    if getattr(A, "is_distributed", False):
+        # no probe on the rank: a row block of a symmetric matrix is not
+        # itself symmetric
+        return _dist_route(cg, A, b, x0, stop=stop, M=M,
+                           precond_opts=precond_opts, executor=executor,
+                           fused=fused, pipeline=pipeline, history=history,
+                           strict=False)
     ensure_symmetric(A, solver="cg", strict=strict)
     if pipeline:
         return _pipelined_cg(A, b, x0, stop=stop, M=M,
@@ -274,7 +284,10 @@ def fcg(
     """Flexible CG (Ginkgo's FCG): the Polak–Ribière beta
     ``z·(r - r_prev) / rz_prev``, robust to a preconditioner that changes
     between applies.  ``strict`` probes for symmetry as :func:`cg` does."""
-    _local_only(A, "fcg")
+    if getattr(A, "is_distributed", False):
+        return _dist_route(fcg, A, b, x0, stop=stop, M=M,
+                           precond_opts=precond_opts, executor=executor,
+                           history=history, strict=False)
     ensure_symmetric(A, solver="fcg", strict=strict)
     op, x, Mfn = _setup(A, b, x0, M, executor, precond_opts)
     ex = executor
@@ -331,7 +344,10 @@ def bicgstab(
     In the reference and torch spaces both loops give bitwise-equal results
     for real dtypes.
     """
-    _local_only(A, "bicgstab")
+    if getattr(A, "is_distributed", False):
+        return _dist_route(bicgstab, A, b, x0, stop=stop, M=M,
+                           precond_opts=precond_opts, executor=executor,
+                           fused=fused, history=history)
     want_fused = True if fused is None else bool(fused)
     if want_fused and blas.has_fused_ops(A, executor=executor):
         return _bicgstab_fused(A, b, x0, stop=stop, M=M,
@@ -427,7 +443,10 @@ def cgs(
 ) -> SolveResult:
     """Conjugate Gradient Squared (Sonneveld): the solver set's
     transpose-free nonsymmetric method."""
-    _local_only(A, "cgs")
+    if getattr(A, "is_distributed", False):
+        return _dist_route(cgs, A, b, x0, stop=stop, M=M,
+                           precond_opts=precond_opts, executor=executor,
+                           history=history)
     op, x, Mfn = _setup(A, b, x0, M, executor, precond_opts)
     ex = executor
     bnorm = blas.norm2(b, executor=ex)
@@ -490,7 +509,10 @@ def gmres(
     (m + 1 × n), H and Q stay on the vectors' device.  ``history`` records
     the true residual once a cycle (slot ``k // m``).
     """
-    _local_only(A, "gmres")
+    if getattr(A, "is_distributed", False):
+        return _dist_route(gmres, A, b, x0, stop=stop, M=M,
+                           precond_opts=precond_opts, executor=executor,
+                           restart=restart, history=history)
     op, x, Mfn = _setup(A, b, x0, M, executor, precond_opts)
     ex = executor
     n = b.shape[0]
@@ -564,7 +586,6 @@ class KrylovSolver(LinOp):
     def __init__(self, A, *, stop: Stop = Stop(), M: Optional[Precond] = None,
                  precond_opts: Optional[dict] = None, executor=None,
                  **options):
-        _local_only(A, type(self).__name__)
         self.A = as_linop(A)
         self.stop = stop
         if self._requires_spd:
@@ -572,7 +593,15 @@ class KrylovSolver(LinOp):
             ensure_symmetric(A, solver=type(self).__name__,
                              strict=options.get("strict", True))
             options["strict"] = False
-        self.M = _resolve_precond(A, M, executor, precond_opts)
+        if getattr(self.A, "is_distributed", False):
+            # a distributed operand generates through the rank-local
+            # generators (a global M cannot apply on one rank's rows)
+            from repro_torch.distributed.precond import dist_preconditioner
+
+            self.M = dist_preconditioner(self.A, M, executor=executor,
+                                         **(precond_opts or {}))
+        else:
+            self.M = _resolve_precond(A, M, executor, precond_opts)
         self.executor = executor
         self.options = options
 

@@ -12,6 +12,7 @@ from repro_torch.sparse.formats import (
     csr_from_arrays,
     csr_from_dense,
     csr_host_arrays,
+    csr_slice_rows_host,
     ell_from_csr_host,
     ell_from_dense,
     sellp_from_csr_host,
@@ -31,6 +32,7 @@ __all__ = [
     "csr_from_arrays",
     "csr_from_dense",
     "csr_host_arrays",
+    "csr_slice_rows_host",
     "ell_from_csr_host",
     "ell_from_dense",
     "sellp_from_csr_host",

@@ -44,6 +44,7 @@ __all__ = [
     "sellp_from_csr_host",
     "sellp_from_dense",
     "csr_host_arrays",
+    "csr_slice_rows_host",
     "host_array",
 ]
 
@@ -455,6 +456,25 @@ def csr_host_arrays(A) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         indptr[1:] = np.cumsum(keep.sum(axis=1))
         return indptr, cols[keep].astype(np.int64), vals[keep]
     raise TypeError(f"cannot extract a CSR triplet from {type(A)}")
+
+
+def csr_slice_rows_host(indptr: np.ndarray, indices: np.ndarray,
+                        values: np.ndarray, lo: int, hi: int
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Row block ``[lo, hi)`` of a host CSR triplet (setup time): a CSR over
+    ``hi - lo`` rows with indptr rebased to 0, global column indices and each
+    row's entry order kept — the split behind the distributed formats."""
+    indptr = np.asarray(indptr)
+    if not (0 <= lo <= hi <= len(indptr) - 1):
+        raise ValueError(
+            f"row range [{lo}, {hi}) outside [0, {len(indptr) - 1})"
+        )
+    start, stop = int(indptr[lo]), int(indptr[hi])
+    return (
+        (indptr[lo:hi + 1] - start).astype(np.int64),
+        np.asarray(indices)[start:stop].astype(np.int64),
+        np.asarray(values)[start:stop],
+    )
 
 
 _CONVERT_TARGETS = {

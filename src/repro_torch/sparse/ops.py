@@ -21,6 +21,9 @@ and agree within rounding.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import numpy as np
 import torch
 
@@ -58,6 +61,7 @@ __all__ = [
     "spmv_dot",
     "axpy_norm",
     "has_fused_ops",
+    "distributed_blas",
 ]
 
 # =============================================================================
@@ -286,7 +290,13 @@ for _space in ("reference", "torch"):
 
 
 def dot(x, y, *, executor=None):
-    return dot_op(x, y, executor=executor)
+    ctx = _DIST_BLAS.get()
+    if ctx is None:
+        return dot_op(x, y, executor=executor)
+    # mask both operands: 0 * a non-finite padding slot would still be NaN
+    mask = ctx.mask
+    return ctx.sum(dot_op(_masked(x, mask), _masked(y, mask),
+                          executor=executor))
 
 
 def axpy(alpha, x, y, *, executor=None):
@@ -298,18 +308,78 @@ def scal(alpha, x, *, executor=None):
 
 
 def norm2(x, *, executor=None):
-    return norm2_op(x, executor=executor)
+    ctx = _DIST_BLAS.get()
+    if ctx is None:
+        return norm2_op(x, executor=executor)
+    # the local sum of squares through the dispatched dot, the sum over
+    # ranks, one sqrt: the global norm Stop.threshold expects
+    xm = _masked(x, ctx.mask)
+    return torch.sqrt(ctx.sum(dot_op(xm, xm, executor=executor)))
 
 
 def dot_batch(pairs, *, executor=None):
     """Batched dot products: ``[(x₁, y₁), ...] -> (len(pairs),)``.
 
-    The reduction pipelined Krylov methods restructure their recurrences
-    for: one ``dot`` dispatch a pair, stacked on the vectors' device.  (The
-    JAX package reduces the stack in one collective under its distributed
-    context; the port has no distributed layer yet.)
+    The communication-avoiding reduction pipelined Krylov methods
+    restructure their recurrences for: under the distributed context the
+    local partials are stacked and summed over the ranks in ONE collective,
+    not one a dot.  Outside it, the stacked local dots.
     """
-    return torch.stack([dot_op(x, y, executor=executor) for x, y in pairs])
+    ctx = _DIST_BLAS.get()
+    if ctx is None:
+        return torch.stack([dot_op(x, y, executor=executor) for x, y in pairs])
+    mask = ctx.mask
+    return ctx.sum(torch.stack([
+        dot_op(_masked(x, mask), _masked(y, mask), executor=executor)
+        for x, y in pairs]))
+
+
+# -- the distributed-reduction context -----------------------------------------
+#
+# Inside a distributed solve every vector is this rank's padded shard of the
+# global vector: ``dot``/``norm2``/``dot_batch`` and the fused ops reduce
+# locally (still executor-dispatched), with the padding slots masked, and
+# then sum over the ranks (``comm.sum_fixed``, the same bits on every rank).
+# :func:`repro_torch.distributed.dist_solve` opens this context around the
+# unchanged solver source.  ``axpy``/``scal`` are elementwise and need no
+# collective.
+
+
+class _DistBlas:
+    __slots__ = ("mask",)
+
+    def __init__(self, mask):
+        self.mask = mask
+
+    @staticmethod
+    def sum(local: torch.Tensor) -> torch.Tensor:
+        from repro_torch.distributed import comm
+
+        return comm.sum_fixed(local)
+
+
+_DIST_BLAS: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_distributed_blas", default=None
+)
+
+
+@contextlib.contextmanager
+def distributed_blas(mask=None):
+    """Make ``dot``/``norm2``/``dot_batch``/``spmv_dot``/``axpy_norm``
+    global over the ranks of the default process group, with this rank's
+    padding slots masked by ``mask`` (bool tensor; ``None`` for a shard
+    without padding)."""
+    token = _DIST_BLAS.set(_DistBlas(mask))
+    try:
+        yield
+    finally:
+        _DIST_BLAS.reset(token)
+
+
+def _masked(x, mask):
+    from repro_torch.distributed.sharding import zero_shard_padding
+
+    return zero_shard_padding(x, mask)
 
 
 # =============================================================================
@@ -356,12 +426,18 @@ for _space in ("reference", "torch"):
 _FUSED_SPMV_OP = {Csr: spmv_dot_csr_op, Ell: spmv_dot_ell_op}
 
 
+def _format_block(A):
+    # a distributed solve's local operator names the format of its blocks
+    return getattr(A, "format_block", A)
+
+
 def has_fused_ops(A, *, executor=None) -> bool:
     """Capability probe: can this executor serve the fused iteration ops for
-    ``A``?  False for formats/operators without a fused SpMV."""
+    ``A``?  False for formats/operators without a fused SpMV.  A distributed
+    local operator answers for the format of its blocks."""
     from repro_torch.core.executor import current_executor
 
-    op = _FUSED_SPMV_OP.get(type(A))
+    op = _FUSED_SPMV_OP.get(type(_format_block(A)))
     if op is None:
         return False
     ex = executor if executor is not None else current_executor()
@@ -369,14 +445,42 @@ def has_fused_ops(A, *, executor=None) -> bool:
 
 
 def spmv_dot(A, x, w=None, *, executor=None):
-    """Fused SpMV + dot: ``(y, w·y)`` with ``w`` defaulting to ``x``."""
+    """Fused SpMV + dot: ``(y, w·y)`` with ``w`` defaulting to ``x``.
+
+    Under the distributed context the dot is summed over the ranks.  A local
+    operator that is one block with no halo and no padding keeps the fused
+    op (one pass over the block); otherwise it is the local apply (halo
+    exchange included), then the masked dot.
+    """
     w = x if w is None else w
-    return _FUSED_SPMV_OP[type(A)](A, x, w, executor=executor)
+    ctx = _DIST_BLAS.get()
+    if ctx is None:
+        return _FUSED_SPMV_OP[type(A)](A, x, w, executor=executor)
+    block = getattr(A, "fused_block", A)
+    op = _FUSED_SPMV_OP.get(type(block))
+    if ctx.mask is None and op is not None:
+        y, local = op(block, x, w, executor=executor)
+    else:
+        y = apply(A, x, executor=executor)
+        local = dot_op(_masked(w, ctx.mask), _masked(y, ctx.mask),
+                       executor=executor)
+    return y, ctx.sum(local)
 
 
 def axpy_norm(alpha, x, y, *, executor=None):
-    """Fused axpy + squared norm: ``(z, ‖z‖²)`` with ``z = alpha*x + y``."""
-    return axpy_norm_op(alpha, x, y, executor=executor)
+    """Fused axpy + squared norm: ``(z, ‖z‖²)`` with ``z = alpha*x + y``;
+    under the distributed context ‖z‖² is summed over the ranks (a padded
+    shard takes the axpy, then the masked dot)."""
+    ctx = _DIST_BLAS.get()
+    if ctx is None:
+        return axpy_norm_op(alpha, x, y, executor=executor)
+    if ctx.mask is None:
+        z, local = axpy_norm_op(alpha, x, y, executor=executor)
+    else:
+        z = axpy_op(alpha, x, y, executor=executor)
+        zm = _masked(z, ctx.mask)
+        local = dot_op(zm, zm, executor=executor)
+    return z, ctx.sum(local)
 
 
 # =============================================================================

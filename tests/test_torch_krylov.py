@@ -388,16 +388,24 @@ def test_solver_linops_equal_their_functions(cls, fn, kw):
 
 
 def test_distributed_operands_are_refused():
-    class Dist:
+    """A distributed operand goes to ``dist_solve`` (the distributed layer's
+    own cases are in ``test_torch_distributed.py``); one whose partition
+    needs more ranks than this process's world is refused there."""
+    from repro_torch.core import LinOp
+    from repro_torch.distributed import Partition
+
+    class Dist(LinOp):
         is_distributed = True
         shape = (4, 4)
         dtype = torch.float32
+        partition = Partition.uniform(4, 2)
+        rank = 0
 
     for fn in (cg, fcg, bicgstab, cgs, gmres):
-        with pytest.raises(NotImplementedError, match="distributed"):
+        with pytest.raises(ValueError, match="world"):
             fn(Dist(), torch.ones(4))
-    with pytest.raises(NotImplementedError, match="distributed"):
-        BicgstabSolver(Dist())
+    with pytest.raises(ValueError, match="world"):
+        BicgstabSolver(Dist()).solve(torch.ones(4))
 
 
 # -- parity with the JAX package: test_gmres_nonsymmetric ---------------------------
