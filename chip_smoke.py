@@ -193,22 +193,49 @@ Phases, each of which exits non-zero on failure:
             (DeqConfig()) at batch 8 on the card: loss and gradients within
             1e-4 of the CPU's torch space, and in f64 the gradient along a
             seeded direction within 1e-3 of central differences.
+14. families — the transformer families on random bf16 weights (seed 0),
+            each through repro_torch.launch.serve on the CUDA executor at 8
+            prompts of 2,048 tokens (token ids, or standard-normal
+            embeddings for a stub frontend) and freed before the next:
+            granite-8b (GQA 32/8, D 128), qwen2-moe-a2.7b (60 + 4 padded
+            experts, top-4, shared expert), minicpm3-4b (MLA, 62 layers)
+            and musicgen-large (stub frontend, sinusoidal positions,
+            LayerNorm, tanh-GELU, MHA D 64) at full width and depth with 64
+            greedy tokens; yi-9b, smollm-135m, pixtral-12b and olmoe-1b-7b
+            at full width and 2 layers with 4 decode steps.  Each: (a) the
+            serve call, its launches exactly (rmsnorm 2 L + 1 a prefill and
+            a step, 4 L + 1 with MLA, none with LayerNorm; flash_attention
+            L a prefill; every other kernel none), prefill ms, decode ms a
+            step, tokens/s, peak memory; (d) a prefill and 4 decode steps
+            each counted under torch.profiler (device busy share); (b) the
+            torch space on the card teacher-forced with (a)'s tokens:
+            logits within LM_BF16_TOL, the greedy tokens of both spaces, and
+            for MoE the tokens routed to another expert set; (c) for the
+            full-depth four, 2 layers in f32 within 1e-3, MoE routing
+            identical.  Then repro_torch.core.coop on CUDA tensors, the
+            cases of tests/core/test_coop.py, bitwise equal to the CPU's;
+            and rmsnorm (d = 576, 768, 2,048, 4,096, and 256 at a row
+            stride of 288 and over the MLA decode cache) and flash_attention
+            (D 128 at 32/8, 32/4 and 16/16 heads, D 96 at 40 heads with v
+            padded from 64, D 64 at 32/32 and 9/3 heads; f32 at D 96 and
+            128) held against their plain versions and timed.
 
 It then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
-sum over the paths' counted runs (phases 4 to 12: block-Jacobi, pipelined
-and flexible CG; the AMG check; SELL-P CG; the four batched solves; the two
-serve calls; BiCGSTAB, CGS, GMRES, ParILU-BiCGSTAB and mixed-precision IR;
-the served stream of 11a and the three lanes of 11c; the distributed CG on
-one rank, on four ranks (each rank's counts, summed) and its pipelined
-window, and the launcher), each run counted from 0; ``launches_by_path`` gives each, and
+sum over the paths' counted runs (phases 4 to 12 and 14: block-Jacobi,
+pipelined and flexible CG; the AMG check; SELL-P CG; the four batched
+solves; the two serve calls; BiCGSTAB, CGS, GMRES, ParILU-BiCGSTAB and
+mixed-precision IR; the served stream of 11a and the three lanes of 11c;
+the distributed CG on one rank, on four ranks (each rank's counts, summed)
+and its pipelined window, and the launcher; the eight family serve calls),
+each run counted from 0; ``launches_by_path`` gives each, and
 block_jacobi_apply's storage variants carry the same per storage dtype.
 ``max_abs_err`` is the larger over the shapes the kernel was held at;
 ``at_amg_path_shape`` / ``at_batch_path_shape`` / ``at_serve_path_shape``
 hold the times at those paths' shapes of a kernel whose row is timed at
 phase 3's, and
 ``at_bicgstab_shape`` / ``at_row_pieces_shape`` those of phase 7's second
-shapes; rmsnorm's ``at_decode_shape`` holds its rows at a decode step's 8
+shapes, ``at_family_shapes`` rmsnorm's and flash_attention's at phase 14's; rmsnorm's ``at_decode_shape`` holds its rows at a decode step's 8
 rows and spmv_ell's ``at_amg_levels`` one row per AMG level operator and
 their sum per V(1,1) cycle.  It imports
 nothing of JAX or of the JAX package.  Without a CUDA device, or without the
@@ -303,6 +330,21 @@ RWKV_CMP_STEPS = 8
 #: added error of the size of the bf16 noise would double it
 RWKV_F32_REF_MARGIN = 1.25
 RWKV_F32_LAYERS, RWKV_F32_BATCH, RWKV_F32_PROMPT = 8, 2, 1024
+#: phase 14: the transformer families on random weights, each at phase 8's
+#: size (8 prompts of 2,048 tokens): four at full width and depth with 64
+#: greedy tokens, four at full width and FAMILY_SHALLOW_LAYERS layers with
+#: 4 decode steps.  LM_BF16_TOL holds against the torch space on the card:
+#: MiniCPM3's 62 blocks round the stream to bf16 after 124 residual adds at
+#: other places on the two routes, sqrt(124) 2^-8 = 4.3e-2 of its size, and
+#: 0.1 is more than twice that
+FAMILY_FULL = ("granite-8b", "qwen2-moe-a2.7b", "minicpm3-4b", "musicgen-large")
+FAMILY_SHALLOW = ("yi-9b", "smollm-135m", "pixtral-12b", "olmoe-1b-7b")
+FAMILY_SHALLOW_LAYERS, FAMILY_SHALLOW_GEN = 2, 5
+FAMILY_KERNELS = ("rmsnorm", "flash_attention")
+#: (b): teacher-forced decode steps of the full models held to the torch
+#: space; (c): f32 at this depth and size, cuda against torch space
+FAMILY_CMP_STEPS = 8
+FAMILY_F32_LAYERS, FAMILY_F32_BATCH, FAMILY_F32_PROMPT = 2, 2, 512
 
 # phase 11: solve serving.  The stream: 2,048 systems of 1,024 rows over 4
 # banded SPD patterns, 60 % of them repeating an earlier matrix (with a fresh
@@ -4064,6 +4106,484 @@ def phase_implicit(torch) -> dict:
     return out
 
 
+# -- phase 14: the transformer families and cooperative groups ------------------------
+
+
+def _family_counts(cfg) -> tuple:
+    """rmsnorm and flash_attention launches of one prefill and of one decode
+    step: the blocks' two norms (four with MLA's q and kv norms; none with
+    LayerNorm) and the final one; one flash attention a layer a prefill."""
+    L = cfg.n_layers
+    norms = 0 if cfg.norm_kind == "layernorm" else (
+        4 * L + 1 if cfg.family == "mla" else 2 * L + 1)
+    return ({"rmsnorm": norms, "flash_attention": L},
+            {"rmsnorm": norms, "flash_attention": 0})
+
+
+def _family_launches(K, want: dict, where: str) -> dict:
+    """Every kernel's launches since the last reset: FAMILY_KERNELS as in
+    ``want``, the rest none."""
+    counts = K.launch_counts()
+    for name in K.KERNELS:
+        if counts[name] != want.get(name, 0):
+            fail(f"{where}: {name} launched {counts[name]} times, expected "
+                 f"{want.get(name, 0)}")
+    return {n: counts[n] for n in FAMILY_KERNELS}
+
+
+class _Routes:
+    """While active (``moe._router`` wrapped), records the MoE router's
+    top-k expert ids call by call; with ``replay``, a list of such ids (the
+    cuda space's), routes each call to the recorded experts instead, their
+    weights the softmax of this call's own router logits renormalised over
+    them (``moe._router``'s rule), so a comparison of two spaces holds the
+    kernels' numerics and not the discrete choices those numerics tip."""
+
+    def __init__(self, torch, moe_lib, replay=None):
+        self.torch = torch
+        self.moe = moe_lib
+        self.replay = replay
+        self.ids = []
+
+    def __enter__(self):
+        self.orig = self.moe._router
+
+        def wrapped(p, x2, cfg):
+            w, ids, m = self.orig(p, x2, cfg)
+            if self.replay is not None:
+                ids = self.replay[len(self.ids)]
+                probs = self.torch.softmax(x2.float() @ p["router"], dim=-1)
+                w = probs.gather(-1, ids)
+                w = w / w.sum(dim=-1, keepdim=True)
+            self.ids.append(ids)
+            return w, ids, m
+
+        self.moe._router = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router = self.orig
+
+
+def _route_flips(a: list, b: list) -> dict:
+    """Tokens whose expert set differs between two recordings: on the first
+    layer and over all layers (the calls both recordings hold)."""
+    per_layer = [int((x.sort(dim=-1).values != y.sort(dim=-1).values)
+                     .any(dim=-1).sum()) for x, y in zip(a, b)]
+    return {"tokens": int(a[0].shape[0]), "calls": len(per_layer),
+            "first_layer": per_layer[0], "all_layers": sum(per_layer)}
+
+
+def _serve_family(torch, cfg, gen_len: int, full: bool, copy_bw) -> tuple:
+    """One configuration: (a) the counted serve call, (d) a counted prefill
+    and decode steps under torch.profiler, (b) the torch space on the card
+    teacher-forced, (c) f32 at reduced depth (full-depth models); returns
+    the serve call's launches and the summary."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+    from repro_torch.launch import serve as serve_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.nn import moe as moe_lib
+
+    t_cfg = time.perf_counter()
+    dev = torch.device("cuda")
+    ex = make_executor("cuda")
+    ex_t = make_executor("torch", device=dev)
+    B, S = LM_BATCH, LM_PROMPT
+    per_prefill, per_step = _family_counts(cfg)
+    moe = cfg.family == "moe"
+    tag = f"[families] {cfg.name}"
+    summary = {"arch": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+               "batch": B, "prompt_len": S, "gen_len": gen_len}
+
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    summary.update(init_s=time.perf_counter() - t0, params=n_params)
+    say(f"{tag}: {cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads; {n_params} parameters "
+        f"({n_params * 2 / 1e9:.3f} GB bf16), init {summary['init_s']:.2f} s")
+
+    # (a) the counted run: the user's entry point
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    with _Routes(torch, moe_lib) as routes_a:  # keeps references: no extra work
+        res = serve_lib.serve(cfg, batch=B, prompt_len=S, gen_len=gen_len,
+                              seed=SEED, executor=ex, device=dev,
+                              params=params)
+    want = {n: per_prefill[n] + (gen_len - 1) * per_step[n]
+            for n in FAMILY_KERNELS}
+    launches = _family_launches(K, want, f"{cfg.name} serve")
+    if res.tokens.shape != (B, gen_len) or not (
+            0 <= int(res.tokens.min()) and int(res.tokens.max()) < cfg.vocab):
+        fail(f"{cfg.name}: serve produced tokens of shape "
+             f"{tuple(res.tokens.shape)} or out of the vocabulary")
+    if not _finite(torch, res.prefill_logits) or not all(
+            _finite(torch, lg) for lg in res.step_logits):
+        fail(f"{cfg.name}: serve produced non-finite logits")
+    decode_ms = res.decode_s / (gen_len - 1) * 1e3
+    summary.update(prefill_ms=res.prefill_s * 1e3, decode_ms_per_step=decode_ms,
+                   decode_tokens_per_s=res.tokens_per_s,
+                   prefill_tokens_per_s=B * S / res.prefill_s,
+                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=launches, per_prefill=per_prefill,
+                   per_step=per_step)
+    say(f"{tag} (a) serve {B} x {S} + {gen_len} greedy tokens: prefill "
+        f"{res.prefill_s * 1e3:.1f} ms, decode {decode_ms:.2f} ms a step "
+        f"({res.tokens_per_s:.1f} tokens/s); peak memory "
+        f"{summary['peak_memory_gb']:.2f} GB; launches {launches} (a prefill "
+        f"{per_prefill}, a step {per_step})")
+
+    with torch.inference_mode():
+        # (d) a warm prefill and decode steps, each counted, under the profiler
+        steps = min(4, gen_len - 1)
+        cache = lm.init_cache(cfg, B, S + steps, device=dev)
+        K.reset_launch_counts()
+        summary["profile_prefill"] = _device_profile(
+            torch, lambda: lm.prefill(params, cfg, cache=cache, executor=ex,
+                                      **serve_lib.feed(cfg, params,
+                                                       res.prompt)),
+            f"{cfg.name} prefill of {B} x {S}", 1, "prefill", tag="families")
+        _family_launches(K, per_prefill, f"{cfg.name} prefill")
+        summary["warm_prefill_ms"] = summary["profile_prefill"]["wall_us"] / 1e3
+
+        def decode_steps(tokens=res.tokens):
+            for j in range(steps):
+                lm.decode_step(params, cfg, length=S + j, cache=cache,
+                               executor=ex,
+                               **serve_lib.feed(cfg, params, tokens=tokens[:, j]))
+
+        K.reset_launch_counts()
+        summary["profile_decode"] = _device_profile(
+            torch, decode_steps, f"{cfg.name} {steps} decode steps", steps,
+            "step", tag="families")
+        _family_launches(K, {n: steps * per_step[n] for n in FAMILY_KERNELS},
+                         f"{cfg.name} decode steps")
+        del cache
+
+        # (b) the torch space on the card, teacher-forced with (a)'s tokens
+        # (and, for MoE, routed as (a) routed: replayed)
+        K.reset_launch_counts()
+        cmp_steps = min(FAMILY_CMP_STEPS, gen_len - 1)
+        cache_t = lm.init_cache(cfg, B, S + cmp_steps, device=dev)
+        prefill_t = steps_lib.make_prefill_step(cfg, executor=ex_t)
+        decode_t = steps_lib.make_decode_step(cfg, executor=ex_t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _Routes(torch, moe_lib, replay=routes_a.ids if moe else None):
+            lt, cache_t = prefill_t(params, serve_lib.feed(cfg, params,
+                                                           res.prompt), cache_t)
+            torch.cuda.synchronize()
+            t_prefill_t = time.perf_counter() - t0
+            errs = [_rel_err(lt, res.prefill_logits)]
+            picks = [lt.argmax(-1)]  # the torch space's greedy token, each step
+            for j in range(cmp_steps):
+                lt, cache_t = decode_t(params, serve_lib.feed(
+                    cfg, params, tokens=res.tokens[:, j]), S + j, cache_t)
+                errs.append(_rel_err(lt, res.step_logits[j]))
+                picks.append(lt.argmax(-1))
+        if moe:
+            # the torch space routing by its own router: the tokens whose
+            # expert set flips, and what the flips do to the logits (a
+            # finding, not held)
+            cache_f = lm.init_cache(cfg, B, S, device=dev)
+            with _Routes(torch, moe_lib) as routes_t:
+                lf, _ = prefill_t(params, serve_lib.feed(cfg, params,
+                                                         res.prompt), cache_f)
+            summary["route_flips_bf16"] = _route_flips(
+                routes_a.ids[:cfg.n_layers], routes_t.ids)
+            summary["free_routing_prefill_error"] = _rel_err(
+                lf, res.prefill_logits)
+            del cache_f, lf, routes_t
+        _family_launches(K, {}, f"{cfg.name} torch space")
+        del cache_t
+    picks = torch.stack(picks, dim=1)  # (B, cmp_steps + 1)
+    top1 = float((picks == res.tokens[:, :cmp_steps + 1]).float().mean())
+    summary.update(torch_space_prefill_ms=t_prefill_t * 1e3,
+                   torch_space_prefill_error=errs[0],
+                   torch_space_decode_error=max(errs[1:]),
+                   top1_agreement=top1, compared_steps=cmp_steps,
+                   greedy_tokens=res.tokens[0, :cmp_steps + 1].tolist(),
+                   torch_space_greedy_tokens=picks[0].tolist())
+    say(f"{tag} (b) torch space on the card: prefill {t_prefill_t * 1e3:.1f} ms; "
+        f"prefill logits error {errs[0]:.3e}, {cmp_steps} decode steps' largest "
+        f"{max(errs[1:]):.3e} of max |logit| (tolerance {LM_BF16_TOL}); greedy "
+        f"tokens agree at {top1:.4f} of (row, step): cuda "
+        f"{summary['greedy_tokens']}, torch "
+        f"{summary['torch_space_greedy_tokens']} (row 0)"
+        + (f"; MoE routed as the cuda space routed; routing by its own "
+           f"router instead: {summary['route_flips_bf16']} tokens with "
+           f"another expert set, prefill logits error "
+           f"{summary['free_routing_prefill_error']:.3e}" if moe else ""))
+    if not max(errs) <= LM_BF16_TOL:
+        fail(f"{cfg.name}: the cuda and torch spaces disagree on the serving "
+             "path")
+    del params, res, routes_a
+    torch.cuda.empty_cache()
+
+    if full:
+        # (c) full width at reduced depth in f32: the kernels cannot hide in
+        # bf16 noise, and MoE must route identically in both spaces
+        cfg32 = dataclasses.replace(cfg, n_layers=FAMILY_F32_LAYERS,
+                                    dtype="float32")
+        p32 = lm.init_model(cfg32, torch.Generator(dev).manual_seed(SEED + 1),
+                            dev)
+        prompt = serve_lib._prompt(cfg32, FAMILY_F32_BATCH, FAMILY_F32_PROMPT,
+                                   SEED + 1, dev)
+        out32, routes = {}, {}
+        with torch.inference_mode():
+            for space, exe in (("cuda", ex), ("torch", ex_t)):
+                c32 = lm.init_cache(cfg32, FAMILY_F32_BATCH,
+                                    FAMILY_F32_PROMPT + 2, device=dev)
+                with _Routes(torch, moe_lib) as rec:
+                    lg, c32 = lm.prefill(p32, cfg32, cache=c32, executor=exe,
+                                         **serve_lib.feed(cfg32, p32, prompt))
+                    nxt = lg[:, -1].argmax(-1)
+                    ld, c32 = lm.decode_step(
+                        p32, cfg32, length=FAMILY_F32_PROMPT, cache=c32,
+                        executor=exe, **serve_lib.feed(cfg32, p32, tokens=nxt))
+                out32[space], routes[space] = (lg, ld), rec.ids
+        err_c = _rel_err(out32["cuda"][0], out32["torch"][0])
+        err_cd = _rel_err(out32["cuda"][1], out32["torch"][1])
+        summary.update(f32_prefill_error=err_c, f32_decode_error=err_cd)
+        flips = None
+        if moe:
+            flips = _route_flips(routes["cuda"], routes["torch"])
+            summary["route_flips_f32"] = flips
+        say(f"{tag} (c) f32, {FAMILY_F32_LAYERS} layers, {FAMILY_F32_BATCH} x "
+            f"{FAMILY_F32_PROMPT}: prefill logits error {err_c:.3e}, decode "
+            f"step {err_cd:.3e} of max |logit| (tolerance {LM_F32_TOL})"
+            + (f"; routing {flips}" if moe else ""))
+        if not max(err_c, err_cd) <= LM_F32_TOL:
+            fail(f"{cfg.name}: the f32 path disagrees between the cuda and "
+                 "torch spaces")
+        if moe and flips["all_layers"]:
+            fail(f"{cfg.name}: in f32 the cuda and torch spaces route "
+                 f"differently ({flips})")
+        del p32, out32, routes
+        torch.cuda.empty_cache()
+    summary["seconds"] = time.perf_counter() - t_cfg
+    return launches, summary
+
+
+def phase_family_kernels(torch, copy_bw) -> dict:
+    """rmsnorm and flash_attention at phase 14's new shapes against their
+    plain versions, timed (phase 3's protocol) beside their bounds and
+    library calls; flash_attention also in f32 at D 96 and 128 (phase
+    14c's path, the CUDA-core kernel, bound at the f32 rate)."""
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+    from repro_torch.core.params import H100
+
+    ex = make_executor("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    row = functools.partial(kernel_row, torch, flush, copy_bw)
+    bf16 = torch.bfloat16
+    B, S = LM_BATCH, LM_PROMPT
+    out = {"rmsnorm": [], "flash_attention": []}
+
+    # rmsnorm: (label, rows, d, row stride, scale dtype); MLA's q and kv
+    # norms take a bf16 scale, its kv norm reads the latent columns of the
+    # kv projection (rows 288 apart) a prefill and the whole latent cache
+    # (8 x 2,112 rows) a decode step
+    for label, rows, d, ld, wdt in (
+            ("smollm-135m", B * S, 576, 576, torch.float32),
+            ("minicpm3-4b q_norm", B * S, 768, 768, bf16),
+            ("minicpm3-4b kv_norm, strided", B * S, 256, 288, bf16),
+            ("minicpm3-4b kv_norm, decode cache", B * (S + LM_GEN), 256, 256,
+             bf16),
+            ("qwen2-moe / olmoe", B * S, 2048, 2048, torch.float32),
+            ("granite / yi", B * S, 4096, 4096, torch.float32)):
+        base = torch.randn(rows, ld, generator=gen, device="cuda").to(bf16)
+        x = base[:, :d]
+        w = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).to(wdt)
+        rpb = ex.launch_config("nn_rmsnorm", {"rows": rows, "d": d,
+                                              "itemsize": 2})["rows_per_block"]
+        y = K.rmsnorm(x, w, 1e-5, rows_per_block=rpb)
+        err = _held(torch, f"rmsnorm {label} at {rows} x {d} (row stride {ld})",
+                    y, K.rmsnorm_plain(x, w, 1e-5), 2.0 ** -7, 1e-6)
+        if ld != d:
+            same = torch.equal(y, K.rmsnorm(x.contiguous(), w, 1e-5,
+                                            rows_per_block=rpb))
+            say(f"[kernels] rmsnorm strided rows bitwise equal to a contiguous "
+                f"copy's: {same}")
+            if not same:
+                fail("rmsnorm: strided rows differ from a contiguous copy")
+        w_lib = w.to(bf16)
+        entry = row("rmsnorm", "rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:27", err,
+                    lambda: K.rmsnorm(x, w, 1e-5, rows_per_block=rpb),
+                    lambda: K.rmsnorm_plain(x, w, 1e-5),
+                    2 * rows * d * 2 + d * w.element_size(), 4 * rows * d,
+                    lambda: torch.nn.functional.rms_norm(x, (d,), w_lib, 1e-5))
+        entry["shape"] = {"config": label, "rows": rows, "d": d,
+                          "row_stride": ld, "scale": str(wdt).removeprefix(
+                              "torch.")}
+        out["rmsnorm"].append(entry)
+        del base, x, y
+
+    def qkv(Bq, Hq, Hkv, Sq, D, dtype, Dv=None):
+        r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)
+        v = r(Bq, Hkv, Sq, Dv or D)
+        if Dv:  # MLA: v padded with zeros to the q / k head dim
+            v = torch.nn.functional.pad(v, (0, D - Dv))
+        return r(Bq, Hq, Sq, D), r(Bq, Hkv, Sq, D), v
+
+    # bf16 at the serving shapes; f32 (the CUDA-core kernel) at phase 14c's
+    for label, (Bq, Hq, Hkv, Sq, D, Dv, dtype) in (
+            ("granite-8b / pixtral-12b", (B, 32, 8, S, 128, None, bf16)),
+            ("yi-9b", (B, 32, 4, S, 128, None, bf16)),
+            ("qwen2-moe / olmoe", (B, 16, 16, S, 128, None, bf16)),
+            ("minicpm3-4b (v 64 padded to 96)", (B, 40, 40, S, 96, 64, bf16)),
+            ("musicgen-large", (B, 32, 32, S, 64, None, bf16)),
+            ("smollm-135m", (B, 9, 3, S, 64, None, bf16)),
+            ("minicpm3-4b f32", (2, 40, 40, FAMILY_F32_PROMPT, 96, 64,
+                                 torch.float32)),
+            ("qwen2-moe f32", (2, 16, 16, FAMILY_F32_PROMPT, 128, None,
+                               torch.float32))):
+        q, k, v = qkv(Bq, Hq, Hkv, Sq, D, dtype, Dv)
+        o = K.flash_attention(q, k, v)
+        tol = (2.0 ** -7, 1e-5) if dtype == bf16 else (0.0, 1e-5)
+        err = _held(torch, f"flash_attention {label}: B {Bq}, {Hq}/{Hkv} heads, "
+                    f"S = Skv = {Sq}, D {D}", o, K.flash_attention_plain(q, k, v),
+                    *tol)
+        if Dv and not bool((o[..., Dv:] == 0).all()):
+            fail("flash_attention: the padded v columns did not give zeros")
+        lib = functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                                q, k, v, is_causal=True, enable_gqa=Hq != Hkv)
+        entry = row("flash_attention", "flash_attention.cu",
+                    "src/repro/kernels/flash_attention/kernel.py:118", err,
+                    lambda: K.flash_attention(q, k, v),
+                    lambda: K.flash_attention_plain(q, k, v),
+                    2 * Bq * (Hq + Hkv) * Sq * D * q.element_size(),
+                    4 * D * Bq * Hq * (Sq * (Sq + 1) // 2), lib,
+                    peak_flops=H100.peak_flops_bf16 if dtype == bf16 else None)
+        entry["shape"] = {"config": label, "B": Bq, "Hq": Hq, "Hkv": Hkv,
+                          "S": Sq, "Skv": Sq, "D": D,
+                          "dtype": str(dtype).removeprefix("torch.")}
+        out["flash_attention"].append(entry)
+        del q, k, v, o
+    say("[kernels] phase 14 library_ms: F.rms_norm (scale cast to bf16) and "
+        "F.scaled_dot_product_attention(is_causal=True, enable_gqa)")
+    return out
+
+
+def phase_coop(torch) -> dict:
+    """repro_torch.core.coop on CUDA tensors against the same calls on the
+    CPU, bitwise (values and dtype), over the cases of tests/core/
+    test_coop.py."""
+    from repro_torch.core import coop
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    cases = []
+
+    def normal(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    def bits(*shape):
+        return torch.randint(0, 2, shape, generator=gen).bool()
+
+    for size in (2, 4, 8, 16, 32, 64, 128):
+        cases.append((f"sum {size}", lambda x, s=size: coop.subgroup(x, s).sum(),
+                      normal(4, 128)))
+    for name in ("max", "min"):
+        cases.append((name, lambda x, n=name: getattr(coop.subgroup(x, 8), n)(),
+                      normal(2, 64)))
+    for size in (2, 4, 8, 16, 32):
+        cases.append((f"inclusive_scan {size}",
+                      lambda x, s=size: coop.subgroup(x, s).inclusive_scan(),
+                      normal(3, 64)))
+    for size in (8, 16, 32):
+        for bm in range(8):
+            cases.append((f"shfl_xor {bm} of {size}",
+                          lambda x, s=size, b=bm: coop.subgroup(x, s).shfl_xor(b),
+                          normal(2, 128)))
+    cases.append(("shfl 3", lambda x: coop.subgroup(x, 8).shfl(3), normal(2, 32)))
+    cases.append(("shfl_down 2", lambda x: coop.subgroup(x, 8).shfl_down(2),
+                  normal(2, 32)))
+    cases.append(("thread_rank", lambda x: coop.subgroup(x, 8).thread_rank(),
+                  normal(2, 32)))
+    for size in (2, 4, 8, 16, 32):
+        for rep in range(3):
+            pred = bits(128)
+            for op in ("ballot", "any", "all", "count"):
+                cases.append((f"{op} {size} #{rep}",
+                              lambda p, s=size, o=op: getattr(
+                                  coop.subgroup(p, s, warp_size=32), o)(p),
+                              pred))
+    wave = torch.tensor([i % 3 == 0 for i in range(64)] * 2)
+    for op in ("ballot", "count"):
+        cases.append((f"{op} 8 of 64 lanes",
+                      lambda p, o=op: getattr(coop.subgroup(p, 8, 64), o)(p),
+                      wave))
+    full = bits(2, 64)
+    full[:, 63] = True
+    for op in ("ballot", "count", "all", "any"):
+        cases.append((f"{op} 64 of 64 lanes, lane 63 set",
+                      lambda p, o=op: getattr(coop.subgroup(p, 64, 64), o)(p),
+                      full))
+    for dt in (torch.int32, torch.int64):
+        cases.append((f"popcnt {dt}", coop.popcnt,
+                      torch.randint(-2 ** 31, 2 ** 31 - 1, (64,), generator=gen,
+                                    dtype=torch.int64).to(dt)))
+    u64 = torch.randint(-2 ** 62, 2 ** 62, (64,), generator=gen)
+    u64[0] = -1
+    u64[1] = -2 ** 63
+    cases.append(("popcnt uint64", coop.popcnt, u64.view(torch.uint64)))
+    cases.append(("popcnt uint32", coop.popcnt,
+                  torch.randint(0, 2 ** 32 - 1, (64,), generator=gen).to(
+                      torch.uint32)))
+
+    bad = []
+    for label, fn, x in cases:
+        want = fn(x)
+        got = fn(x.cuda())
+        if got.device.type != "cuda" or got.dtype != want.dtype or not \
+                torch.equal(got.cpu(), want):
+            bad.append(label)
+    say(f"[coop] {len(cases)} cases of tests/core/test_coop.py on CUDA tensors: "
+        f"{len(cases) - len(bad)} bitwise equal to the CPU's")
+    if bad:
+        fail(f"coop on CUDA differs from the CPU: {bad}")
+    return {"cases": len(cases), "bitwise_equal": len(cases) - len(bad)}
+
+
+def phase_families(torch, copy_bw) -> tuple:
+    """Phase 14: the dense, MoE and MLA families served on the ported
+    kernels (see the module docstring), cooperative groups on the card, and
+    the two LM kernels at the families' shapes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paths, summary = {}, {"models": {}}
+    for arch in FAMILY_FULL + FAMILY_SHALLOW:
+        cfg = get_config(arch)
+        full = arch in FAMILY_FULL
+        if not full:
+            cfg = dataclasses.replace(cfg, n_layers=FAMILY_SHALLOW_LAYERS)
+        launches, summary["models"][arch] = _serve_family(
+            torch, cfg, LM_GEN if full else FAMILY_SHALLOW_GEN, full, copy_bw)
+        paths[f"{arch}_serve"] = launches
+    summary["coop"] = phase_coop(torch)
+    rows = phase_family_kernels(torch, copy_bw)
+    summary["seconds"] = time.perf_counter() - t_phase
+    say(f"[families] phase 14 took {summary['seconds']:.1f} s: "
+        + ", ".join(f"{a} {m['seconds']:.1f}"
+                    for a, m in summary["models"].items()))
+    return paths, summary, rows
+
+
 def main() -> None:
     import torch
 
@@ -4136,12 +4656,20 @@ def main() -> None:
         torch, (ip, ix, v, shape), b, path["iterations"], x4,
         path["precision_counts"])
     path["implicit"] = phase_implicit(torch)
+    family_paths, path["lm_families"], family_rows = phase_families(torch,
+                                                                   copy_bw)
     paths.update({"amg_check": (amg_launches, amg_storage),
                   "sellp_cg": (sellp_launches, {}),
                   "batch_solve": (batch_launches, batch_storage),
                   "zamba2_serve": (lm_launches, {}),
                   "rwkv6_serve": (rwkv_launches, {}), **krylov_paths,
-                  **serve_paths, **dist_paths})
+                  **serve_paths, **dist_paths,
+                  **{p: (c, {}) for p, c in family_paths.items()}})
+    # phase 14's shapes of the two LM kernels, and the larger error
+    for name, extra in family_rows.items():
+        rows[name]["at_family_shapes"] = extra
+        rows[name]["max_abs_err"] = max(
+            [rows[name]["max_abs_err"]] + [e["max_abs_err"] for e in extra])
 
     # a kernel also held at a later path's shapes: that row, and the larger
     # error (for block_jacobi_apply, in the variant of its storage)

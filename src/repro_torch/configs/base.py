@@ -4,11 +4,8 @@ One frozen :class:`ModelConfig` dataclass, every field as in
 ``repro/configs/base.py``, so that a configuration compares field for field
 with the JAX package's.  Each ``repro_torch/configs/<arch>.py`` exports
 ``config()`` (the published configuration) and ``smoke_config()`` (a reduced
-same-family configuration for CPU tests).
-
-Only the families the port carries have a module here; asking for another
-known architecture raises :class:`NotImplementedError` (ROADMAP A15 lists
-what is left to port).
+same-family configuration for CPU tests).  The port carries every
+architecture of the JAX package; an unknown one raises :class:`KeyError`.
 """
 
 from __future__ import annotations
@@ -33,8 +30,8 @@ ARCH_IDS = (
     "pixtral_12b",
 )
 
-#: architectures whose family the port runs (the hybrid and rwkv6 families)
-PORTED_ARCHS = ("zamba2_2_7b", "rwkv6_3b")
+#: architectures whose family the port runs: all of them
+PORTED_ARCHS = ARCH_IDS
 
 ARCH_ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
@@ -135,10 +132,6 @@ def _module(arch: str):
     arch = _normalize(ARCH_ALIASES.get(arch, arch))
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCH_IDS)}")
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch!r}: its family is not ported to repro_torch yet "
-            f"(ROADMAP A15); ported: {list(PORTED_ARCHS)}")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

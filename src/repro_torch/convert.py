@@ -172,9 +172,12 @@ def lm_params(cfg, params: Mapping, *, device=None):
 
     The stacked layers are unstacked: for the hybrid family ``mamba`` leaves
     ``(G, per, ...)`` become ``G`` lists of ``per`` layers and ``lora``
-    leaves ``(G, ...)`` ``G`` layers; for RWKV6 the nested ``blocks`` tree
-    (``ln1``, ``time_mix``, ``ln2``, ``channel_mix``), whose leaves are
-    ``(n_layers, ...)``, becomes ``n_layers`` layers of the same tree.  Every
+    leaves ``(G, ...)`` ``G`` layers; for the other families the nested
+    ``blocks`` tree (RWKV6's ``ln1``, ``time_mix``, ``ln2``,
+    ``channel_mix``; a transformer's ``norm1``, ``attn`` — GQA's ``wq`` ...
+    or MLA's projections and norms — ``norm2`` and ``mlp`` or ``moe`` with
+    its ``(E_pad, ...)`` expert stacks), whose leaves are ``(n_layers,
+    ...)``, becomes ``n_layers`` layers of the same tree.  Every
     leaf's shape and dtype is checked against the port's own init for
     ``cfg``, and a missing or left-over key raises."""
     from repro_torch.models import lm
@@ -206,7 +209,7 @@ def lm_params(cfg, params: Mapping, *, device=None):
                        if len(dims) > 1 else layer)
         return out
 
-    if cfg.family == "rwkv6":
+    if cfg.family != "hybrid":
         if "blocks" in src:
             src["blocks"] = unstack(src["blocks"], (cfg.n_layers,), "blocks")
     else:

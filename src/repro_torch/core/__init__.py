@@ -1,4 +1,7 @@
-"""repro_torch.core — hardware tables, registry, tuning, executors, LinOps."""
+"""repro_torch.core — hardware tables, registry, tuning, executors, LinOps,
+cooperative groups."""
+
+from repro_torch.core import coop
 
 from repro_torch.core.executor import (
     CudaExecutor,
@@ -27,6 +30,7 @@ from repro_torch.core.params import H100, HardwareParams, TARGETS, get_target
 from repro_torch.core.registry import NotCompiledError, operation, register
 
 __all__ = [
+    "coop",
     "CudaExecutor",
     "Executor",
     "ReferenceExecutor",

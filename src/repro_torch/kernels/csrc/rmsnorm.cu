@@ -30,7 +30,9 @@
 // order (every thread adds them itself).  The order depends only on the
 // geometry, not on the grid or the schedule, so a call repeats bit for bit,
 // with no atomics.  x is read and y written with streaming (evict-first)
-// accesses.  Row offsets are 64-bit.
+// accesses.  Row offsets are 64-bit.  The rows of x may sit `ldx` elements
+// apart (ldx >= d: a view of wider rows, such as MLA's latent columns of the
+// kv projection); y is written contiguous.
 #include <cstdint>
 
 #include "common.cuh"
@@ -106,8 +108,8 @@ constexpr int max_threads() {
 template <typename T, typename TW, int VEC, int V>
 __global__ void __launch_bounds__(max_threads<VEC>())
     rmsnorm_kernel(const T* __restrict__ x, const TW* __restrict__ w,
-                   T* __restrict__ y, long long rows, int d, float eps,
-                   bool w_aligned) {
+                   T* __restrict__ y, long long rows, long long ldx, int d,
+                   float eps, bool w_aligned) {
   __shared__ float partials[2][32];  // warp partials of the block's team
   const int tpr = blockDim.x;
   const int tx = threadIdx.x;
@@ -118,7 +120,7 @@ __global__ void __launch_bounds__(max_threads<VEC>())
   Chunk<T, VEC> cur[V], nxt[V];
   // the first row's vectors are in flight while the scale is read
   if (row < rows) {
-    const T* p = x + row * static_cast<long long>(d);
+    const T* p = x + row * ldx;
 #pragma unroll
     for (int i = 0; i < V; ++i) {
       const int j = tx + i * tpr;
@@ -137,7 +139,7 @@ __global__ void __launch_bounds__(max_threads<VEC>())
   for (; row < rows; row += stride) {
     const long long next = row + stride;
     if (next < rows) {  // the next row's loads go out before this row's work
-      const T* p = x + next * static_cast<long long>(d);
+      const T* p = x + next * ldx;
 #pragma unroll
       for (int i = 0; i < V; ++i) {
         const int j = tx + i * tpr;
@@ -183,13 +185,13 @@ __global__ void __launch_bounds__(max_threads<VEC>())
 }
 
 template <typename T, typename TW, int VEC, int V>
-int launch_v(const T* x, const TW* w, T* y, long long rows, int d, float eps,
-             bool w_aligned, int tpr, int rows_per_block,
+int launch_v(const T* x, const TW* w, T* y, long long rows, long long ldx,
+             int d, float eps, bool w_aligned, int tpr, int rows_per_block,
              cudaStream_t stream) {
   const auto kernel = rmsnorm_kernel<T, TW, VEC, V>;
   const int threads = tpr * rows_per_block;
   if (tpr % 32 != 0 || rows_per_block < 1 || threads > max_threads<VEC>() ||
-      (tpr > 32 && rows_per_block != 1)) {
+      (tpr > 32 && rows_per_block != 1) || ldx < d || ldx % VEC != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int device = 0, sms = 0, fit = 0;
@@ -206,20 +208,20 @@ int launch_v(const T* x, const TW* w, T* y, long long rows, int d, float eps,
   const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
   const unsigned grid =
       static_cast<unsigned>(blocks < resident ? blocks : resident);
-  kernel<<<grid, dim3(tpr, rows_per_block), 0, stream>>>(x, w, y, rows, d,
-                                                         eps, w_aligned);
+  kernel<<<grid, dim3(tpr, rows_per_block), 0, stream>>>(x, w, y, rows, ldx,
+                                                         d, eps, w_aligned);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename TW, int VEC>
-int launch_vec(const T* x, const TW* w, T* y, long long rows, int d, float eps,
-               bool w_aligned, int vec_per_thread, int tpr,
+int launch_vec(const T* x, const TW* w, T* y, long long rows, long long ldx,
+               int d, float eps, bool w_aligned, int vec_per_thread, int tpr,
                int rows_per_block, cudaStream_t stream) {
   switch (vec_per_thread) {
 #define CASE(V)                                                           \
   case V:                                                                 \
-    return launch_v<T, TW, VEC, V>(x, w, y, rows, d, eps, w_aligned, tpr, \
-                                   rows_per_block, stream);
+    return launch_v<T, TW, VEC, V>(x, w, y, rows, ldx, d, eps, w_aligned, \
+                                   tpr, rows_per_block, stream);
     CASE(1) CASE(2) CASE(4) CASE(8)
 #undef CASE
     default:
@@ -228,16 +230,16 @@ int launch_vec(const T* x, const TW* w, T* y, long long rows, int d, float eps,
 }
 
 template <typename T, typename TW>
-int launch(const T* x, const TW* w, T* y, long long rows, int d, float eps,
-           int vectorized, int vec_per_thread, int tpr, int rows_per_block,
-           cudaStream_t stream) {
+int launch(const T* x, const TW* w, T* y, long long rows, long long ldx, int d,
+           float eps, int vectorized, int vec_per_thread, int tpr,
+           int rows_per_block, cudaStream_t stream) {
   const bool w_aligned = reinterpret_cast<uintptr_t>(w) % 16 == 0;
   if (vectorized) {
-    return launch_vec<T, TW, 16 / sizeof(T)>(x, w, y, rows, d, eps, w_aligned,
-                                             vec_per_thread, tpr,
+    return launch_vec<T, TW, 16 / sizeof(T)>(x, w, y, rows, ldx, d, eps,
+                                             w_aligned, vec_per_thread, tpr,
                                              rows_per_block, stream);
   }
-  return launch_vec<T, TW, 1>(x, w, y, rows, d, eps, w_aligned,
+  return launch_vec<T, TW, 1>(x, w, y, rows, ldx, d, eps, w_aligned,
                               vec_per_thread, tpr, rows_per_block, stream);
 }
 
@@ -245,11 +247,11 @@ int launch(const T* x, const TW* w, T* y, long long rows, int d, float eps,
 
 #define REPRO_RMSNORM_ENTRY(NAME, T, TW)                                    \
   extern "C" int NAME(const void* x, const void* w, void* y,                \
-                      long long rows, int d, float eps, int vectorized,     \
-                      int vec_per_thread, int tpr, int rows_per_block,      \
-                      void* stream) {                                       \
+                      long long rows, long long ldx, int d, float eps,      \
+                      int vectorized, int vec_per_thread, int tpr,          \
+                      int rows_per_block, void* stream) {                   \
     return launch(static_cast<const T*>(x), static_cast<const TW*>(w),      \
-                  static_cast<T*>(y), rows, d, eps, vectorized,             \
+                  static_cast<T*>(y), rows, ldx, d, eps, vectorized,        \
                   vec_per_thread, tpr, rows_per_block,                      \
                   static_cast<cudaStream_t>(stream));                       \
   }

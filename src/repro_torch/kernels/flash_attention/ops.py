@@ -1,4 +1,5 @@
-"""Registry bindings for attention (operation ``nn_attention``).
+"""Registry bindings for attention (operation ``nn_attention``) and the
+chunked attention's tuning spec (``nn_attention_chunked``).
 
 The ``reference`` and ``torch`` spaces compute the dense plain version (the
 JAX package's reference and XLA spaces share ``mha_ref``); the ``cuda``
@@ -33,6 +34,23 @@ ATTENTION_SPEC = tuning.register_spec(
             "block_kv": flash_block_kv(shapes.get("itemsize", 2))},
         smem_bytes=lambda shapes, block: flash_smem_bytes(
             shapes.get("D", 128), shapes.get("itemsize", 2)),
+    )
+)
+
+
+# kv-chunk length of the chunked attention (repro_torch.nn.attention.
+# attention_chunked, taken by the reference and torch spaces when
+# cfg.attn_impl == "chunked" and cfg.attn_chunk is None): the JAX package's
+# spec, whose seed at a TPU's 128 lanes is 512 rows, the seed on every
+# target here; a multiple of 128 rows, at least 128.  The loop is plain
+# PyTorch: it takes no shared memory.
+CHUNKED_ATTENTION_SPEC = tuning.register_spec(
+    tuning.TuningSpec(
+        op="nn_attention_chunked",
+        params=("chunk",),
+        seed=lambda hw: {"chunk": 512},
+        constrain=lambda hw, shapes, block: {
+            "chunk": max(int(block["chunk"]) - int(block["chunk"]) % 128, 128)},
     )
 )
 

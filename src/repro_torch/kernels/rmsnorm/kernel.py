@@ -2,7 +2,10 @@
 PyTorch version.
 
 ``rmsnorm`` launches the kernel for CUDA tensors and counts the launch in
-``rmsnorm.launches``; for CPU tensors it returns the plain version.  There is
+``rmsnorm.launches``; for CPU tensors it returns the plain version.  x's
+rows may sit further apart than their width (a view of wider rows, such as
+MLA's latent columns of the kv projection: the kernel takes the row
+stride); the result is contiguous.  There is
 no fallback from a failed build or launch: the error propagates.
 """
 
@@ -15,7 +18,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._check import on_cuda, require
 
-__all__ = ["rmsnorm", "rmsnorm_plain", "rmsnorm_geometry", "VEC_PER_THREAD"]
+__all__ = ["rmsnorm", "rmsnorm_plain", "rmsnorm_geometry", "row_stride",
+           "VEC_PER_THREAD"]
 
 _P = ctypes.c_void_p
 _ENTRY = {
@@ -25,8 +29,9 @@ _ENTRY = {
     (torch.float16, torch.float16): "repro_rmsnorm_f16_f16",
     (torch.float16, torch.float32): "repro_rmsnorm_f16_f32",
 }
-_ARGS = (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P)
+_ARGS = (_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, _P)
 
 #: 16-byte vectors a thread may hold of each row (the kernel's V choices)
 VEC_PER_THREAD = (1, 2, 4, 8)
@@ -46,6 +51,29 @@ def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * w.to(torch.float32)).to(x.dtype)
+
+
+def row_stride(x: torch.Tensor):
+    """Elements between consecutive rows of ``x`` (rows: every index of the
+    leading axes, in order) when its last axis has unit stride and its
+    leading axes walk the rows at one stride of at least the width; None
+    otherwise.  A contiguous tensor gives its width."""
+    d = x.shape[-1]
+    if d > 1 and x.stride(-1) != 1:
+        return None
+    ld = span = None
+    for size, stride in reversed(list(zip(x.shape[:-1], x.stride()[:-1]))):
+        if size == 1:
+            continue
+        if ld is None:
+            ld, span = stride, stride * size
+        elif stride != span:
+            return None
+        else:
+            span *= size
+    if ld is None:
+        return d
+    return ld if ld >= d else None
 
 
 def rmsnorm_geometry(d: int, itemsize: int, aligned: bool,
@@ -75,8 +103,9 @@ def rmsnorm_geometry(d: int, itemsize: int, aligned: bool,
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
             rows_per_block: int = 4) -> torch.Tensor:
-    """RMSNorm over the last axis of ``x`` (any leading shape), scale ``w``
-    (d,) in x's dtype or f32; the result has x's dtype."""
+    """RMSNorm over the last axis of ``x`` (any leading shape whose rows
+    :func:`row_stride` can walk), scale ``w`` (d,) in x's dtype or f32; the
+    result has x's dtype and is contiguous."""
     name = "rmsnorm"
     require(x.ndim >= 1 and x.shape[-1] >= 1, name,
             f"x needs a non-empty last axis, got shape {tuple(x.shape)}")
@@ -85,19 +114,23 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     require((x.dtype, w.dtype) in _ENTRY, name,
             f"dtypes (x {x.dtype}, w {w.dtype}) not in "
             f"{sorted((str(a), str(b)) for a, b in _ENTRY)}")
-    if not on_cuda(name, x, w):
+    ld = row_stride(x)
+    require(ld is not None, name, "x's rows must be contiguous, at one stride "
+            f"(shape {tuple(x.shape)}, strides {tuple(x.stride())})")
+    if not on_cuda(name, w, strided=(x,)):
         return rmsnorm_plain(x, w, eps)
     require(1 <= rows_per_block <= MAX_THREADS // 32, name,
             f"rows_per_block {rows_per_block} must be in "
             f"[1, {MAX_THREADS // 32}]")
+    aligned = x.data_ptr() % 16 == 0 and ld * x.element_size() % 16 == 0
     vectorized, per_thread, tpr, rpb = rmsnorm_geometry(
-        d, x.element_size(), x.data_ptr() % 16 == 0, rows_per_block)
-    y = torch.empty_like(x)
+        d, x.element_size(), aligned, rows_per_block)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     rows = x.numel() // d
     if rows:
         fn = _build.function(_ENTRY[(x.dtype, w.dtype)], _ARGS)
         _build.check(name, fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), rows,
-                              d, float(eps), int(vectorized), per_thread,
+                              ld, d, float(eps), int(vectorized), per_thread,
                               tpr, rpb,
                               _build.stream_of(x)))
         rmsnorm.launches += 1

@@ -4,18 +4,20 @@ The port of ``repro/launch/serve.py``: random weights (seed 0), a batch of
 random prompts from ``--seed``, one prefill that fills the cache, then
 ``gen_len - 1`` decode steps, greedy (argmax) or sampled at
 ``--temperature`` (``torch.multinomial`` from a generator seeded with
-``--seed``).  It runs on the card through the CUDA executor unless
-``--device cpu`` is given, and raises without a card::
+``--seed``).  A stub-frontend model (musicgen-large, pixtral-12b) is fed
+random prompt embeddings (a standard normal from the numpy seed), then the
+token embedding of each sampled token.  It runs on the card through the
+CUDA executor unless ``--device cpu`` is given, and raises without a
+card::
 
-    python -m repro_torch.launch.serve --arch zamba2-2.7b            # the card
-    python -m repro_torch.launch.serve --arch rwkv6-3b --batch 8 \\
+    python -m repro_torch.launch.serve --arch granite-8b            # the card
+    python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --batch 8 \\
         --prompt-len 2048 --gen-len 64
-    python -m repro_torch.launch.serve --arch rwkv6-3b --smoke \\
+    python -m repro_torch.launch.serve --arch minicpm3-4b --smoke \\
         --device cpu --executor torch
 
-This entry point is family-neutral: it runs every family ``models.lm``
-ports, the hybrid (Zamba2) and RWKV6 (Finch) families so far; other archs
-raise ``NotImplementedError`` (ROADMAP A15).
+This entry point is family-neutral: ``--arch`` takes every configuration
+``repro_torch.configs`` carries (all ten of the JAX package's).
 """
 
 from __future__ import annotations
@@ -35,15 +37,16 @@ from repro_torch.launch import steps as steps_lib
 from repro_torch.models import lm
 from repro_torch.observability import trace
 
-__all__ = ["ServeResult", "serve", "main"]
+__all__ = ["ServeResult", "serve", "feed", "main"]
 
 
 @dataclasses.dataclass
 class ServeResult:
     """What one serving run produced: ``tokens`` (B, gen_len), the prefill's
-    last-position logits (B, vocab) f32, each decode step's logits, and the
-    host-clock times of the prefill and of the decode loop (each ending in a
-    device synchronize)."""
+    last-position logits (B, vocab) f32, each decode step's logits, the
+    prompt (token ids (B, S), or embeddings (B, S, d) f32 for a stub
+    frontend), and the host-clock times of the prefill and of the decode
+    loop (each ending in a device synchronize)."""
 
     tokens: torch.Tensor
     prefill_logits: torch.Tensor
@@ -55,9 +58,28 @@ class ServeResult:
 
 
 def _prompt(cfg, batch: int, prompt_len: int, seed: int, device) -> torch.Tensor:
+    """The prompt from the numpy seed: token ids, or for a stub frontend
+    standard-normal embeddings (f32), as the JAX package's serve.py draws
+    them."""
     rng = np.random.default_rng(seed)
+    if cfg.frontend == "stub_embeddings":
+        emb = rng.normal(size=(batch, prompt_len, cfg.d_model)).astype(np.float32)
+        return torch.as_tensor(emb, device=device)
     toks = rng.integers(0, cfg.vocab, size=(batch, prompt_len))
     return torch.as_tensor(toks, dtype=torch.int64, device=device)
+
+
+def feed(cfg, params, prompt=None, tokens=None) -> dict:
+    """A step's batch: the prompt (``tokens`` or ``embeds``), or a decode
+    step's sampled ``tokens`` (B,) — for a stub frontend their token
+    embedding in the model's dtype."""
+    stub = cfg.frontend == "stub_embeddings"
+    if prompt is not None:
+        return {"embeds" if stub else "tokens": prompt}
+    if stub:
+        return {"embeds": lm.embed(params["embedding"], tokens[:, None])
+                .to(lm._dtype(cfg))}
+    return {"tokens": tokens[:, None]}
 
 
 def serve(cfg, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0,
@@ -90,7 +112,7 @@ def serve(cfg, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0,
         cache = lm.init_cache(cfg, batch, s_max, device=dev)
         synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill_fn(params, {"tokens": prompt}, cache)
+        logits, cache = prefill_fn(params, feed(cfg, params, prompt), cache)
         synchronize()
         t_prefill = time.perf_counter() - t0
 
@@ -99,8 +121,8 @@ def serve(cfg, *, batch: int, prompt_len: int, gen_len: int, seed: int = 0,
         generated, step_logits = [tokens], []
         t0 = time.perf_counter()
         for t in range(prompt_len, prompt_len + gen_len - 1):
-            logits, cache = decode_fn(params, {"tokens": tokens[:, None]}, t,
-                                      cache)
+            logits, cache = decode_fn(params, feed(cfg, params, tokens=tokens),
+                                      t, cache)
             tokens = sample(logits)
             generated.append(tokens)
             step_logits.append(logits)

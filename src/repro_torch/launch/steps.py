@@ -2,8 +2,9 @@
 of ``repro/launch/steps.py`` (the training steps are not ported yet).
 
 Each step returns the last position's logits (the next-token distribution)
-and the cache, which the model updates in place.  The steps are
-family-neutral: they serve whatever family ``models.lm`` ports.
+and the cache, which the model updates in place.  A batch holds
+``tokens``, or ``embeds`` for a stub-frontend model.  The steps are
+family-neutral: they serve every family ``models.lm`` carries.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ def make_prefill_step(cfg, executor=None):
         logits, cache = lm.prefill(params, cfg, tokens=batch.get("tokens"),
                                    embeds=batch.get("embeds"), cache=cache,
                                    executor=executor)
-        return logits[:, -1, :], cache
+        # a copy: the (B, S, vocab) logits are freed on return
+        return logits[:, -1, :].contiguous(), cache
 
     return prefill_step
 

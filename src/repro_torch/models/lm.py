@@ -1,34 +1,40 @@
-"""Language models: the port of ``repro/models/lm.py`` for the hybrid and
-RWKV6 families.
+"""Language models: the port of ``repro/models/lm.py`` for every family.
 
 One contract, as in the JAX package:
 
 * ``init_model(cfg, generator, device) -> params``  (a :class:`ParamTree`)
-* ``forward(params, cfg, tokens) -> (logits, metrics)``
+* ``forward(params, cfg, tokens | embeds) -> (logits, metrics)``
 * ``init_cache(cfg, batch, s_max, device) -> cache``
-* ``prefill(params, cfg, tokens, cache) -> (logits, cache)``
-* ``decode_step(params, cfg, tokens, length, cache) -> (logits, cache)``
+* ``prefill(params, cfg, tokens | embeds, cache) -> (logits, cache)``
+* ``decode_step(params, cfg, tokens | embeds, length, cache) -> (logits, cache)``
 
-The hybrid family is Zamba2: groups of Mamba2 layers, each group followed by
-a shared attention + MLP block at width 2 d over concat(hidden, original
-embedding), with per-group LoRA deltas on the shared q/k/v.  The RWKV6
-family is Finch: a layernorm on the embedding (``ln0``), then blocks of
-layernorm, time-mix (the WKV scan), layernorm, channel-mix, and a layernorm
-before the head.  The JAX package's ``lax.scan`` over stacked layers is a
-Python loop over ``nn.ModuleList``s here (``params["mamba"][g][i]``,
-``params["lora"][g]``, ``params["blocks"][i]``).  Every hot op dispatches
-through the registry (``nn_rmsnorm``, ``nn_attention``, ``nn_ssd_scan``,
-``nn_rwkv6_scan``), so the same model runs on the reference, torch and cuda
-executors.
+The transformer families (``dense``, ``moe``, ``mla``): blocks of norm,
+attention (GQA, or MLA's latent attention), norm, and an MLP (SwiGLU, GELU
+for musicgen, or the MoE layer), each residual branch scaled by
+``residual_scale`` (MiniCPM3).  A stub-embedding frontend (musicgen,
+pixtral) takes precomputed ``embeds`` (B, S, d_model) in place of tokens;
+sinusoidal positions (musicgen) are added to the input.  The hybrid family
+is Zamba2: groups of Mamba2 layers, each group followed by a shared
+attention + MLP block at width 2 d over concat(hidden, original embedding),
+with per-group LoRA deltas on the shared q/k/v.  The RWKV6 family is
+Finch: a layernorm on the embedding (``ln0``), then blocks of layernorm,
+time-mix (the WKV scan), layernorm, channel-mix, and a layernorm before the
+head.
 
-The cache keeps the JAX package's stacked layout (``(G, per, B, ...)`` for
-the Mamba state, ``(G, B, Hkv, Smax, D)`` for the KV cache, ``(n_layers, B,
-H, K, V)`` f32 for the WKV state and ``(n_layers, B, d)`` for the token
-shifts); ``prefill`` and ``decode_step`` write it in place and return it.
+The JAX package's ``lax.scan`` over stacked layers is a Python loop over
+``nn.ModuleList``s here (``params["blocks"][i]``, ``params["mamba"][g][i]``,
+``params["lora"][g]``).  Every hot op dispatches through the registry
+(``nn_rmsnorm``, ``nn_attention``, ``nn_ssd_scan``, ``nn_rwkv6_scan``), so
+the same model runs on the reference, torch and cuda executors.
 
-The transformer (dense / MLA / MoE) families, the stub-embedding frontend
-and sinusoidal positions, and the loss (training) are not ported yet
-(ROADMAP A15); asking for them raises ``NotImplementedError``.
+The cache keeps the JAX package's stacked layout: ``(n_layers, B, Hkv,
+Smax, D)`` k and v for the dense and MoE families, ``(n_layers, B, Smax,
+kv_lora_rank)`` and ``(n_layers, B, Smax, qk_rope_head_dim)`` latents for
+MLA, ``(G, per, B, ...)`` Mamba states and a ``(G, B, Hkv, Smax, D)`` KV
+cache for the hybrid family, ``(n_layers, B, H, K, V)`` f32 WKV states and
+``(n_layers, B, d)`` token shifts for RWKV6; ``prefill`` and
+``decode_step`` write it in place and return it.  The loss (training) is
+not ported yet (ROADMAP A.10).
 """
 
 from __future__ import annotations
@@ -37,16 +43,20 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.executor import default_device
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import mamba as mamba_lib
+from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import rwkv as rwkv_lib
-from repro_torch.nn.attention import KVCache
+from repro_torch.nn.attention import KVCache, MLACache
 from repro_torch.nn.common import Initializer, ParamTree
 from repro_torch.nn.layers import (
     embed,
     embedding_init,
+    gelu_mlp,
+    gelu_mlp_init,
     layernorm,
     layernorm_init,
     rmsnorm,
@@ -58,7 +68,8 @@ from repro_torch.nn.layers import (
 from repro_torch.nn.mamba import MambaState
 from repro_torch.nn.rwkv import RWKVState
 
-__all__ = ["init_model", "forward", "init_cache", "prefill", "decode_step"]
+__all__ = ["init_model", "forward", "init_cache", "prefill", "decode_step",
+           "embed"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -68,29 +79,98 @@ def _dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-#: the families the port runs, each with the norm its configuration uses
-_PORTED_NORMS = {"hybrid": "rmsnorm", "rwkv6": "layernorm"}
+_TRANSFORMER = ("dense", "mla", "moe")
+_FAMILIES = _TRANSFORMER + ("rwkv6", "hybrid")
 
 
-def _require_ported(cfg) -> None:
-    if cfg.family not in _PORTED_NORMS:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            "repro_torch yet (ROADMAP A15); the hybrid and rwkv6 families are")
-    if cfg.frontend != "tokens" or cfg.pos_kind != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: frontend {cfg.frontend!r} / positions "
-            f"{cfg.pos_kind!r} are not ported yet (ROADMAP A15)")
-    if cfg.norm_kind != _PORTED_NORMS[cfg.family]:
-        raise NotImplementedError(f"{cfg.name}: norm {cfg.norm_kind!r} is not "
-                                  f"ported yet for the {cfg.family!r} family "
-                                  "(ROADMAP A15)")
+def _check_family(cfg) -> None:
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def _norm_init(ini: Initializer, cfg, d=None) -> dict:
+    d = d or cfg.d_model
+    if cfg.norm_kind == "layernorm":
+        return layernorm_init(ini, d)
+    return rmsnorm_init(ini, d)
 
 
 def _norm(p, x, cfg, executor=None):
     if cfg.norm_kind == "layernorm":
         return layernorm(p, x, cfg.norm_eps)
     return rmsnorm(p, x, cfg.norm_eps, executor=executor)
+
+
+def _sinusoidal(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, S) -> (B, S, d) standard transformer sinusoidal embedding, in
+    f32 (the frequencies' exponent step rounded to f32, as in the JAX
+    package)."""
+    half = d // 2
+    dev = positions.device
+    step = torch.log(torch.tensor(10000.0, dtype=torch.float32, device=dev)) / half
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=dev) * step)
+    ang = positions[..., None].to(torch.float32) * freqs
+    out = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    if d % 2:
+        out = F.pad(out, (0, 1))
+    return out
+
+
+# =============================================================================
+# transformer family (dense / mla / moe)
+# =============================================================================
+
+
+def _tf_block_init(ini: Initializer, cfg) -> dict:
+    p = {"norm1": _norm_init(ini, cfg)}
+    p["attn"] = (attn_lib.mla_init(ini, cfg) if cfg.family == "mla"
+                 else attn_lib.gqa_init(ini, cfg))
+    p["norm2"] = _norm_init(ini, cfg)
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.moe_init(ini, cfg)
+    elif cfg.mlp_kind == "gelu":
+        p["mlp"] = gelu_mlp_init(ini, cfg.d_model, cfg.d_ff)
+    else:
+        p["mlp"] = swiglu_init(ini, cfg.d_model, cfg.d_ff)
+    return p
+
+
+def _tf_mlp(bp, h, cfg):
+    """The block's MLP branch and its metrics (MoE's router losses)."""
+    if cfg.family == "moe":
+        return moe_lib.moe_forward(bp["moe"], h, cfg)
+    if cfg.mlp_kind == "gelu":
+        return gelu_mlp(bp["mlp"], h), {}
+    return swiglu(bp["mlp"], h), {}
+
+
+def _tf_block(bp, x, cfg, *, positions=None, cache=None, length=None,
+              mode="forward", executor=None):
+    """One transformer block in ``mode`` forward | prefill | decode:
+    (x, cache, metrics)."""
+    rs = cfg.residual_scale
+    h = _norm(bp["norm1"], x, cfg, executor)
+    if cfg.family == "mla":
+        fwd, pre, dec = attn_lib.mla_forward, attn_lib.mla_prefill, attn_lib.mla_decode
+    else:
+        fwd, pre, dec = attn_lib.gqa_forward, attn_lib.gqa_prefill, attn_lib.gqa_decode
+    if mode == "forward":
+        a = fwd(bp["attn"], h, cfg, positions, executor=executor)
+    elif mode == "prefill":
+        a, cache = pre(bp["attn"], h, cfg, positions, cache, executor=executor)
+    else:
+        a, cache = dec(bp["attn"], h, cfg, length, cache, executor=executor)
+    x = x + rs * a
+    h = _norm(bp["norm2"], x, cfg, executor)
+    m, metrics = _tf_mlp(bp, h, cfg)
+    return x + rs * m, cache, metrics
+
+
+def _tf_layer_cache(cache, i: int):
+    """Layer ``i``'s view of the stacked cache (writes land in the stack)."""
+    if isinstance(cache, MLACache):
+        return MLACache(c_kv=cache.c_kv[i], k_rope=cache.k_rope[i])
+    return KVCache(k=cache.k[i], v=cache.v[i])
 
 
 # =============================================================================
@@ -210,25 +290,27 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
     init rule of ``ParamBuilder.param``), drawn on ``device`` (the card
     unless asked otherwise) from ``generator`` (a fresh one seeded 0 when
     None).  ``device="meta"`` gives shapes and dtypes without storage."""
-    _require_ported(cfg)
+    _check_family(cfg)
     dev = torch.device(device) if device is not None else default_device()
     if generator is None and dev.type != "meta":
         generator = torch.Generator(dev).manual_seed(0)
     ini = Initializer(generator, _dtype(cfg), dev)
     params: Dict[str, Any] = {
         "embedding": embedding_init(ini, cfg.vocab, cfg.d_model)}
-    if cfg.family == "rwkv6":
+    if cfg.family in _TRANSFORMER:
+        params["blocks"] = [_tf_block_init(ini, cfg)
+                            for _ in range(cfg.n_layers)]
+    elif cfg.family == "rwkv6":
         params["ln0"] = layernorm_init(ini, cfg.d_model)  # rwkv normalises the embedding
         params["blocks"] = [_rwkv_block_init(ini, cfg)
                             for _ in range(cfg.n_layers)]
-        params["final_norm"] = layernorm_init(ini, cfg.d_model)
     else:
         G, per = _zamba_groups(cfg)
         params["mamba"] = [[mamba_lib.mamba_init(ini, cfg) for _ in range(per)]
                            for _ in range(G)]
         params["shared"] = _zamba_shared_init(ini, cfg)
         params["lora"] = [_zamba_lora_init(ini, cfg) for _ in range(G)]
-        params["final_norm"] = rmsnorm_init(ini, cfg.d_model)
+    params["final_norm"] = _norm_init(ini, cfg)
     if not cfg.tie_embeddings:
         params["lm_head"] = ini.param((cfg.d_model, cfg.vocab),
                                       std=cfg.d_model ** -0.5)
@@ -245,10 +327,25 @@ def _positions(B: int, S: int, start: int, device) -> torch.Tensor:
     return pos.expand(B, S)
 
 
-def _inputs_to_h(params, cfg, tokens):
-    if tokens is None:
-        raise ValueError(f"{cfg.name}: the token frontend needs `tokens`")
-    return embed(params["embedding"], tokens) * cfg.emb_scale
+def _batch_len(tokens, embeds) -> Tuple[int, int]:
+    return tuple(tokens.shape) if tokens is not None else tuple(embeds.shape[:2])
+
+
+def _inputs_to_h(params, cfg, tokens, embeds, positions):
+    """The input stream: the token embedding (times ``emb_scale``), or the
+    stub frontend's ``embeds`` in the model's dtype; plus sinusoidal
+    positions where the configuration uses them."""
+    if cfg.frontend == "stub_embeddings":
+        if embeds is None:
+            raise ValueError(f"{cfg.name}: stub-frontend model needs `embeds`")
+        h = embeds.to(_dtype(cfg))
+    else:
+        if tokens is None:
+            raise ValueError(f"{cfg.name}: the token frontend needs `tokens`")
+        h = embed(params["embedding"], tokens) * cfg.emb_scale
+    if cfg.pos_kind == "sinusoidal":
+        h = h + _sinusoidal(positions, cfg.d_model).to(h.dtype)
+    return h
 
 
 def _head(params, cfg, h, executor=None):
@@ -257,36 +354,43 @@ def _head(params, cfg, h, executor=None):
         logits = unembed(params["embedding"], h)
     else:
         logits = h @ params["lm_head"]
-    return logits.to(torch.float32) * cfg.logit_scale
+    # in place: a prefill's (B, S, vocab) f32 logits are held once
+    return logits.to(torch.float32).mul_(cfg.logit_scale)
 
 
-def forward(params, cfg, tokens: torch.Tensor, embeds=None, *,
+def forward(params, cfg, tokens: torch.Tensor = None, embeds=None, *,
             executor=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Logits (B, S, vocab) f32 of a whole causal pass; no cache."""
-    _require_ported(cfg)
-    if embeds is not None:
-        raise NotImplementedError("the stub-embedding frontend is not ported "
-                                  "yet (ROADMAP A15)")
-    B, S = tokens.shape
-    h = _inputs_to_h(params, cfg, tokens)
-    if cfg.family == "rwkv6":
+    """Logits (B, S, vocab) f32 of a whole causal pass, no cache; the
+    metrics are the MoE family's router losses summed over the layers."""
+    _check_family(cfg)
+    B, S = _batch_len(tokens, embeds)
+    dev = (tokens if tokens is not None else embeds).device
+    positions = _positions(B, S, 0, dev)
+    h = _inputs_to_h(params, cfg, tokens, embeds, positions)
+    metrics: Dict[str, torch.Tensor] = {}
+    if cfg.family in _TRANSFORMER:
+        for bp in params["blocks"]:
+            h, _, m = _tf_block(bp, h, cfg, positions=positions,
+                                executor=executor)
+            metrics = {k: metrics.get(k, 0.0) + v for k, v in m.items()}
+    elif cfg.family == "rwkv6":
         h = layernorm(params["ln0"], h, cfg.norm_eps)
         for bp in params["blocks"]:
             h, _ = _rwkv_block_forward(bp, h, cfg, executor=executor)
-        return _head(params, cfg, h, executor), {}
-    positions = _positions(B, S, 0, tokens.device)
-    emb0 = h
-    G, per = _zamba_groups(cfg)
-    for g in range(G):
-        for i in range(per):
-            y, _ = mamba_lib.mamba_forward(params["mamba"][g][i], h, cfg,
-                                           executor=executor)
-            h = h + y
-        x2 = torch.cat([h, emb0], dim=-1)
-        delta, _ = _zamba_shared_forward(params["shared"], params["lora"][g],
-                                         x2, cfg, positions, executor=executor)
-        h = h + delta
-    return _head(params, cfg, h, executor), {}
+    else:
+        emb0 = h
+        G, per = _zamba_groups(cfg)
+        for g in range(G):
+            for i in range(per):
+                y, _ = mamba_lib.mamba_forward(params["mamba"][g][i], h, cfg,
+                                               executor=executor)
+                h = h + y
+            x2 = torch.cat([h, emb0], dim=-1)
+            delta, _ = _zamba_shared_forward(params["shared"],
+                                             params["lora"][g], x2, cfg,
+                                             positions, executor=executor)
+            h = h + delta
+    return _head(params, cfg, h, executor), metrics
 
 
 # =============================================================================
@@ -296,38 +400,45 @@ def forward(params, cfg, tokens: torch.Tensor, embeds=None, *,
 
 def init_cache(cfg, batch: int, s_max: int, device=None):
     """The zeroed cache on ``device`` (the card unless asked otherwise):
-    for the hybrid family the Mamba state ``(G, per, B, ...)`` and KV cache
-    ``(G, B, Hkv, s_max, D)``; for RWKV6 an :class:`RWKVState` of WKV states
-    ``(n_layers, B, H, K, V)`` f32 and token shifts ``(n_layers, B, d)``
-    (no position axis: ``s_max`` is not used)."""
-    _require_ported(cfg)
+    a :class:`KVCache` ``(n_layers, B, Hkv, s_max, D)`` for the dense and
+    MoE families, an :class:`MLACache` ``(n_layers, B, s_max, kvr)`` /
+    ``(n_layers, B, s_max, dr)`` for MLA, for the hybrid family the Mamba
+    state ``(G, per, B, ...)`` and KV cache ``(G, B, Hkv, s_max, D)``, for
+    RWKV6 an :class:`RWKVState` of WKV states ``(n_layers, B, H, K, V)`` f32
+    and token shifts ``(n_layers, B, d)`` (no position axis: ``s_max`` is
+    not used)."""
+    _check_family(cfg)
     dev = torch.device(device) if device is not None else default_device()
     dt = _dtype(cfg)
+    L = cfg.n_layers
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.family in ("dense", "moe"):
+        shape = (L, batch, cfg.n_kv_heads, s_max, cfg.resolved_head_dim)
+        return KVCache(k=zeros(*shape), v=zeros(*shape))
+    if cfg.family == "mla":
+        return MLACache(c_kv=zeros(L, batch, s_max, cfg.kv_lora_rank),
+                        k_rope=zeros(L, batch, s_max, cfg.qk_rope_head_dim))
     if cfg.family == "rwkv6":
         H, K = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
-        shift = (cfg.n_layers, batch, cfg.d_model)
-        return RWKVState(
-            wkv=torch.zeros((cfg.n_layers, batch, H, K, K),
-                            dtype=torch.float32, device=dev),
-            shift_tm=torch.zeros(shift, dtype=dt, device=dev),
-            shift_cm=torch.zeros(shift, dtype=dt, device=dev),
-        )
+        return RWKVState(wkv=zeros(L, batch, H, K, K, dtype=torch.float32),
+                         shift_tm=zeros(L, batch, cfg.d_model),
+                         shift_cm=zeros(L, batch, cfg.d_model))
     G, per = _zamba_groups(cfg)
     d_inner = cfg.ssm_expand * cfg.d_model
     H = d_inner // cfg.ssm_head_dim
     conv_dim = d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     scfg = _shared_cfg(cfg)
-    hd2 = scfg.resolved_head_dim
-    kv_shape = (G, batch, scfg.n_kv_heads, s_max, hd2)
+    kv_shape = (G, batch, scfg.n_kv_heads, s_max, scfg.resolved_head_dim)
     return {
         "mamba": MambaState(
-            conv=torch.zeros((G, per, batch, cfg.ssm_conv - 1, conv_dim),
-                             dtype=dt, device=dev),
-            ssm=torch.zeros((G, per, batch, H, cfg.ssm_state, cfg.ssm_head_dim),
-                            dtype=torch.float32, device=dev),
+            conv=zeros(G, per, batch, cfg.ssm_conv - 1, conv_dim),
+            ssm=zeros(G, per, batch, H, cfg.ssm_state, cfg.ssm_head_dim,
+                      dtype=torch.float32),
         ),
-        "kv": KVCache(k=torch.zeros(kv_shape, dtype=dt, device=dev),
-                      v=torch.zeros(kv_shape, dtype=dt, device=dev)),
+        "kv": KVCache(k=zeros(*kv_shape), v=zeros(*kv_shape)),
     }
 
 
@@ -357,14 +468,20 @@ def _rwkv_store(cache: RWKVState, i: int, st: RWKVState) -> None:
 
 def prefill(params, cfg, tokens: torch.Tensor = None, embeds=None, cache=None,
             *, executor=None):
-    """Process a prompt, fill the cache at offset 0 (in place), return the
+    """Process a prompt (``tokens`` (B, S), or ``embeds`` (B, S, d) for a
+    stub-frontend model), fill the cache at offset 0 (in place), return the
     logits (B, S, vocab) f32 and the cache."""
-    _require_ported(cfg)
-    if embeds is not None:
-        raise NotImplementedError("the stub-embedding frontend is not ported "
-                                  "yet (ROADMAP A15)")
-    B, S = tokens.shape
-    h = _inputs_to_h(params, cfg, tokens)
+    _check_family(cfg)
+    B, S = _batch_len(tokens, embeds)
+    dev = (tokens if tokens is not None else embeds).device
+    positions = _positions(B, S, 0, dev)
+    h = _inputs_to_h(params, cfg, tokens, embeds, positions)
+    if cfg.family in _TRANSFORMER:
+        for i, bp in enumerate(params["blocks"]):
+            h, _, _ = _tf_block(bp, h, cfg, positions=positions,
+                                cache=_tf_layer_cache(cache, i),
+                                mode="prefill", executor=executor)
+        return _head(params, cfg, h, executor), cache
     if cfg.family == "rwkv6":
         # the WKV scan starts from zero, whatever the cache holds (C5)
         h = layernorm(params["ln0"], h, cfg.norm_eps)
@@ -373,7 +490,6 @@ def prefill(params, cfg, tokens: torch.Tensor = None, embeds=None, cache=None,
                                         executor=executor)
             _rwkv_store(cache, i, st)
         return _head(params, cfg, h, executor), cache
-    positions = _positions(B, S, 0, tokens.device)
     emb0 = h
     G, per = _zamba_groups(cfg)
     for g in range(G):
@@ -393,23 +509,27 @@ def prefill(params, cfg, tokens: torch.Tensor = None, embeds=None, cache=None,
 
 def decode_step(params, cfg, tokens: torch.Tensor = None, embeds=None,
                 length: int = None, cache=None, *, executor=None):
-    """One-token step of tokens (B, 1); ``length`` = tokens already in the
-    cache.  Updates the cache in place; returns logits (B, 1, vocab) f32 and
-    the cache."""
-    _require_ported(cfg)
-    if embeds is not None:
-        raise NotImplementedError("the stub-embedding frontend is not ported "
-                                  "yet (ROADMAP A15)")
+    """One-token step of ``tokens`` (B, 1), or ``embeds`` (B, 1, d) for a
+    stub-frontend model; ``length`` = tokens already in the cache.  Updates
+    the cache in place; returns logits (B, 1, vocab) f32 and the cache."""
+    _check_family(cfg)
     length = int(length)
-    B = tokens.shape[0]
-    h = _inputs_to_h(params, cfg, tokens)
+    B, _ = _batch_len(tokens, embeds)
+    dev = (tokens if tokens is not None else embeds).device
+    positions = _positions(B, 1, length, dev)
+    h = _inputs_to_h(params, cfg, tokens, embeds, positions)
+    if cfg.family in _TRANSFORMER:
+        for i, bp in enumerate(params["blocks"]):
+            h, _, _ = _tf_block(bp, h, cfg, cache=_tf_layer_cache(cache, i),
+                                length=length, mode="decode",
+                                executor=executor)
+        return _head(params, cfg, h, executor), cache
     if cfg.family == "rwkv6":
         h = layernorm(params["ln0"], h, cfg.norm_eps)
         for i, bp in enumerate(params["blocks"]):
             h, st = _rwkv_block_step(bp, h, cfg, _rwkv_layer(cache, i))
             _rwkv_store(cache, i, st)
         return _head(params, cfg, h, executor), cache
-    positions = _positions(B, 1, length, tokens.device)
     emb0 = h
     G, per = _zamba_groups(cfg)
     for g in range(G):

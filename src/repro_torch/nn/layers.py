@@ -1,13 +1,14 @@
 """Basic layers: linear, RMSNorm, LayerNorm, group norm, rotary embeddings,
-SwiGLU, embeddings.
+SwiGLU and GELU MLPs, embeddings.
 
-The port of ``repro/nn/layers.py`` for the families the port carries.
+The port of ``repro/nn/layers.py``.
 RMSNorm goes through the registered ``nn_rmsnorm`` operation (reference /
 torch / cuda); LayerNorm and the parameter-free group norm are plain
 PyTorch, as the JAX package has no Pallas kernel for them.  Matrix products
 are plain ``@`` on the JAX layout (``(d_in, d_out)`` weights, ``x @ W``),
 which PyTorch sends to cuBLAS on the card as the JAX package left them to
-XLA.  GELU waits for the family that uses it (ROADMAP A15).
+XLA.  GELU is the tanh approximation, ``jax.nn.gelu``'s default (PyTorch's
+default, the exact erf form, differs by about 1e-3).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from repro_torch.nn.common import Initializer, ones, zeros
 import repro_torch.kernels  # noqa: F401
 
 __all__ = ["linear_init", "linear", "rmsnorm_init", "rmsnorm",
-           "layernorm_init", "layernorm", "groupnorm", "rope_frequencies", "apply_rope", "swiglu_init", "swiglu",
+           "layernorm_init", "layernorm", "groupnorm", "rope_frequencies",
+           "apply_rope", "swiglu_init", "swiglu", "gelu_mlp_init", "gelu_mlp",
            "embedding_init", "embed", "unembed"]
 
 _rmsnorm_op = registry.operation("nn_rmsnorm")
@@ -51,9 +53,12 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
 # -- norms ------------------------------------------------------------------------
 
 
-def rmsnorm_init(ini: Initializer, d: int) -> dict:
-    """The scale is f32 whatever the model's dtype, as in the JAX package."""
-    return {"scale": ini.param((d,), init=ones, dtype=torch.float32)}
+def rmsnorm_init(ini: Initializer, d: int, *,
+                 dtype: torch.dtype = torch.float32) -> dict:
+    """The scale is f32 whatever the model's dtype unless ``dtype`` says
+    otherwise, as in the JAX package (MLA's q / kv norms take the model's
+    dtype)."""
+    return {"scale": ini.param((d,), init=ones, dtype=dtype)}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6, *, executor=None) -> torch.Tensor:
@@ -130,6 +135,28 @@ def swiglu_init(ini: Initializer, d: int, d_ff: int) -> dict:
 
 def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["gate"]) * (x @ p["up"])) @ p["down"]
+
+
+def gelu_mlp_init(ini: Initializer, d: int, d_ff: int, *, bias: bool = True) -> dict:
+    p = {
+        "up": ini.param((d, d_ff), std=d ** -0.5),
+        "down": ini.param((d_ff, d), std=d_ff ** -0.5),
+    }
+    if bias:
+        p["up_b"] = ini.param((d_ff,), init=zeros)
+        p["down_b"] = ini.param((d,), init=zeros)
+    return p
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p["up"]
+    if "up_b" in p:
+        h = h + p["up_b"]
+    h = F.gelu(h, approximate="tanh")
+    y = h @ p["down"]
+    if "down_b" in p:
+        y = y + p["down_b"]
+    return y
 
 
 # -- embedding ----------------------------------------------------------------------

@@ -89,13 +89,28 @@ def test_zamba2_config_equals_the_jax_config_field_for_field():
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A15"):
-        get_config("granite-8b")
+    """Every architecture of the JAX package now resolves (its config and
+    its family's init); an unknown one raises KeyError; what is still not
+    ported — the expert-parallel MoE dispatch a ``moe_spec`` asks for —
+    raises naming its ROADMAP item, A.10."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.nn import moe
+
+    for arch in JAX_ARCH_IDS:
+        cfg = get_config(arch.replace("_", "-"))
+        assert cfg == get_config(arch)
+        lm.init_model(get_smoke_config(arch), device="meta")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-model")
-    cfg = dataclasses.replace(get_smoke_config(ARCH), family="dense")
-    with pytest.raises(NotImplementedError, match="A15"):
-        lm.init_model(cfg, device="meta")
+    cfg = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
+                              moe_spec=(("data",), "model"))
+    params = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.zeros(1, 3, dtype=torch.int64)
+    with pytest.raises(NotImplementedError, match="A.10"):
+        lm.forward(params, cfg, toks, executor=make_executor("torch"))
+    with pytest.raises(NotImplementedError, match="A.10"):
+        moe.moe_forward(params["blocks"][0]["moe"],
+                        torch.zeros(1, 3, cfg.d_model), cfg, impl="ep")
 
 
 def test_full_width_parameter_count():
@@ -243,13 +258,34 @@ def test_gqa_prefill_and_decode_match_jax(smoke, space):
 
 
 def test_chunked_attention_is_not_ported(smoke):
-    cfg, _, _, params = smoke
-    scfg = dataclasses.replace(lm._shared_cfg(cfg), attn_impl="chunked")
-    x = torch.zeros(1, 4, scfg.d_model)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        attn.gqa_forward(params["shared"]["attn"], x, scfg,
-                         torch.zeros(1, 4, dtype=torch.int32),
-                         executor=make_executor("torch"))
+    """The chunked attention is ported: on the Zamba2 shared block with
+    ``attn_impl="chunked"`` the port's forward equals the JAX package's
+    (``attention_xla_chunked`` at a chunk of 4 rows, and at the chunk the
+    tuning table resolves), in the reference and torch spaces, and equals
+    the dense route."""
+    cfg, jcfg, jparams, params = smoke
+    B, S = 2, 11
+    x = np.random.default_rng(8).standard_normal(
+        (B, S, 2 * cfg.d_model)).astype(np.float32)
+    pos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    jp, p = jparams["shared"]["attn"], params["shared"]["attn"]
+    dense = attn.gqa_forward(p, _t(x), lm._shared_cfg(cfg), _t(pos),
+                             executor=make_executor("torch"))
+    for chunk in (4, None):
+        scfg = dataclasses.replace(lm._shared_cfg(cfg), attn_impl="chunked",
+                                   attn_chunk=chunk)
+        jscfg = dataclasses.replace(jax_lm._shared_cfg(jcfg),
+                                    attn_impl="chunked", attn_chunk=chunk)
+        want = jax_attn.gqa_forward(jp, jnp.asarray(x), jscfg, jnp.asarray(pos),
+                                    executor=jax_make_executor("reference"))
+        for space in SPACES:
+            got = attn.gqa_forward(p, _t(x), scfg, _t(pos),
+                                   executor=make_executor(space))
+            assert _rel(got, want) < 1e-5
+            assert _rel(got, dense.numpy()) < 1e-5
+    assert make_executor("torch").launch_config(
+        "nn_attention_chunked", {"S": S, "Skv": S, "D": 32, "itemsize": 4}
+    )["chunk"] == 512
 
 
 # -- the slice as a whole --------------------------------------------------------------

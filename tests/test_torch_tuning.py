@@ -30,6 +30,7 @@ OPS_AND_SHAPES = {
     "spmv_batch_ell": {"m": 1024, "k": 3, "n": 1024, "itemsize": 4},
     "nn_rmsnorm": {"rows": 16_384, "d": 5120, "itemsize": 2},
     "nn_attention": {"S": 2048, "Skv": 2048, "D": 160, "itemsize": 2},
+    "nn_attention_chunked": {"S": 2048, "Skv": 2048, "D": 128, "itemsize": 2},
     "nn_rwkv6_scan": {"S": 2048, "K": 64, "V": 64, "tensor_cores": 1},
     "nn_ssd_scan": {"S": 2048, "N": 64, "P": 64, "tensor_cores": 1},
 }
