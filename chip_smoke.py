@@ -219,6 +219,43 @@ Phases, each of which exits non-zero on failure:
             (D 128 at 32/8, 32/4 and 16/16 heads, D 96 at 40 heads with v
             padded from 64, D 64 at 32/32 and 9/3 heads; f32 at D 96 and
             128) held against their plain versions and timed.
+15. train — random weights from the port's init (seed 0) on the chain
+            data of repro_torch.data (seed 17): (a) smollm-135m at full
+            width and depth (30 layers, bf16) through
+            repro_torch.launch.train.train on the CUDA executor, 40 steps
+            of 8 x 2,048 tokens (warmup-cosine, peak 3e-3): the last 5
+            losses' mean at least 0.25 below the first 5's and above the
+            entropy floor less 0.05, launches exactly (rmsnorm 61 and
+            flash_attention 30 a step, every other kernel 0: backward
+            launches no hand-written kernel), warm step ms, tokens/s, peak
+            memory, and 2 steps under torch.profiler split into forward,
+            backward and optimizer; (b) the first step's loss and every
+            leaf's gradient from the same weights and batch in both
+            spaces: in the cuda space every leaf finite and non-zero; bf16
+            at (a)'s size (the torch space's blocks checkpointed) loss
+            within 1e-2 relative, ||g_cuda - g_torch|| / ||g_torch|| at
+            most 0.1 a leaf; f32 at 2 layers (TF32 off) 1e-5 and 1e-3;
+            (c) 2 layers, 20 steps of 8 x 512: a run stopped at step 10
+            and resumed from CheckpointManager gives the uninterrupted
+            run's first 10 losses bit for bit and the rest within rtol =
+            atol = 2e-4; a simulated preemption checkpoints step 1; (d)
+            one step each of zamba2-2.7b (one group of 6 Mamba2 layers
+            and the shared block), rwkv6-3b (2 layers, w0 and the LoRA
+            outputs seeded as in phase 9), minicpm3-4b and olmoe-1b-7b (2
+            layers) at 2 x 2,048: launches exactly, every gradient finite
+            and non-zero, (b)'s comparisons in bf16 and f32 (MoE routed as
+            the cuda space routed; its bf16 gradients printed, not held);
+            (e) compressed DP: 2 gloo ranks sharing the card, smollm-135m
+            at 2 layers, 12 steps of 8 x 512 at constant 3e-3 without
+            weight decay: the losses within 1e-4 of the same algorithm run
+            in one process on the card, the last loss below the first
+            less 0.1, the ranks' parameters bitwise equal; the
+            uncompressed single-card run beside it, printed; (f)
+            train_deq: DEQ-GATE:
+            PASS; (g) the four kernels' autograd Functions at (a)'s and
+            (d)'s shapes: the forward bitwise the bare kernel's, the
+            gradients autograd's through the plain version, forward and
+            backward ms.
 
 It then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
@@ -227,7 +264,8 @@ pipelined and flexible CG; the AMG check; SELL-P CG; the four batched
 solves; the two serve calls; BiCGSTAB, CGS, GMRES, ParILU-BiCGSTAB and
 mixed-precision IR; the served stream of 11a and the three lanes of 11c;
 the distributed CG on one rank, on four ranks (each rank's counts, summed)
-and its pipelined window, and the launcher; the eight family serve calls),
+and its pipelined window, and the launcher; the eight family serve calls;
+``train``, 15a's 40 steps, and ``train_families``, 15d's four cuda steps),
 each run counted from 0; ``launches_by_path`` gives each, and
 block_jacobi_apply's storage variants carry the same per storage dtype.
 ``max_abs_err`` is the larger over the shapes the kernel was held at;
@@ -235,7 +273,8 @@ block_jacobi_apply's storage variants carry the same per storage dtype.
 hold the times at those paths' shapes of a kernel whose row is timed at
 phase 3's, and
 ``at_bicgstab_shape`` / ``at_row_pieces_shape`` those of phase 7's second
-shapes, ``at_family_shapes`` rmsnorm's and flash_attention's at phase 14's; rmsnorm's ``at_decode_shape`` holds its rows at a decode step's 8
+shapes, ``at_family_shapes`` rmsnorm's and flash_attention's at phase 14's,
+``train_function`` each LM kernel's autograd Function at phase 15's; rmsnorm's ``at_decode_shape`` holds its rows at a decode step's 8
 rows and spmv_ell's ``at_amg_levels`` one row per AMG level operator and
 their sum per V(1,1) cycle.  It imports
 nothing of JAX or of the JAX package.  Without a CUDA device, or without the
@@ -247,6 +286,7 @@ from __future__ import annotations
 import collections
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -375,6 +415,57 @@ DIST_LAUNCH = ["--n", "1048576", "--format", "ell", "--solver", "cg",
 IMPLICIT_STOP = dict(max_iters=3600, reduction_factor=1e-6)
 IMPLICIT_WINDOW = 2
 DEQ_BATCH = 8
+# phase 15 (training): 15a smollm-135m at full width and depth, 40 steps of
+# 8 x 2,048 tokens through launch/train.py (warmup-cosine, peak 3e-3), the
+# loss to fall by TRAIN_DROP (the JAX package's learning criteria); 15b the
+# first step's gradients against the torch space; 15c resume at 2 layers;
+# 15d one step of four more families; 15e compressed DP over 2 gloo ranks;
+# 15f train_deq; 15g the four autograd Functions
+TRAIN_ARCH = "smollm-135m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 2048, 40
+TRAIN_DATA_SEED = 17
+TRAIN_DROP = 0.25
+TRAIN_SHALLOW = 2
+TRAIN_KERNELS = ("rmsnorm", "flash_attention", "ssd_scan", "rwkv6_scan_log")
+TRAIN_BF16_LOSS_TOL, TRAIN_BF16_GRAD_TOL = 1e-2, 0.1
+TRAIN_F32_LOSS_TOL, TRAIN_F32_GRAD_TOL = 1e-5, 1e-3
+TRAIN_RESUME_STEPS, TRAIN_RESUME_STOP, TRAIN_RESUME_TOL = 20, 10, 2e-4
+TRAIN_FAMILIES = (("zamba2-2.7b", 6), ("rwkv6-3b", 2), ("minicpm3-4b", 2),
+                  ("olmoe-1b-7b", 2))
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 2, 2048
+TRAIN_DP_RANKS, TRAIN_DP_BATCH, TRAIN_DP_SEQ = 2, 8, 512
+TRAIN_DP_STEPS, TRAIN_DP_LR = 12, 3e-3
+# 15e's two runs in the JAX package (make_train_step, and
+# make_compressed_dp_train_step on 2 host devices) on a CPU, from the same
+# weights (their digest) and batches, in the model's bf16 and in f32:
+# `python tests/_torch_dp_witness.py --full --n-layers 2 --global-batch 8
+# --seq-len 512 --steps 12 [--dtype float32]`.  Held at every step: the
+# compressed run within TRAIN_DP_JAX_TOL of the JAX package's (its test's
+# tracking tolerance; an int8 level that a last-bit difference tips moves
+# the two packages' compressed runs by 0.008 on one CPU), and in f32 the
+# uncompressed run within TRAIN_DP_F32_TOL (the two packages agree to 3e-6
+# on one CPU).  Printed: the bf16 uncompressed run against the JAX
+# package's (at a constant 3e-3 the loss jumps, and bf16 rounding alone
+# parts the two packages by 0.075 on one CPU), and the gap between the
+# compressed and uncompressed runs, which the JAX package's test holds to
+# 0.05 at its smoke config: at this width its own runs part by 0.55.
+TRAIN_DP_DTYPES = ("bfloat16", "float32")
+TRAIN_DP_JAX = {
+    "bfloat16": {
+        "weights": "28656dc0bd3e9c54ecb40c80dfed580ed0513d4b70bbc1e40f9ff1285b293715",
+        "uncompressed": [10.889801025390625, 10.886301040649414, 10.902042388916016, 10.884702682495117, 10.98384952545166, 11.044591903686523, 11.03833293914795, 10.96202278137207, 10.847696304321289, 11.021780967712402, 10.889704704284668, 10.911555290222168],
+        "compressed": [10.889799118041992, 10.89482307434082, 10.880023956298828, 10.836469650268555, 10.828363418579102, 10.837079048156738, 10.822349548339844, 10.689277648925781, 10.605104446411133, 10.472126960754395, 10.396097183227539, 10.529632568359375]},
+    "float32": {
+        "weights": "e9374ba20785f1556bfd20ff14ad128aaf078db23b40ee61e122f60ae9062ef5",
+        "uncompressed": [10.889884948730469, 10.886127471923828, 10.90282917022705, 10.886022567749023, 10.983367919921875, 11.056111335754395, 11.04421329498291, 10.964518547058105, 10.843352317810059, 11.042598724365234, 10.918155670166016, 10.868815422058105],
+        "compressed": [10.889884948730469, 10.894949913024902, 10.880416870117188, 10.837114334106445, 10.828764915466309, 10.838043212890625, 10.82271957397461, 10.687719345092773, 10.603631973266602, 10.47249984741211, 10.406219482421875, 10.528185844421387]}}
+TRAIN_DP_JAX_TOL, TRAIN_DP_F32_TOL = 0.05, 1e-3
+TRAIN_DEQ_STEPS = 4  # ≈7 s a step on the card (8 GMRES solves, host-paced)
+# the Functions' gradients are autograd through the plain version itself
+TRAIN_FUNCTION_TOL = 1e-6
+# runs a Function's forward and forward + backward are timed over (the
+# backward takes up to 80 ms)
+TRAIN_FUNCTION_REPS = 10
 
 SERVE_HALF_LOAD_REQUESTS = 1024
 #: 11a's torch-space comparison runs the stream's first requests only (the
@@ -405,15 +496,16 @@ def say(msg: str) -> None:
 # -- timing ----------------------------------------------------------------------
 
 
-def device_ms(torch, fn, flush) -> float:
-    """Median device time of ``fn`` in ms: CUDA events around each of REPS
-    runs, with the L2 cache flushed before each.  A sleep kernel holds the
-    stream while the host enqueues, so host overhead does not enter."""
+def device_ms(torch, fn, flush, reps: int = REPS) -> float:
+    """Median device time of ``fn`` in ms: CUDA events around each of
+    ``reps`` runs, with the L2 cache flushed before each.  A sleep kernel
+    holds the stream while the host enqueues, so host overhead does not
+    enter."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     torch.cuda._sleep(200_000_000)
     for s, e in zip(starts, ends):
         flush.zero_()
@@ -4148,11 +4240,11 @@ class _Routes:
     def __enter__(self):
         self.orig = self.moe._router
 
-        def wrapped(p, x2, cfg):
-            w, ids, m = self.orig(p, x2, cfg)
+        def wrapped(router_w, x2, cfg):
+            w, ids, m = self.orig(router_w, x2, cfg)
             if self.replay is not None:
                 ids = self.replay[len(self.ids)]
-                probs = self.torch.softmax(x2.float() @ p["router"], dim=-1)
+                probs = self.torch.softmax(x2.float() @ router_w, dim=-1)
                 w = probs.gather(-1, ids)
                 w = w / w.sum(dim=-1, keepdim=True)
             self.ids.append(ids)
@@ -4584,6 +4676,615 @@ def phase_families(torch, copy_bw) -> tuple:
     return paths, summary, rows
 
 
+# -- phase 15: training ----------------------------------------------------------
+
+
+def _train_batch(torch, cfg, batch: int, seq: int, step: int = 0,
+                 seed: int = TRAIN_DATA_SEED) -> dict:
+    """Step ``step``'s global batch of the chain data on the card."""
+    from repro_torch.data import DataConfig, global_step_batch
+
+    dcfg = DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=seed,
+        stub_embed_dim=cfg.d_model if cfg.frontend == "stub_embeddings" else 0)
+    return {k: torch.from_numpy(v).cuda()
+            for k, v in global_step_batch(dcfg, step).items()}
+
+
+def _grad_rel(torch, ga, gb) -> dict:
+    """{leaf path: ||ga - gb|| / ||gb||} over two gradient trees."""
+    from repro_torch.core import tree as tree_lib
+
+    fa, fb = tree_lib.flat(ga), tree_lib.flat(gb)
+    out = {}
+    for key, b in fb.items():
+        a = fa[key].float()
+        b = b.float()
+        nb = float(torch.linalg.vector_norm(b))
+        out[key] = float(torch.linalg.vector_norm(a - b)) / max(nb, 1e-30)
+    return out
+
+
+def _nonzero_grads(torch, grads, where: str) -> None:
+    """Every leaf of ``grads`` finite and not all zero, or fail."""
+    from repro_torch.core import tree as tree_lib
+
+    bad = [k for k, g in tree_lib.flat(grads).items()
+           if not (_finite(torch, g) and bool((g != 0).any()))]
+    if bad:
+        fail(f"{where}: {len(bad)} parameter leaves got a zero or non-finite "
+             f"gradient, e.g. {bad[:5]}")
+    say(f"[train] {where}: all {len(tree_lib.leaves(grads))} parameter leaves "
+        "have a finite, non-zero gradient")
+
+
+def _train_launches(cfg) -> dict:
+    """Kernel launches of one training step of ``cfg`` (the forward's; the
+    backward recomputes the plain versions and launches none)."""
+    if cfg.family == "rwkv6":
+        return {"rwkv6_scan_log": cfg.n_layers}
+    if cfg.family == "hybrid":
+        groups = cfg.n_layers // cfg.shared_attn_every
+        return {"rmsnorm": 2 * groups + 1, "flash_attention": groups,
+                "ssd_scan": cfg.n_layers}
+    return dict(_family_counts(cfg)[0])
+
+
+def _expect_train(K, want: dict, where: str) -> dict:
+    """Every kernel's launches since the last reset as in ``want`` (absent:
+    0); returns the LM kernels' counts."""
+    counts = K.launch_counts()
+    bad = {n: counts[n] for n in K.KERNELS if counts[n] != want.get(n, 0)}
+    if bad:
+        fail(f"{where}: kernel launches {bad}, expected "
+             f"{ {n: want.get(n, 0) for n in bad} }")
+    return {n: counts[n] for n in TRAIN_KERNELS}
+
+
+def _space_grads(torch, cfg, params, batch, ex, ex_t, where: str,
+                 moe: bool, hold: bool, loss_tol: float, grad_tol: float,
+                 remat: bool = False):
+    """The first step's loss and gradients in the cuda space (counted, each
+    leaf finite and non-zero) and in the torch space on the same
+    parameters and batch (with ``remat`` every block checkpointed, so that
+    one layer's plain attention scores are held at a time; MoE routed as
+    the cuda space routed); with ``hold``, the loss within ``loss_tol``
+    relative and every leaf's gradient within ``grad_tol``
+    (||g_cuda - g_torch|| / ||g_torch||)."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.nn import moe as moe_lib
+
+    K.reset_launch_counts()
+    with _Routes(torch, moe_lib) as routes:
+        loss_c, _, g_c = steps_lib.loss_and_grads(params, cfg, batch, ex)
+    torch.cuda.synchronize()
+    counts = _expect_train(K, _train_launches(cfg), f"{where} cuda step")
+    _nonzero_grads(torch, g_c, f"{where} cuda space")
+    cfg_t = dataclasses.replace(cfg, remat="block") if remat else cfg
+    with _Routes(torch, moe_lib, replay=routes.ids if moe else None):
+        loss_t, _, g_t = steps_lib.loss_and_grads(params, cfg_t, batch, ex_t)
+    torch.cuda.synchronize()
+    rel = _grad_rel(torch, g_c, g_t)
+    worst = max(rel, key=rel.get)
+    loss_err = abs(float(loss_c) - float(loss_t)) / abs(float(loss_t))
+    out = {"loss_cuda": float(loss_c), "loss_torch": float(loss_t),
+           "loss_rel_err": loss_err, "grad_rel_max": rel[worst],
+           "grad_rel_worst_leaf": worst, "grad_rel_median":
+           statistics.median(rel.values()), "leaves": len(rel),
+           "launches": counts}
+    say(f"[train] {where}: loss cuda {float(loss_c):.6f}, torch "
+        f"{float(loss_t):.6f} (rel {loss_err:.3e}, tolerance {loss_tol}); "
+        f"gradient ||g_cuda - g_torch|| / ||g_torch|| over {len(rel)} leaves: "
+        f"median {out['grad_rel_median']:.3e}, largest {rel[worst]:.3e} at "
+        f"{worst} (tolerance {grad_tol}{'' if hold else ', printed only'})")
+    for key in sorted(rel, key=rel.get, reverse=True)[:4]:
+        say(f"[train]   {key}: {rel[key]:.3e}")
+    if hold and not (loss_err <= loss_tol and rel[worst] <= grad_tol):
+        fail(f"{where}: the cuda and torch spaces' loss or gradients disagree")
+    del g_c, g_t
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_profile(torch, cfg, params, ex, steps: int = 2) -> dict:
+    """``steps`` train steps split into forward (loss), backward (gradients)
+    and optimizer, each timed by CUDA events, the whole under
+    torch.profiler (device busy share)."""
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+
+    opt = adamw(warmup_cosine_schedule(3e-3, 4, TRAIN_STEPS), weight_decay=0.01)
+    state = opt.init(params)
+    batches = [_train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, s)
+               for s in range(steps)]
+    leaves = tree_lib.leaves(params)
+    marks = []
+
+    def run():
+        for batch in batches:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            loss, _ = lm.loss_fn(params, cfg, batch, executor=ex)
+            ev[1].record()
+            grads = torch.autograd.grad(loss, leaves)
+            ev[2].record()
+            it = iter(grads)
+            opt.update(params, tree_lib.tree_map(lambda _: next(it), params),
+                       state)
+            ev[3].record()
+            marks.append(ev)
+            del loss, grads
+
+    prof = _device_profile(torch, run, f"{cfg.name} train steps", steps,
+                           "step", tag="profile train")
+    torch.cuda.synchronize()
+    split = {name: statistics.median(e[i].elapsed_time(e[i + 1])
+                                     for e in marks)
+             for i, name in enumerate(("forward_ms", "backward_ms",
+                                       "optimizer_ms"))}
+    say(f"[train] {cfg.name} step split under the profiler (median of "
+        f"{steps}): forward {split['forward_ms']:.1f} ms, backward "
+        f"{split['backward_ms']:.1f} ms, optimizer {split['optimizer_ms']:.1f} ms")
+    prof.update(split)
+    return prof
+
+
+def phase_train_main(torch, card: str) -> tuple:
+    """15a: smollm-135m at full width and depth through launch/train.py's
+    train() on the CUDA executor, then 15b: the first step's loss and
+    gradients against the torch space, in bf16 at 15a's size and in f32 at
+    2 layers (TF32 off)."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_executor
+    from repro_torch.data import DataConfig, entropy_floor
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import lm
+    from repro_torch.nn.common import trainable
+
+    cfg = get_config(TRAIN_ARCH)
+    ex = make_executor("cuda")
+    ex_t = make_executor("torch", device="cuda")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    say(f"[train] 15a {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, vocab {cfg.vocab}, "
+        f"{cfg.dtype}; {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens through repro_torch.launch.train.train ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, losses = train_lib.train(cfg, steps=TRAIN_STEPS,
+                                     global_batch=TRAIN_BATCH,
+                                     seq_len=TRAIN_SEQ, log_every=10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = _train_launches(cfg)
+    launches = _expect_train(
+        K, {n: TRAIN_STEPS * c for n, c in per_step.items()},
+        f"{cfg.name} train()")
+    peak = torch.cuda.max_memory_allocated()
+    floor = entropy_floor(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                     global_batch=TRAIN_BATCH,
+                                     seed=TRAIN_DATA_SEED))
+    start, end = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    step_ms = wall / TRAIN_STEPS * 1e3
+    summary = {"arch": cfg.name, "steps": TRAIN_STEPS, "batch": TRAIN_BATCH,
+               "seq_len": TRAIN_SEQ, "losses": losses, "first5": start,
+               "last5": end, "entropy_floor": floor, "wall_s": wall,
+               "step_ms": step_ms,
+               "tokens_per_s": TRAIN_STEPS * tokens / wall,
+               "peak_memory_bytes": peak, "launches": launches,
+               "launches_per_step": per_step}
+    say(f"[train] 15a: loss {losses[0]:.4f} -> {losses[-1]:.4f}; mean of the "
+        f"first 5 {start:.4f}, of the last 5 {end:.4f} (need <= start - "
+        f"{TRAIN_DROP} and > floor {floor:.4f} - 0.05); train() took "
+        f"{wall:.2f} s by the wall clock, set-up and the first step "
+        f"included: {step_ms:.1f} ms a step, "
+        f"{summary['tokens_per_s']:.0f} tokens/s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches} "
+        f"({per_step} a step)")
+    if not (end <= start - TRAIN_DROP and end > floor - 0.05):
+        fail(f"{cfg.name}: training did not learn the chain "
+             f"({start:.4f} -> {end:.4f})")
+    summary["profile"] = _train_profile(torch, cfg, params, ex)
+    del params
+    torch.cuda.empty_cache()
+
+    # 15b: the first step from seed-0 weights, both spaces
+    params = trainable(lm.init_model(cfg, device="cuda"))
+    batch = _train_batch(torch, cfg, TRAIN_BATCH, TRAIN_SEQ)
+    summary["bf16_vs_torch"] = _space_grads(
+        torch, cfg, params, batch, ex, ex_t, f"15b {cfg.name} bf16", False,
+        True, TRAIN_BF16_LOSS_TOL, TRAIN_BF16_GRAD_TOL, remat=True)
+    del params
+    cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_SHALLOW, dtype="float32")
+    params = trainable(lm.init_model(cfg32, device="cuda"))
+    summary["f32_vs_torch"] = _space_grads(
+        torch, cfg32, params, batch, ex, ex_t,
+        f"15b {cfg.name} f32 {TRAIN_SHALLOW} layers", False, True,
+        TRAIN_F32_LOSS_TOL, TRAIN_F32_GRAD_TOL)
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches, summary
+
+
+def phase_train_resume(torch) -> dict:
+    """15c: checkpoint and resume on the card (smollm-135m, full width, 2
+    layers, 20 steps of TRAIN_DP_BATCH x TRAIN_DP_SEQ), and a simulated
+    preemption."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_lib
+    from repro_torch.runtime import PreemptionHandler
+
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_SHALLOW)
+    kw = dict(steps=TRAIN_RESUME_STEPS, global_batch=TRAIN_DP_BATCH,
+              seq_len=TRAIN_DP_SEQ, log_every=TRAIN_RESUME_STEPS)
+    with tempfile.TemporaryDirectory() as d:
+        _, full = train_lib.train(cfg, **kw)
+        _, first = train_lib.train(cfg, ckpt_dir=d, ckpt_every=TRAIN_RESUME_STOP,
+                                   stop_at_step=TRAIN_RESUME_STOP, **kw)
+        _, rest = train_lib.train(cfg, ckpt_dir=d,
+                                  ckpt_every=TRAIN_RESUME_STOP, resume=True,
+                                  **kw)
+    with tempfile.TemporaryDirectory() as d:
+        handler = PreemptionHandler()
+        handler.simulate()
+        train_lib.train(cfg, ckpt_dir=d, ckpt_every=1000, preemption=handler,
+                        **kw)
+        preempt_step = CheckpointManager(d).latest_step()
+    head = TRAIN_RESUME_STOP
+    tail_err = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(rest, full[head:]))
+    out = {"steps": TRAIN_RESUME_STEPS, "stop": head,
+           "first_bitwise": first == full[:head],
+           "rest_bitwise": rest == full[head:],
+           "rest_max_rel": tail_err,
+           "rest_within_tol": all(abs(a - b) <= TRAIN_RESUME_TOL
+                                  + TRAIN_RESUME_TOL * abs(b)
+                                  for a, b in zip(rest, full[head:])),
+           "preemption_checkpoint_step": preempt_step}
+    say(f"[train] 15c resume: first {head} losses bitwise "
+        f"{out['first_bitwise']}; the resumed {len(rest)} within rtol = atol "
+        f"= {TRAIN_RESUME_TOL}: {out['rest_within_tol']} (largest relative "
+        f"{tail_err:.3e}, bitwise {out['rest_bitwise']}); preemption "
+        f"checkpointed step {preempt_step}")
+    if not (out["first_bitwise"] and len(rest) == TRAIN_RESUME_STEPS - head
+            and out["rest_within_tol"] and preempt_step == 1):
+        fail("15c: resume or preemption failed")
+    return out
+
+
+def phase_train_families(torch) -> tuple:
+    """15d: one bf16 train step each of zamba2-2.7b (one group), rwkv6-3b,
+    minicpm3-4b and olmoe-1b-7b at full width, batch TRAIN_FAMILY_BATCH x
+    TRAIN_FAMILY_SEQ: launches exactly, every gradient finite and non-zero,
+    and the cuda space against the torch space in bf16 and in f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_executor
+    from repro_torch.models import lm
+    from repro_torch.nn.common import trainable
+
+    ex = make_executor("cuda")
+    ex_t = make_executor("torch", device="cuda")
+    total, out = {}, {}
+    for arch, layers in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        moe = cfg.family == "moe"
+        res = {"layers": layers}
+        for dtype in ("bfloat16", "float32"):
+            c = dataclasses.replace(cfg, dtype=dtype)
+            params = trainable(lm.init_model(c, device="cuda"))
+            if c.family == "rwkv6":
+                # w0, w_lora_b and mix_lora_b are zero at init, which leaves
+                # the LoRA inputs' gradients zero: seeded draws (phase 9's)
+                _perturb_rwkv(torch, params, SEED + 2)
+            batch = _train_batch(torch, c, TRAIN_FAMILY_BATCH,
+                                 TRAIN_FAMILY_SEQ)
+            bf16 = dtype == "bfloat16"
+            res[dtype] = _space_grads(
+                torch, c, params, batch, ex, ex_t, f"15d {arch} {dtype}",
+                moe, not (moe and bf16),
+                TRAIN_BF16_LOSS_TOL if bf16 else TRAIN_F32_LOSS_TOL,
+                TRAIN_BF16_GRAD_TOL if bf16 else TRAIN_F32_GRAD_TOL)
+            if bf16:
+                for n, v in res[dtype]["launches"].items():
+                    total[n] = total.get(n, 0) + v
+            del params, batch
+            torch.cuda.empty_cache()
+        res["seconds"] = time.perf_counter() - t0
+        out[arch] = res
+    return total, out
+
+
+def phase_train_dp(torch) -> dict:
+    """15e: compressed data parallelism, TRAIN_DP_RANKS gloo ranks sharing
+    the card (smollm-135m full width, 2 layers), beside the uncompressed
+    single-card run on the same global batches, in each of
+    TRAIN_DP_DTYPES, from the weights ``dp_weights`` draws from a frozen
+    numpy stream (their digest the JAX package's runs': TRAIN_DP_JAX).
+    Held: the compressed run within TRAIN_DP_JAX_TOL of the JAX package's
+    at every step, the f32 uncompressed run within TRAIN_DP_F32_TOL, the
+    bf16 compressed loss falling by 0.1, the ranks' parameters bitwise
+    equal.  Printed: the bf16 uncompressed run against the JAX package's,
+    and the gap between the compressed and uncompressed runs beside the
+    JAX package's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.train_cases import (dp_weights, param_digest,
+                                                     run_train_cases)
+    from repro_torch.core import make_executor
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adamw, constant_schedule
+
+    def gap(a, b):
+        return max(abs(x - y) for x, y in zip(a, b))
+
+    ex = make_executor("cuda")
+    opt = adamw(constant_schedule(TRAIN_DP_LR), weight_decay=0.0)
+    unc = {}
+    for dtype in TRAIN_DP_DTYPES:
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                                  n_layers=TRAIN_SHALLOW, dtype=dtype)
+        params = dp_weights(cfg, "cuda")
+        digest = param_digest(params)
+        if digest != TRAIN_DP_JAX[dtype]["weights"]:
+            fail(f"15e {dtype}: the weights on the card ({digest}) are not "
+                 f"the ones the JAX package's runs started from")
+        state = opt.init(params)
+        step = steps_lib.make_train_step(cfg, opt, executor=ex)
+        unc[dtype] = []
+        for i in range(TRAIN_DP_STEPS):
+            batch = _train_batch(torch, cfg, TRAIN_DP_BATCH, TRAIN_DP_SEQ, i)
+            params, state, m = step(params, state, batch)
+            unc[dtype].append(float(m["loss"]))
+        del params, state
+        torch.cuda.empty_cache()
+    kw = dict(arch=TRAIN_ARCH, steps=TRAIN_DP_STEPS,
+              global_batch=TRAIN_DP_BATCH, seq_len=TRAIN_DP_SEQ, lr=TRAIN_DP_LR,
+              smoke=False, n_layers=TRAIN_SHALLOW, data_seed=TRAIN_DATA_SEED)
+    t0 = time.perf_counter()
+    res = comm.run_world(
+        run_train_cases, TRAIN_DP_RANKS,
+        ([dict(op="compressed_dp", dtype=d, **kw) for d in TRAIN_DP_DTYPES],
+         "cuda"),
+        threads=max(1, (os.cpu_count() or 2) // TRAIN_DP_RANKS),
+        timeout_s=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    out = {"ranks": TRAIN_DP_RANKS, "steps": TRAIN_DP_STEPS, "wall_s": wall}
+    ok = True
+    for n, dtype in enumerate(TRAIN_DP_DTYPES):
+        jax_runs = TRAIN_DP_JAX[dtype]
+        com = res[0][n]["losses"]
+        digests = {r[n]["digest"] for r in res}
+        o = {"compressed_losses": com, "uncompressed_losses": unc[dtype],
+             "compressed_vs_jax": gap(com, jax_runs["compressed"]),
+             "uncompressed_vs_jax": gap(unc[dtype], jax_runs["uncompressed"]),
+             "compressed_vs_uncompressed": gap(com, unc[dtype]),
+             "jax_compressed_vs_uncompressed": gap(jax_runs["compressed"],
+                                                   jax_runs["uncompressed"]),
+             "ranks_bitwise_equal": len(digests) == 1}
+        out[dtype] = o
+        unc_tol = TRAIN_DP_F32_TOL if dtype == "float32" else None
+        say(f"[train] 15e {dtype}: compressed DP ({TRAIN_DP_RANKS} gloo ranks "
+            f"on the card) {com[0]:.4f} -> {com[-1]:.4f}; largest step "
+            f"difference from the JAX package's runs: compressed "
+            f"{o['compressed_vs_jax']:.4f} (tolerance {TRAIN_DP_JAX_TOL}), "
+            f"uncompressed {o['uncompressed_vs_jax']:.3e} "
+            + (f"(tolerance {unc_tol})" if unc_tol else "(printed)")
+            + f"; final parameters bitwise equal across ranks: "
+            f"{o['ranks_bitwise_equal']}")
+        say(f"[train] 15e {dtype}: compressed against uncompressed, largest "
+            f"step difference {o['compressed_vs_uncompressed']:.4f} on the "
+            f"card, {o['jax_compressed_vs_uncompressed']:.4f} in the JAX "
+            f"package (its test holds 0.05 at its smoke config; printed)")
+        for name, card in (("compressed", com), ("uncompressed", unc[dtype])):
+            say(f"[train]   {name:12s} card {[round(x, 4) for x in card]}")
+            say(f"[train]   {name:12s} JAX  "
+                f"{[round(x, 4) for x in jax_runs[name]]}")
+        ok = ok and o["compressed_vs_jax"] <= TRAIN_DP_JAX_TOL \
+            and o["ranks_bitwise_equal"] \
+            and (unc_tol is None or o["uncompressed_vs_jax"] <= unc_tol)
+    com = out[TRAIN_DP_DTYPES[0]]["compressed_losses"]
+    say(f"[train] 15e: both worlds in {wall:.1f} s; the {TRAIN_DP_DTYPES[0]} "
+        f"compressed loss falls {com[0] - com[-1]:.4f} (need 0.1)")
+    if not (ok and com[-1] < com[0] - 0.1):
+        fail("15e: a run left the JAX package's, compressed DP did not "
+             "learn, or the ranks' parameters are unequal")
+    return out
+
+
+def phase_train_deq(torch) -> dict:
+    """15f: train_deq on the card."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_lib
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        ok = train_lib.train_deq(steps=TRAIN_DEQ_STEPS, batch=DEQ_BATCH,
+                                 device="cuda")
+    text = buf.getvalue()
+    for line in text.splitlines():
+        say(f"[train] 15f {line}")
+    if not ok or "DEQ-GATE: PASS" not in text:
+        fail("15f: train_deq did not pass its gate")
+    return {"steps": TRAIN_DEQ_STEPS, "seconds": time.perf_counter() - t0}
+
+
+def _function_case(torch, name, kernel, plain, inputs, flush) -> dict:
+    """One kernel's autograd Function at one shape: the forward bitwise the
+    bare kernel's, the gradients against autograd through the plain
+    version (a seeded cotangent), forward and backward device ms."""
+    from repro_torch.kernels._autograd import kernel_call
+
+    bare = kernel(*inputs)
+    bare = bare if isinstance(bare, tuple) else (bare,)
+    xs = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+    out = kernel_call(kernel, plain, *xs)
+    out = out if isinstance(out, tuple) else (out,)
+    if not all(torch.equal(a, b) for a, b in zip(out, bare)):
+        fail(f"{name}: the autograd Function's forward is not the bare "
+             "kernel's")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cot = torch.randn(out[0].shape, generator=gen, device="cuda").to(out[0].dtype)
+    wrt = [x for x in xs if x.requires_grad]
+    got = torch.autograd.grad(out[0], wrt, cot)
+    ref_in = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+    ref_out = plain(*ref_in)
+    ref_out = ref_out[0] if isinstance(ref_out, tuple) else ref_out
+    want = torch.autograd.grad(ref_out, [x for x in ref_in if x.requires_grad],
+                               cot)
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.float().abs().max()) for w in want)
+    say(f"[kernels] {name} Function: forward bitwise the kernel's; gradients "
+        f"max |diff| {err:.3e} against autograd through the plain version "
+        f"(max |grad| {scale:.3e})")
+    if not err <= TRAIN_FUNCTION_TOL * scale:
+        fail(f"{name}: the Function's gradients disagree with the plain "
+             "version's")
+
+    def fwd():
+        with torch.enable_grad():
+            kernel_call(kernel, plain, *xs)
+
+    def fwd_bwd():
+        o = kernel_call(kernel, plain, *xs)
+        o = o[0] if isinstance(o, tuple) else o
+        torch.autograd.grad(o, wrt, cot)
+
+    t_f = device_ms(torch, fwd, flush, TRAIN_FUNCTION_REPS)
+    t_fb = device_ms(torch, fwd_bwd, flush, TRAIN_FUNCTION_REPS)
+    return {"shape": [list(t.shape) for t in inputs], "forward_ms": t_f,
+            "backward_ms": t_fb - t_f, "grad_max_abs_err": err}
+
+
+def phase_train_functions(torch) -> dict:
+    """15g: the four autograd Functions at 15a's and 15d's shapes."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm, rmsnorm_plain
+    from repro_torch.kernels.rwkv6.kernel import rwkv6_scan_log, rwkv6_scan_plain
+    from repro_torch.kernels.ssd.kernel import ssd_scan, ssd_scan_plain
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    bf = torch.bfloat16
+
+    def rnd(*shape, dtype=bf, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+
+    out = {n: [] for n in TRAIN_KERNELS}
+    smol = get_config(TRAIN_ARCH)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    d, H, Hkv = smol.d_model, smol.n_heads, smol.n_kv_heads
+    D = smol.resolved_head_dim
+    eps = smol.norm_eps
+    out["rmsnorm"].append(_function_case(
+        torch, "rmsnorm (15a)", functools.partial(rmsnorm, eps=eps),
+        functools.partial(rmsnorm_plain, eps=eps),
+        [rnd(B, S, d), torch.ones(d, device="cuda")], flush))
+    out["flash_attention"].append(_function_case(
+        torch, "flash_attention (15a)", flash_attention, flash_attention_plain,
+        [rnd(B, H, S, D), rnd(B, Hkv, S, D), rnd(B, Hkv, S, D)], flush))
+    Bf, Sf = TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ
+    zam = get_config("zamba2-2.7b")
+    d2 = 2 * zam.d_model
+    D2 = d2 // zam.n_heads
+    out["rmsnorm"].append(_function_case(
+        torch, "rmsnorm (15d zamba2 shared block)",
+        functools.partial(rmsnorm, eps=zam.norm_eps),
+        functools.partial(rmsnorm_plain, eps=zam.norm_eps),
+        [rnd(Bf, Sf, d2), torch.ones(d2, device="cuda")], flush))
+    out["flash_attention"].append(_function_case(
+        torch, "flash_attention (15d zamba2, D 160)", flash_attention,
+        flash_attention_plain,
+        [rnd(Bf, zam.n_heads, Sf, D2), rnd(Bf, zam.n_kv_heads, Sf, D2),
+         rnd(Bf, zam.n_kv_heads, Sf, D2)], flush))
+    d_inner = zam.ssm_expand * zam.d_model
+    Hs, P, N, G = (d_inner // zam.ssm_head_dim, zam.ssm_head_dim,
+                   zam.ssm_state, zam.ssm_groups)
+    dt = torch.nn.functional.softplus(rnd(Bf, Sf, Hs, dtype=torch.float32) - 2)
+    A = -torch.exp(rnd(Hs, dtype=torch.float32, scale=0.5))
+    out["ssd_scan"].append(_function_case(
+        torch, "ssd_scan (15d zamba2)", ssd_scan, ssd_scan_plain,
+        [rnd(Bf, Sf, Hs, P), dt, A, rnd(Bf, Sf, G, N), rnd(Bf, Sf, G, N)],
+        flush))
+    rw = get_config("rwkv6-3b")
+    Hr, K = rw.d_model // rw.rwkv_head_dim, rw.rwkv_head_dim
+    logw = -torch.exp(rnd(Bf, Sf, Hr, K, dtype=torch.float32, scale=0.5) - 1)
+    out["rwkv6_scan_log"].append(_function_case(
+        torch, "rwkv6_scan_log (15d rwkv6)", rwkv6_scan_log, rwkv6_scan_plain,
+        [rnd(Bf, Sf, Hr, K, scale=0.5), rnd(Bf, Sf, Hr, K, scale=0.5),
+         rnd(Bf, Sf, Hr, K), logw.contiguous(), rnd(Hr, K, scale=0.5)],
+        flush))
+    mla = get_config("minicpm3-4b")
+    dqk = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    out["flash_attention"].append(_function_case(
+        torch, "flash_attention (15d minicpm3, D 96)",
+        functools.partial(flash_attention, scale=dqk ** -0.5),
+        functools.partial(flash_attention_plain, scale=dqk ** -0.5),
+        [rnd(Bf, mla.n_heads, Sf, dqk), rnd(Bf, mla.n_heads, Sf, dqk),
+         rnd(Bf, mla.n_heads, Sf, dqk)], flush))
+    for name, cases in out.items():
+        for c in cases:
+            say(f"[kernels] {name} Function at {c['shape'][0]}: forward "
+                f"{c['forward_ms']:.3f} ms, backward {c['backward_ms']:.3f} ms")
+    return out
+
+
+def phase_train(torch, card: str) -> tuple:
+    """Phase 15: training on the ported kernels (see the module
+    docstring)."""
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    summary, t = {}, {}
+    t0 = time.perf_counter()
+    launches, summary["main"] = phase_train_main(torch, card)
+    t["15ab"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary["resume"] = phase_train_resume(torch)
+    t["15c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fam_launches, summary["families"] = phase_train_families(torch)
+    t["15d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary["compressed_dp"] = phase_train_dp(torch)
+    t["15e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary["deq"] = phase_train_deq(torch)
+    t["15f"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    functions = phase_train_functions(torch)
+    t["15g"] = time.perf_counter() - t0
+    summary["seconds"] = time.perf_counter() - t_phase
+    summary["part_seconds"] = t
+    say(f"[train] phase 15 took {summary['seconds']:.1f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in t.items()))
+    return {"train": launches, "train_families": fam_launches}, summary, functions
+
+
 def main() -> None:
     import torch
 
@@ -4658,13 +5359,18 @@ def main() -> None:
     path["implicit"] = phase_implicit(torch)
     family_paths, path["lm_families"], family_rows = phase_families(torch,
                                                                    copy_bw)
+    train_paths, path["train"], train_functions = phase_train(torch, card)
     paths.update({"amg_check": (amg_launches, amg_storage),
                   "sellp_cg": (sellp_launches, {}),
                   "batch_solve": (batch_launches, batch_storage),
                   "zamba2_serve": (lm_launches, {}),
                   "rwkv6_serve": (rwkv_launches, {}), **krylov_paths,
                   **serve_paths, **dist_paths,
-                  **{p: (c, {}) for p, c in family_paths.items()}})
+                  **{p: (c, {}) for p, c in family_paths.items()},
+                  **{p: (c, {}) for p, c in train_paths.items()}})
+    # each LM kernel's autograd Function, held and timed (15g)
+    for name, cases in train_functions.items():
+        rows[name]["train_function"] = cases
     # phase 14's shapes of the two LM kernels, and the larger error
     for name, extra in family_rows.items():
         rows[name]["at_family_shapes"] = extra

@@ -19,6 +19,10 @@ runs the unchanged solver source on it.  This module is what that needs:
 * a collective counter (:func:`collective_counts`): ``reduction`` (one a
   :func:`sum_fixed`), ``halo`` (one an exchange of a SpMV) and ``gather``
   (assembling a global vector);
+* :func:`all_reduce`, :func:`all_to_all`, :func:`all_gather` and
+  :func:`ring_shift` over a group — the collectives of the training path
+  (gradient compression, expert parallelism, the ring matmuls); not
+  counted;
 * :func:`run_world` — spawn a world of P processes, run one function on
   every rank and return the results in rank order.
 
@@ -52,6 +56,10 @@ __all__ = [
     "all_gather_shards",
     "collective_counts",
     "reset_collective_counts",
+    "all_reduce",
+    "all_to_all",
+    "all_gather",
+    "ring_shift",
     "run_world",
 ]
 
@@ -175,6 +183,74 @@ def all_gather_shards(x: torch.Tensor, *, async_op: bool = False,
     work = _dist().all_gather(list(flat.unbind(0)), buf, async_op=async_op)
     out = _Gathered(work, flat, x.device, staged)
     return out if async_op else out.wait()
+
+
+def _group_staged(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and str(_dist().get_backend(group)) == "gloo"
+
+
+def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
+    """A new tensor: ``t`` reduced over ``group`` (the default group when
+    None) with ``op`` ("sum" or "max"); ``t`` itself when no process group
+    is initialised (a world of one)."""
+    if not _initialized():
+        return t
+    dist = _dist()
+    staged = _group_staged(t, group)
+    buf = t.cpu() if staged else t.clone()
+    dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
+                             "max": dist.ReduceOp.MAX}[op], group=group)
+    return buf.to(t.device) if staged else buf
+
+
+def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Row block ``j`` of ``t`` (leading axis: one block a rank of
+    ``group``) goes to rank ``j``; the result's block ``i`` came from rank
+    ``i`` (``jax.lax.all_to_all`` with split and concat axis 0, untiled)."""
+    if not _initialized():
+        return t
+    dist = _dist()
+    staged = _group_staged(t, group)
+    src = t.cpu().contiguous() if staged else t.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all(list(out.unbind(0)), list(src.unbind(0)), group=group)
+    return out.to(t.device) if staged else out
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``(size, *t.shape)``: every rank's ``t`` in ``group`` rank order."""
+    if not _initialized():
+        return t[None]
+    dist = _dist()
+    staged = _group_staged(t, group)
+    src = t.cpu().contiguous() if staged else t.contiguous()
+    out = torch.empty((dist.get_world_size(group),) + tuple(src.shape),
+                      dtype=src.dtype, device=src.device)
+    dist.all_gather(list(out.unbind(0)), src, group=group)
+    return out.to(t.device) if staged else out
+
+
+def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Send ``t`` to the next rank of ``group`` and return what the previous
+    one sent (``jax.lax.ppermute`` with ``i -> i + 1 mod size``): one
+    ``batch_isend_irecv`` pair."""
+    if not _initialized():
+        return t
+    dist = _dist()
+    ranks = dist.get_process_group_ranks(group) if group is not None else \
+        list(range(dist.get_world_size()))
+    me = ranks.index(dist.get_rank())
+    size = len(ranks)
+    if size == 1:
+        return t
+    staged = _group_staged(t, group)
+    src = t.cpu().contiguous() if staged else t.contiguous()
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, ranks[(me + 1) % size], group=group),
+           dist.P2POp(dist.irecv, out, ranks[(me - 1) % size], group=group)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return out.to(t.device) if staged else out
 
 
 # -- the world runner -----------------------------------------------------------

@@ -70,18 +70,19 @@ def flash_smem_bytes(D: int, itemsize: int) -> int:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """Dense softmax attention with GQA head sharing, in f32, with the flash
-    kernel's semantics at the edges: query i sits at position i + Skv - S,
-    and a row that sees no key (Skv < S) is 0, where a plain softmax would
-    give NaN."""
+    """Dense softmax attention with GQA head sharing, in f32 (f64 for f64
+    inputs), with the flash kernel's semantics at the edges: query i sits
+    at position i + Skv - S, and a row that sees no key (Skv < S) is 0,
+    where a plain softmax would give NaN."""
     B, Hq, S, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     group = Hq // Hkv
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    kf = torch.repeat_interleave(k, group, dim=1).to(torch.float32)
-    vf = torch.repeat_interleave(v, group, dim=1).to(torch.float32)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), kf) * scale
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    kf = torch.repeat_interleave(k, group, dim=1).to(ct)
+    vf = torch.repeat_interleave(v, group, dim=1).to(ct)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(ct), kf) * scale
     if causal:
         q_idx = torch.arange(S, device=q.device)[:, None] + (Skv - S)
         kv_idx = torch.arange(Skv, device=q.device)[None, :]

@@ -6,13 +6,18 @@ JAX package's reference and XLA spaces share ``mha_ref``); the ``cuda``
 space launches the flash kernel (TMA and wgmma for bf16 / fp16, CUDA cores
 for f32), its tiles checked against the block's shared memory.  The ``cuda`` registration is
 unconditional: a failed build or launch raises and is never re-dispatched.
+When q, k or v needs a gradient the kernel runs inside
+:func:`repro_torch.kernels._autograd.kernel_call`: backward recomputes the
+dense plain version, one call's (B, H, S, Skv) scores at a time.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 from repro_torch.core import registry, tuning
+from repro_torch.kernels._autograd import kernel_call
 from repro_torch.kernels._check import require_cuda
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention,
@@ -71,5 +76,7 @@ def _attention_cuda(ex, q, k, v, causal: bool = True,
     ex.launch_config("nn_attention", {"S": q.shape[2], "Skv": k.shape[2],
                                       "D": q.shape[-1],
                                       "itemsize": q.element_size()})
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, scale=scale)
+    return kernel_call(
+        functools.partial(flash_attention, causal=causal, scale=scale),
+        functools.partial(flash_attention_plain, causal=causal, scale=scale),
+        q.contiguous(), k.contiguous(), v.contiguous())

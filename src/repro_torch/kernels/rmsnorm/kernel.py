@@ -46,11 +46,13 @@ MAX_THREADS_SCALAR = 1024
 
 
 def rmsnorm_plain(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """y = x / rms(x) * w over the last axis, computed in f32, in x's dtype."""
-    xf = x.to(torch.float32)
+    """y = x / rms(x) * w over the last axis, computed in f32 (in f64 for
+    f64 inputs), in x's dtype."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(ct)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * w.to(torch.float32)).to(x.dtype)
+    return (y * w.to(ct)).to(x.dtype)
 
 
 def row_stride(x: torch.Tensor):

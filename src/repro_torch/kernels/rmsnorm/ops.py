@@ -6,11 +6,17 @@ space launches the kernel, with the rows per block (when a row takes one
 warp) from the tuning table; the rest of the geometry is
 ``rmsnorm_geometry``'s, from the row's width.  The ``cuda`` registration is
 unconditional: a failed build or launch raises and is never re-dispatched.
+When ``x`` or the weight needs a gradient the kernel runs inside
+:func:`repro_torch.kernels._autograd.kernel_call`: backward recomputes the
+plain version (x keeps its row stride, MLA's latent columns included).
 """
 
 from __future__ import annotations
 
+import functools
+
 from repro_torch.core import registry, tuning
+from repro_torch.kernels._autograd import kernel_call
 from repro_torch.kernels._check import require_cuda
 from repro_torch.kernels.rmsnorm.kernel import (MAX_THREADS, rmsnorm,
                                                rmsnorm_plain)
@@ -48,4 +54,7 @@ def _rmsnorm_cuda(ex, x, weight, eps: float = 1e-6):
     cfg = ex.launch_config("nn_rmsnorm", {"rows": x.numel() // x.shape[-1],
                                           "d": x.shape[-1],
                                           "itemsize": x.element_size()})
-    return rmsnorm(x, weight, eps, rows_per_block=cfg["rows_per_block"])
+    kernel = functools.partial(rmsnorm, eps=eps,
+                               rows_per_block=cfg["rows_per_block"])
+    return kernel_call(kernel, functools.partial(rmsnorm_plain, eps=eps),
+                       x, weight)

@@ -78,27 +78,29 @@ def rwkv6_scan_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      chunk: int = CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked scan in batched products, one chunk at a time (the port
     of ``repro/kernels/rwkv6/xla.py``): zero-padded to whole chunks (r = k
-    = 0 and logw = 0 add nothing and leave the state as it was), y in r's
-    dtype, the final state f32."""
+    = 0 and logw = 0 add nothing and leave the state as it was), in f32
+    (f64 for f64 inputs), y in r's dtype, the final state in the compute
+    type."""
+    ct = torch.float64 if r.dtype == torch.float64 else torch.float32
     Bsz, S, H, K = r.shape
     V = v.shape[-1]
     if S == 0:
         return (v.new_zeros((Bsz, 0, H, V), dtype=r.dtype),
-                torch.zeros((Bsz, H, K, V), dtype=torch.float32, device=r.device))
+                torch.zeros((Bsz, H, K, V), dtype=ct, device=r.device))
     chunk = min(chunk, S)
     pad = -S % chunk
 
     def chunks(t, d):
-        t = torch.nn.functional.pad(t.to(torch.float32), (0, 0, 0, 0, 0, pad))
+        t = torch.nn.functional.pad(t.to(ct), (0, 0, 0, 0, 0, pad))
         return t.reshape(Bsz, (S + pad) // chunk, chunk, H, d)
 
     rf, kf, vf, lwf = chunks(r, K), chunks(k, K), chunks(v, V), chunks(logw, K)
-    uf = u.to(torch.float32)
+    uf = u.to(ct)
     L = chunk
     idx = torch.arange(L, device=r.device)
     strict = idx[:, None] > idx[None, :]  # (L, L): s < t
 
-    state = torch.zeros((Bsz, H, K, V), dtype=torch.float32, device=r.device)
+    state = torch.zeros((Bsz, H, K, V), dtype=ct, device=r.device)
     ys = []
     for c in range(rf.shape[1]):
         rc, kc, vc, lw = rf[:, c], kf[:, c], vf[:, c], lwf[:, c]  # (B, L, H, *)

@@ -4,7 +4,9 @@
 (``ref.rwkv6_ref``), ``torch`` the chunked formulation in batched products
 (the kernel's plain version, at the kernel's chunk), ``cuda`` the kernel.
 The ``cuda`` registration is unconditional: a failed build or launch raises
-and is never re-dispatched.
+and is never re-dispatched.  When an input needs a gradient the kernel runs
+inside :func:`repro_torch.kernels._autograd.kernel_call`: backward
+recomputes the torch space's chunked plain version (``rwkv6_scan_plain``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import registry, tuning
+from repro_torch.kernels._autograd import kernel_call
 from repro_torch.kernels._check import require_cuda
 from repro_torch.kernels.rwkv6.kernel import (
     CHUNK,
@@ -61,4 +64,4 @@ def _rwkv6_cuda(ex, r, k, v, logw, u):
     ex.launch_config("nn_rwkv6_scan", {
         "S": r.shape[1], "K": r.shape[-1], "V": v.shape[-1],
         "tensor_cores": int(rwkv6_tensor_cores(r, k, v, logw))})
-    return rwkv6_scan_log(r, k, v, logw, u)
+    return kernel_call(rwkv6_scan_log, rwkv6_scan_plain, r, k, v, logw, u)

@@ -74,26 +74,28 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    chunk: int = CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
     """The chunked scan in batched products, one chunk at a time (the port
     of ``repro/kernels/ssd/xla.py``): zero-padded to whole chunks (dt = 0
-    leaves the state unchanged), y in x's dtype, the final state f32."""
+    leaves the state unchanged), in f32 (f64 for f64 inputs), y in x's
+    dtype, the final state in the compute type."""
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
     Bsz, S, H, P = x.shape
     G, N = B_mat.shape[2], B_mat.shape[3]
     group = H // G
     chunk = min(chunk, S)
     pad = -S % chunk
-    xf = torch.nn.functional.pad(x.to(torch.float32), (0, 0, 0, 0, 0, pad))
-    dtf = torch.nn.functional.pad(dt.to(torch.float32), (0, 0, 0, pad))
-    Bf = torch.nn.functional.pad(B_mat.to(torch.float32), (0, 0, 0, 0, 0, pad))
-    Cf = torch.nn.functional.pad(C.to(torch.float32), (0, 0, 0, 0, 0, pad))
+    xf = torch.nn.functional.pad(x.to(ct), (0, 0, 0, 0, 0, pad))
+    dtf = torch.nn.functional.pad(dt.to(ct), (0, 0, 0, pad))
+    Bf = torch.nn.functional.pad(B_mat.to(ct), (0, 0, 0, 0, 0, pad))
+    Cf = torch.nn.functional.pad(C.to(ct), (0, 0, 0, 0, 0, pad))
     Sp = S + pad
     nc, L = Sp // chunk, chunk
     xf = xf.reshape(Bsz, nc, L, H, P)
     dtf = dtf.reshape(Bsz, nc, L, H)
     Bf = Bf.reshape(Bsz, nc, L, G, N)
     Cf = Cf.reshape(Bsz, nc, L, G, N)
-    Af = A.to(torch.float32)
+    Af = A.to(ct)
     lower = torch.tril(torch.ones(L, L, dtype=torch.bool, device=x.device))
 
-    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    h = torch.zeros((Bsz, H, N, P), dtype=ct, device=x.device)
     ys = []
     for c in range(nc):
         xc, dtc, Bc, Cc = xf[:, c], dtf[:, c], Bf[:, c], Cf[:, c]

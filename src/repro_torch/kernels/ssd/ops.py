@@ -4,6 +4,10 @@
 chunked formulation in batched products (the kernel's plain version, at the
 kernel's chunk), ``cuda`` the kernel.  The ``cuda`` registration is
 unconditional: a failed build or launch raises and is never re-dispatched.
+When an input needs a gradient the kernel runs inside
+:func:`repro_torch.kernels._autograd.kernel_call`: backward recomputes the
+torch space's chunked plain version (``ssd_scan_plain``, not the sequential
+``ref.py``), on the same strided x, B and C.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import registry, tuning
+from repro_torch.kernels._autograd import kernel_call
 from repro_torch.kernels._check import require_cuda
 from repro_torch.kernels.ssd.kernel import (
     CHUNK,
@@ -59,4 +64,5 @@ def _ssd_cuda(ex, x, dt, A, B_mat, C):
         "S": x.shape[1], "N": B_mat.shape[-1], "P": x.shape[-1],
         "tensor_cores": int(ssd_tensor_cores(x, B_mat, C))})
     # x, B and C go as they are (the kernel reads strided rows)
-    return ssd_scan(x, dt.contiguous(), A.contiguous(), B_mat, C)
+    return kernel_call(ssd_scan, ssd_scan_plain, x, dt.contiguous(),
+                       A.contiguous(), B_mat, C)

@@ -33,13 +33,20 @@ kv_lora_rank)`` and ``(n_layers, B, Smax, qk_rope_head_dim)`` latents for
 MLA, ``(G, per, B, ...)`` Mamba states and a ``(G, B, Hkv, Smax, D)`` KV
 cache for the hybrid family, ``(n_layers, B, H, K, V)`` f32 WKV states and
 ``(n_layers, B, d)`` token shifts for RWKV6; ``prefill`` and
-``decode_step`` write it in place and return it.  The loss (training) is
-not ported yet (ROADMAP A.10).
+``decode_step`` write it in place and return it.
+
+Training: ``loss_fn(params, cfg, batch) -> (loss, metrics)`` is the JAX
+package's loss; ``model_axes`` and ``cache_axes`` the logical axes the
+sharding rules read; ``cfg.remat`` checkpoints each block (each Zamba2
+group) as ``_maybe_remat`` says.  Gradients reach every parameter through
+the kernels (``repro_torch.kernels._autograd``) once the tree is
+:func:`~repro_torch.nn.common.trainable`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -51,7 +58,7 @@ from repro_torch.nn import mamba as mamba_lib
 from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import rwkv as rwkv_lib
 from repro_torch.nn.attention import KVCache, MLACache
-from repro_torch.nn.common import Initializer, ParamTree
+from repro_torch.nn.common import AxesRecorder, Initializer, ParamTree
 from repro_torch.nn.layers import (
     embed,
     embedding_init,
@@ -68,8 +75,8 @@ from repro_torch.nn.layers import (
 from repro_torch.nn.mamba import MambaState
 from repro_torch.nn.rwkv import RWKVState
 
-__all__ = ["init_model", "forward", "init_cache", "prefill", "decode_step",
-           "embed"]
+__all__ = ["init_model", "model_axes", "forward", "loss_fn", "init_cache",
+           "cache_axes", "prefill", "decode_step", "embed"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -229,7 +236,7 @@ def _zamba_shared_init(ini: Initializer, cfg) -> dict:
         "attn": attn_lib.gqa_init(ini, scfg),
         "norm2": rmsnorm_init(ini, scfg.d_model),
         "mlp": swiglu_init(ini, scfg.d_model, scfg.d_ff),
-        "out_proj": ini.param((scfg.d_model, cfg.d_model),
+        "out_proj": ini.param((scfg.d_model, cfg.d_model), ("mlp", "embed"),
                               std=scfg.d_model ** -0.5),
     }
 
@@ -242,8 +249,8 @@ def _zamba_lora_init(ini: Initializer, cfg) -> dict:
     r = cfg.lora_rank
     p = {}
     for name in ("q", "k", "v"):
-        p[f"{name}_a"] = ini.param((d2, r), std=d2 ** -0.5)
-        p[f"{name}_b"] = ini.param((r, H * hd), std=1e-4)
+        p[f"{name}_a"] = ini.param((d2, r), ("embed", None), std=d2 ** -0.5)
+        p[f"{name}_b"] = ini.param((r, H * hd), (None, "heads"), std=1e-4)
     return p
 
 
@@ -294,7 +301,18 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
     dev = torch.device(device) if device is not None else default_device()
     if generator is None and dev.type != "meta":
         generator = torch.Generator(dev).manual_seed(0)
-    ini = Initializer(generator, _dtype(cfg), dev)
+    return ParamTree(_init_tree(Initializer(generator, _dtype(cfg), dev), cfg))
+
+
+def model_axes(cfg) -> Dict[str, Any]:
+    """The logical axes of every leaf of :func:`init_model`'s tree (a tuple
+    such as ``("embed", "mlp")``, or None), in nested dicts and per-layer
+    lists: the JAX package's ``axes`` tree without the stacked layer axis."""
+    _check_family(cfg)
+    return _init_tree(AxesRecorder(_dtype(cfg)), cfg)
+
+
+def _init_tree(ini: Initializer, cfg) -> Dict[str, Any]:
     params: Dict[str, Any] = {
         "embedding": embedding_init(ini, cfg.vocab, cfg.d_model)}
     if cfg.family in _TRANSFORMER:
@@ -313,8 +331,9 @@ def init_model(cfg, generator: Optional[torch.Generator] = None,
     params["final_norm"] = _norm_init(ini, cfg)
     if not cfg.tie_embeddings:
         params["lm_head"] = ini.param((cfg.d_model, cfg.vocab),
+                                      ("embed", "vocab"),
                                       std=cfg.d_model ** -0.5)
-    return ParamTree(params)
+    return params
 
 
 # =============================================================================
@@ -369,28 +388,110 @@ def forward(params, cfg, tokens: torch.Tensor = None, embeds=None, *,
     h = _inputs_to_h(params, cfg, tokens, embeds, positions)
     metrics: Dict[str, torch.Tensor] = {}
     if cfg.family in _TRANSFORMER:
-        for bp in params["blocks"]:
-            h, _, m = _tf_block(bp, h, cfg, positions=positions,
+        def block(x, bp):
+            x, _, m = _tf_block(bp, x, cfg, positions=positions,
                                 executor=executor)
+            return x, m
+
+        block = _maybe_remat(block, cfg)
+        for bp in params["blocks"]:
+            h, m = block(h, bp)
             metrics = {k: metrics.get(k, 0.0) + v for k, v in m.items()}
     elif cfg.family == "rwkv6":
         h = layernorm(params["ln0"], h, cfg.norm_eps)
+
+        def block(x, bp):
+            return _rwkv_block_forward(bp, x, cfg, executor=executor)[0]
+
+        block = _maybe_remat(block, cfg)
         for bp in params["blocks"]:
-            h, _ = _rwkv_block_forward(bp, h, cfg, executor=executor)
+            h = block(h, bp)
     else:
         emb0 = h
-        G, per = _zamba_groups(cfg)
+
+        def group(x, emb0, mamba_group, lora_p):
+            for bp in mamba_group:
+                y, _ = mamba_lib.mamba_forward(bp, x, cfg, executor=executor)
+                x = x + y
+            x2 = torch.cat([x, emb0], dim=-1)
+            delta, _ = _zamba_shared_forward(params["shared"], lora_p, x2,
+                                             cfg, positions, executor=executor)
+            return x + delta
+
+        group = _maybe_remat(group, cfg)
+        G, _ = _zamba_groups(cfg)
         for g in range(G):
-            for i in range(per):
-                y, _ = mamba_lib.mamba_forward(params["mamba"][g][i], h, cfg,
-                                               executor=executor)
-                h = h + y
-            x2 = torch.cat([h, emb0], dim=-1)
-            delta, _ = _zamba_shared_forward(params["shared"],
-                                             params["lora"][g], x2, cfg,
-                                             positions, executor=executor)
-            h = h + delta
+            h = group(h, emb0, params["mamba"][g], params["lora"][g])
     return _head(params, cfg, h, executor), metrics
+
+
+def _maybe_remat(fn, cfg):
+    """Activation checkpointing of a block (a Zamba2 group) as
+    ``cfg.remat`` asks: ``"block"`` keeps the block's inputs and recomputes
+    the rest in backward (``jax.checkpoint``); ``"dots"`` also keeps the
+    matrix products' outputs and recomputes the elementwise work
+    (``dots_with_no_batch_dims_saveable``), by selective checkpointing.
+    Both non-reentrant; ``"none"`` keeps everything.  A recomputed forward
+    launches its kernels again."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("block", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    from torch.utils.checkpoint import checkpoint
+
+    kw = {}
+    if cfg.remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return remat
+
+
+#: the matrix products without batch dimensions
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: save the outputs of
+    the matrix products without batch dimensions, as
+    ``dots_with_no_batch_dims_saveable``; recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def loss_fn(params, cfg, batch, *, executor=None):
+    """``batch``: {"tokens" | "embeds", "labels"} -> (loss, metrics).
+
+    The loss is the mean over tokens of logsumexp(logits) - the label's
+    logit, ``metrics["ce_loss"]``; the MoE family adds
+    ``router_aux_weight * moe_lb_loss / L + 1e-3 * moe_z_loss / L`` (the
+    router losses summed over the layers).  The label logit is a
+    ``gather``: the same number as the JAX package's one-hot contraction
+    (one term and zeros), which it chose only for a vocab axis sharded over
+    a mesh."""
+    logits, metrics = forward(params, cfg, tokens=batch.get("tokens"),
+                              embeds=batch.get("embeds"), executor=executor)
+    labels = batch["labels"].to(device=logits.device, dtype=torch.int64)
+    log_z = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+    loss = torch.mean(log_z - label_logit)
+    metrics = dict(metrics)
+    metrics["ce_loss"] = loss
+    if cfg.family == "moe":
+        aux = cfg.router_aux_weight * metrics.get("moe_lb_loss", 0.0) / cfg.n_layers
+        aux = aux + 1e-3 * metrics.get("moe_z_loss", 0.0) / cfg.n_layers
+        loss = loss + aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # =============================================================================
@@ -439,6 +540,26 @@ def init_cache(cfg, batch: int, s_max: int, device=None):
                       dtype=torch.float32),
         ),
         "kv": KVCache(k=zeros(*kv_shape), v=zeros(*kv_shape)),
+    }
+
+
+def cache_axes(cfg):
+    """Logical axes of :func:`init_cache`'s tree, leaf for leaf."""
+    _check_family(cfg)
+    kv = (None, "batch", "kv_heads", "kv_seq", None)
+    if cfg.family in ("dense", "moe"):
+        return KVCache(k=kv, v=kv)
+    if cfg.family == "mla":
+        return MLACache(c_kv=(None, "batch", "kv_seq", None),
+                        k_rope=(None, "batch", "kv_seq", None))
+    if cfg.family == "rwkv6":
+        return RWKVState(wkv=(None, "batch", "heads", None, None),
+                         shift_tm=(None, "batch", "embed"),
+                         shift_cm=(None, "batch", "embed"))
+    return {
+        "mamba": MambaState(conv=(None, None, "batch", None, "mlp"),
+                            ssm=(None, None, "batch", "heads", None, None)),
+        "kv": KVCache(k=kv, v=kv),
     }
 
 

@@ -11,9 +11,10 @@ that needs no kernel.
 ``cfg.attn_impl == "chunked"`` sends the reference and torch spaces to
 :func:`attention_chunked`, the JAX package's ``attention_xla_chunked``
 forward: an online-softmax loop over kv chunks that never materialises the
-(S, Skv) scores.  The cuda space always takes the flash kernel, as the JAX
-package's pallas space does.  The chunked variant's custom backward waits
-for training (ROADMAP A.10).
+(S, Skv) scores, with the JAX package's flash-style custom backward.  The
+cuda space always takes the flash kernel, as the JAX package's pallas space
+does; its gradient recomputes the dense plain version
+(``repro_torch.kernels._autograd``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import registry
 from repro_torch.core.executor import current_executor
+from repro_torch.kernels._autograd import needs_grad
 from repro_torch.nn.common import Initializer
 from repro_torch.nn.layers import apply_rope, rmsnorm, rmsnorm_init
 
@@ -50,7 +52,11 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Softmax attention of q (B, Hq, S, D) over k (B, Hkv, Skv, D) and v
     (B, Hkv, Skv, Dv), Hkv dividing Hq, causal with query i at position
     i + Skv - S; in f32, out in q's dtype.  kv is taken ``chunk`` rows at a
-    time (the last chunk padded), never the whole (S, Skv) score matrix."""
+    time (the last chunk padded), never the whole (S, Skv) score matrix.
+
+    Differentiable by the JAX package's custom VJP (``core_fwd`` /
+    ``core_bwd``): backward saves q, k, v, out and the rows' logsumexp and
+    re-derives each chunk's probabilities in a second loop."""
     B, Hq, S, D = q.shape
     _, Hkv, Skv, _ = k.shape
     Dv = v.shape[-1]
@@ -62,22 +68,42 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if pkv != Skv:
         k = F.pad(k, (0, 0, 0, pkv - Skv))
         v = F.pad(v, (0, 0, 0, pkv - Skv))
-    kv_offset = Skv - S
+    qg = q.reshape(B, Hkv, group, S, D)
+    args = (float(scale), bool(causal), int(chunk), int(Skv))
+    if needs_grad((qg, k, v)):
+        out = _ChunkedAttention.apply(qg, k, v, *args)
+    else:
+        out = _chunked_forward(qg, k, v, *args)[0]
+    return out.reshape(B, Hq, S, Dv)
+
+
+def _masked_scores(qf, ks, ki, scale, causal, chunk, kv_len):
+    """Chunk ``ki``'s scores (B, Hkv, g, S, chunk), -inf where masked."""
+    S = qf.shape[3]
+    dev = qf.device
+    s = torch.einsum("bhgsd,bhtd->bhgst", qf, ks.to(torch.float32)) * scale
+    kv_idx = ki * chunk + torch.arange(chunk, device=dev)
+    mask = kv_idx[None, :] < kv_len
+    if causal:
+        q_pos = torch.arange(S, device=dev) + (kv_len - S)
+        mask = mask & (q_pos[:, None] >= kv_idx[None, :])
+    return torch.where(mask, s, NEG_INF)
+
+
+def _chunked_forward(q, k, v, scale, causal, chunk, kv_len):
+    """(out, lse) of q (B, Hkv, g, S, D) over padded k, v (B, Hkv, pkv, *):
+    the online-softmax loop over kv chunks."""
+    B, Hkv, g, S, _ = q.shape
+    Dv = v.shape[-1]
     dev = q.device
-    qf = q.reshape(B, Hkv, group, S, D).to(torch.float32)
-    q_pos = torch.arange(S, device=dev) + kv_offset
-    m = torch.full((B, Hkv, group, S, 1), NEG_INF, dtype=torch.float32, device=dev)
-    l = torch.zeros((B, Hkv, group, S, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Hkv, group, S, Dv), dtype=torch.float32, device=dev)
-    for ki in range(pkv // chunk):
-        ks = k[:, :, ki * chunk:(ki + 1) * chunk].to(torch.float32)
+    qf = q.to(torch.float32)
+    m = torch.full((B, Hkv, g, S, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Hkv, g, S, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, g, S, Dv), dtype=torch.float32, device=dev)
+    for ki in range(k.shape[2] // chunk):
+        ks = k[:, :, ki * chunk:(ki + 1) * chunk]
         vs = v[:, :, ki * chunk:(ki + 1) * chunk].to(torch.float32)
-        s = torch.einsum("bhgsd,bhtd->bhgst", qf, ks) * scale
-        kv_idx = ki * chunk + torch.arange(chunk, device=dev)
-        mask = kv_idx[None, :] < Skv
-        if causal:
-            mask = mask & (q_pos[:, None] >= kv_idx[None, :])
-        s = torch.where(mask, s, NEG_INF)
+        s = _masked_scores(qf, ks, ki, scale, causal, chunk, kv_len)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         m_safe = torch.where(m_new == NEG_INF, 0.0, m_new)
         p = torch.where(s == NEG_INF, 0.0, torch.exp(s - m_safe))
@@ -86,7 +112,47 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr + torch.einsum("bhgst,bhtd->bhgsd", p, vs)
         m = m_new
     l_safe = torch.where(l == 0.0, 1.0, l)
-    return (acc / l_safe).to(q.dtype).reshape(B, Hq, S, Dv)
+    out = (acc / l_safe).to(q.dtype)
+    lse = torch.where(m == NEG_INF, NEG_INF, m + torch.log(l_safe))
+    return out, lse
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """The chunked attention's custom backward (the JAX package's
+    ``core_fwd`` / ``core_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, chunk, kv_len):
+        out, lse = _chunked_forward(q, k, v, scale, causal, chunk, kv_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, chunk, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, causal, chunk, kv_len = ctx.args
+        qf = q.to(torch.float32)
+        doutf = dout.to(torch.float32)
+        # D_i = sum_d dout * out (per row)
+        drow = torch.sum(doutf * out.to(torch.float32), dim=-1, keepdim=True)
+        lse_safe = torch.where(lse == NEG_INF, 0.0, lse)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dks, dvs = [], []
+        for ki in range(k.shape[2] // chunk):
+            ks = k[:, :, ki * chunk:(ki + 1) * chunk].to(torch.float32)
+            vs = v[:, :, ki * chunk:(ki + 1) * chunk].to(torch.float32)
+            s = _masked_scores(qf, ks, ki, scale, causal, chunk, kv_len)
+            p = torch.where(s == NEG_INF, 0.0, torch.exp(s - lse_safe))
+            dvs.append(torch.einsum("bhgst,bhgsd->bhtd", p, doutf))
+            dp = torch.einsum("bhgsd,bhtd->bhgst", doutf, vs)
+            ds = p * (dp - drow) * scale
+            dq = dq + torch.einsum("bhgst,bhtd->bhgsd", ds, ks)
+            dks.append(torch.einsum("bhgst,bhgsd->bhtd", ds, qf))
+        dk = torch.cat(dks, dim=2)
+        dv = torch.cat(dvs, dim=2)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
 
 
 def _attention_core(q, k, v, cfg, causal=True, scale=None, executor=None):
@@ -165,10 +231,11 @@ def gqa_init(ini: Initializer, cfg) -> dict:
     d = cfg.d_model
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     return {
-        "wq": ini.param((d, H * hd), std=d ** -0.5),
-        "wk": ini.param((d, Hkv * hd), std=d ** -0.5),
-        "wv": ini.param((d, Hkv * hd), std=d ** -0.5),
-        "wo": ini.param((H * hd, d), std=(H * hd) ** -0.5),
+        "wq": ini.param((d, H * hd), ("embed", "heads"), std=d ** -0.5),
+        "wk": ini.param((d, Hkv * hd), ("embed", "kv_heads"), std=d ** -0.5),
+        "wv": ini.param((d, Hkv * hd), ("embed", "kv_heads"), std=d ** -0.5),
+        "wo": ini.param((H * hd, d), ("heads", "embed"),
+                        std=(H * hd) ** -0.5),
     }
 
 
@@ -255,14 +322,16 @@ def mla_init(ini: Initializer, cfg) -> dict:
     qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     return {
-        "q_down": ini.param((d, qr), std=d ** -0.5),
+        "q_down": ini.param((d, qr), ("embed", None), std=d ** -0.5),
         "q_norm": rmsnorm_init(ini, qr, dtype=ini.dtype),
-        "q_up": ini.param((qr, H * (dn + dr)), std=qr ** -0.5),
-        "kv_down": ini.param((d, kvr + dr), std=d ** -0.5),
+        "q_up": ini.param((qr, H * (dn + dr)), (None, "heads"),
+                          std=qr ** -0.5),
+        "kv_down": ini.param((d, kvr + dr), ("embed", None), std=d ** -0.5),
         "kv_norm": rmsnorm_init(ini, kvr, dtype=ini.dtype),
-        "k_up": ini.param((kvr, H * dn), std=kvr ** -0.5),
-        "v_up": ini.param((kvr, H * dv), std=kvr ** -0.5),
-        "wo": ini.param((H * dv, d), std=(H * dv) ** -0.5),
+        "k_up": ini.param((kvr, H * dn), (None, "heads"), std=kvr ** -0.5),
+        "v_up": ini.param((kvr, H * dv), (None, "heads"), std=kvr ** -0.5),
+        "wo": ini.param((H * dv, d), ("heads", "embed"),
+                        std=(H * dv) ** -0.5),
     }
 
 

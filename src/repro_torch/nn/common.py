@@ -11,7 +11,15 @@ package's line for line, and ``.parameters()``, ``.to()`` and
 The init rules are the JAX package's (``repro/nn/common.py``): a truncated
 normal at +-2 sigma scaled by ``std``, zeros and ones, drawn from an explicit
 ``torch.Generator`` on the target device.  The numbers differ from JAX's
-for the same seed; the distributions do not.
+for the same seed; the distributions do not.  Each ``param`` call names its
+leaf's logical axes as the JAX package's ``ParamBuilder.param`` does
+(``("embed", "mlp")``); :class:`AxesRecorder` runs the same init code and
+returns those annotations in place of tensors, which is how the sharding
+rules (``repro_torch.distributed.sharding``) see the tree.
+
+A :class:`ParamTree`'s leaves are frozen when it is built, so serving
+records no autograd graph; training makes them trainable with
+:func:`trainable` (``requires_grad_``).
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ from typing import Any, Iterator, Mapping, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-__all__ = ["ParamTree", "Initializer", "truncated_normal", "zeros", "ones"]
+__all__ = ["ParamTree", "Initializer", "AxesRecorder", "trainable",
+           "truncated_normal", "zeros", "ones"]
 
 
 class ParamTree(nn.Module):
@@ -57,6 +66,8 @@ class ParamTree(nn.Module):
 
 
 def _as_tree(v):
+    if isinstance(v, nn.Module):  # a ParamTree or layer list already built
+        return v
     if isinstance(v, Mapping):
         return ParamTree(v)
     if isinstance(v, Sequence) and not isinstance(v, str):
@@ -95,7 +106,29 @@ class Initializer:
         self.dtype = dtype
         self.device = torch.device(device)
 
-    def param(self, shape, *, std: Optional[float] = None,
-              init=truncated_normal, dtype: Optional[torch.dtype] = None):
+    def param(self, shape, axes: Optional[Tuple[Optional[str], ...]] = None,
+              *, std: Optional[float] = None, init=truncated_normal,
+              dtype: Optional[torch.dtype] = None):
+        del axes  # read by AxesRecorder
         return init(self.gen, tuple(shape), 0.02 if std is None else std,
                     dtype or self.dtype, self.device)
+
+
+class AxesRecorder(Initializer):
+    """The init code's logical-axes annotations: ``param`` returns its
+    ``axes`` tuple (None for a leaf that names none) instead of a tensor,
+    so an init function returns the tree's axes."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32):
+        super().__init__(None, dtype, "meta")
+
+    def param(self, shape, axes=None, *, std=None, init=None, dtype=None):
+        if axes is not None and len(axes) != len(shape):
+            raise ValueError(f"axes {axes} rank != shape {tuple(shape)}")
+        return None if axes is None else tuple(axes)
+
+
+def trainable(params: nn.Module, flag: bool = True) -> nn.Module:
+    """Make every leaf of a parameter tree need a gradient (``flag``) or
+    freeze it again; returns the tree."""
+    return params.requires_grad_(flag)

@@ -35,11 +35,13 @@ _rmsnorm_op = registry.operation("nn_rmsnorm")
 # -- linear ---------------------------------------------------------------------
 
 
-def linear_init(ini: Initializer, d_in: int, d_out: int, *,
-                std: Optional[float] = None, bias: bool = False) -> dict:
-    p = {"w": ini.param((d_in, d_out), std=std if std is not None else d_in ** -0.5)}
+def linear_init(ini: Initializer, d_in: int, d_out: int,
+                axes=(None, None), *, std: Optional[float] = None,
+                bias: bool = False) -> dict:
+    p = {"w": ini.param((d_in, d_out), axes,
+                        std=std if std is not None else d_in ** -0.5)}
     if bias:
-        p["b"] = ini.param((d_out,), init=zeros)
+        p["b"] = ini.param((d_out,), (axes[1],), init=zeros)
     return p
 
 
@@ -58,7 +60,7 @@ def rmsnorm_init(ini: Initializer, d: int, *,
     """The scale is f32 whatever the model's dtype unless ``dtype`` says
     otherwise, as in the JAX package (MLA's q / kv norms take the model's
     dtype)."""
-    return {"scale": ini.param((d,), init=ones, dtype=dtype)}
+    return {"scale": ini.param((d,), ("embed",), init=ones, dtype=dtype)}
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6, *, executor=None) -> torch.Tensor:
@@ -68,8 +70,10 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6, *, executor=None) -> torch.Te
 def layernorm_init(ini: Initializer, d: int) -> dict:
     """Scale and bias are f32 whatever the model's dtype, as in the JAX
     package."""
-    return {"scale": ini.param((d,), init=ones, dtype=torch.float32),
-            "bias": ini.param((d,), init=zeros, dtype=torch.float32)}
+    return {"scale": ini.param((d,), ("embed",), init=ones,
+                               dtype=torch.float32),
+            "bias": ini.param((d,), ("embed",), init=zeros,
+                              dtype=torch.float32)}
 
 
 def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -127,9 +131,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def swiglu_init(ini: Initializer, d: int, d_ff: int) -> dict:
     return {
-        "gate": ini.param((d, d_ff), std=d ** -0.5),
-        "up": ini.param((d, d_ff), std=d ** -0.5),
-        "down": ini.param((d_ff, d), std=d_ff ** -0.5),
+        "gate": ini.param((d, d_ff), ("embed", "mlp"), std=d ** -0.5),
+        "up": ini.param((d, d_ff), ("embed", "mlp"), std=d ** -0.5),
+        "down": ini.param((d_ff, d), ("mlp", "embed"), std=d_ff ** -0.5),
     }
 
 
@@ -139,12 +143,12 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
 
 def gelu_mlp_init(ini: Initializer, d: int, d_ff: int, *, bias: bool = True) -> dict:
     p = {
-        "up": ini.param((d, d_ff), std=d ** -0.5),
-        "down": ini.param((d_ff, d), std=d_ff ** -0.5),
+        "up": ini.param((d, d_ff), ("embed", "mlp"), std=d ** -0.5),
+        "down": ini.param((d_ff, d), ("mlp", "embed"), std=d_ff ** -0.5),
     }
     if bias:
-        p["up_b"] = ini.param((d_ff,), init=zeros)
-        p["down_b"] = ini.param((d,), init=zeros)
+        p["up_b"] = ini.param((d_ff,), ("mlp",), init=zeros)
+        p["down_b"] = ini.param((d,), ("embed",), init=zeros)
     return p
 
 
@@ -163,7 +167,7 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def embedding_init(ini: Initializer, vocab: int, d: int, *, std: float = 0.02) -> dict:
-    return {"table": ini.param((vocab, d), std=std)}
+    return {"table": ini.param((vocab, d), ("vocab", "embed"), std=std)}
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:

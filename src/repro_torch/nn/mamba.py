@@ -59,15 +59,17 @@ def mamba_init(ini: Initializer, cfg) -> dict:
     conv_dim = d_inner + 2 * G * N
     return {
         # in_proj -> [z (d_inner), x (d_inner), B (G*N), C (G*N), dt (H)]
-        "in_proj": ini.param((d, 2 * d_inner + 2 * G * N + H), std=d ** -0.5),
-        "conv_w": ini.param((cfg.ssm_conv, conv_dim), std=0.5),
-        "conv_b": ini.param((conv_dim,), init=zeros),
-        "dt_bias": ini.param((H,), init=zeros),
+        "in_proj": ini.param((d, 2 * d_inner + 2 * G * N + H), ("embed", "mlp"),
+                             std=d ** -0.5),
+        "conv_w": ini.param((cfg.ssm_conv, conv_dim), (None, "mlp"), std=0.5),
+        "conv_b": ini.param((conv_dim,), ("mlp",), init=zeros),
+        "dt_bias": ini.param((H,), ("heads",), init=zeros),
         # A = -exp(A_log), A ~ -1 at init
-        "A_log": ini.param((H,), init=zeros),
-        "D": ini.param((H,), init=ones),
-        "norm_scale": ini.param((d_inner,), init=ones),
-        "out_proj": ini.param((d_inner, d), std=d_inner ** -0.5),
+        "A_log": ini.param((H,), ("heads",), init=zeros),
+        "D": ini.param((H,), ("heads",), init=ones),
+        "norm_scale": ini.param((d_inner,), ("mlp",), init=ones),
+        "out_proj": ini.param((d_inner, d), ("mlp", "embed"),
+                              std=d_inner ** -0.5),
     }
 
 

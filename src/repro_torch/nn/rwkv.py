@@ -57,20 +57,20 @@ def time_mix_init(ini: Initializer, cfg) -> dict:
     r = cfg.lora_rank // 2 if cfg.lora_rank else 64
     return {
         # token-shift interpolation bases (five channels: r, k, v, w, g)
-        "mix_base": ini.param((5, d), std=0.02),
-        "mix_lora_a": ini.param((d, r), std=d ** -0.5),
-        "mix_lora_b": ini.param((r, 5 * d), init=zeros),
+        "mix_base": ini.param((5, d), (None, "embed"), std=0.02),
+        "mix_lora_a": ini.param((d, r), ("embed", None), std=d ** -0.5),
+        "mix_lora_b": ini.param((r, 5 * d), (None, "embed"), init=zeros),
         # projections
-        "wr": ini.param((d, d), std=d ** -0.5),
-        "wk": ini.param((d, d), std=d ** -0.5),
-        "wv": ini.param((d, d), std=d ** -0.5),
-        "wg": ini.param((d, d), std=d ** -0.5),
-        "wo": ini.param((d, d), std=d ** -0.5),
+        "wr": ini.param((d, d), ("embed", "heads"), std=d ** -0.5),
+        "wk": ini.param((d, d), ("embed", "heads"), std=d ** -0.5),
+        "wv": ini.param((d, d), ("embed", "heads"), std=d ** -0.5),
+        "wg": ini.param((d, d), ("embed", "heads"), std=d ** -0.5),
+        "wo": ini.param((d, d), ("heads", "embed"), std=d ** -0.5),
         # decay: logw = -exp(w0 + lora(x))
-        "w0": ini.param((d,), init=zeros),
-        "w_lora_a": ini.param((d, r), std=d ** -0.5),
-        "w_lora_b": ini.param((r, d), init=zeros),
-        "u": ini.param((H, K), std=0.02),
+        "w0": ini.param((d,), ("embed",), init=zeros),
+        "w_lora_a": ini.param((d, r), ("embed", None), std=d ** -0.5),
+        "w_lora_b": ini.param((r, d), (None, "embed"), init=zeros),
+        "u": ini.param((H, K), ("heads", None), std=0.02),
     }
 
 
@@ -153,11 +153,11 @@ def time_mix_step(p, x: torch.Tensor, cfg,
 def channel_mix_init(ini: Initializer, cfg) -> dict:
     d, dff = cfg.d_model, cfg.d_ff
     return {
-        "mix_k": ini.param((d,), std=0.02),
-        "mix_r": ini.param((d,), std=0.02),
-        "wk": ini.param((d, dff), std=d ** -0.5),
-        "wv": ini.param((dff, d), std=dff ** -0.5),
-        "wr": ini.param((d, d), std=d ** -0.5),
+        "mix_k": ini.param((d,), ("embed",), std=0.02),
+        "mix_r": ini.param((d,), ("embed",), std=0.02),
+        "wk": ini.param((d, dff), ("embed", "mlp"), std=d ** -0.5),
+        "wv": ini.param((dff, d), ("mlp", "embed"), std=dff ** -0.5),
+        "wr": ini.param((d, d), ("embed", "embed"), std=d ** -0.5),
     }
 
 

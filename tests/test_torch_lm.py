@@ -90,10 +90,13 @@ def test_zamba2_config_equals_the_jax_config_field_for_field():
 
 def test_unported_families_raise_naming_the_roadmap():
     """Every architecture of the JAX package now resolves (its config and
-    its family's init); an unknown one raises KeyError; what is still not
-    ported — the expert-parallel MoE dispatch a ``moe_spec`` asks for —
-    raises naming its ROADMAP item, A.10."""
+    its family's init); an unknown one raises KeyError.  The expert-parallel
+    MoE dispatch a ``moe_spec`` asks for, the last piece that named a
+    ROADMAP item here, is ported: without a mesh it raises naming what it
+    needs, and over a mesh of one rank it gives the sort dispatch's
+    logits."""
     from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
     from repro_torch.nn import moe
 
     for arch in JAX_ARCH_IDS:
@@ -102,15 +105,20 @@ def test_unported_families_raise_naming_the_roadmap():
         lm.init_model(get_smoke_config(arch), device="meta")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-model")
-    cfg = dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
-                              moe_spec=(("data",), "model"))
+    base = get_smoke_config("qwen2-moe-a2.7b")
+    cfg = dataclasses.replace(base, moe_spec=(("data",), "model"))
     params = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.zeros(1, 3, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        lm.forward(params, cfg, toks, executor=make_executor("torch"))
-    with pytest.raises(NotImplementedError, match="A.10"):
+    ex = make_executor("torch")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        lm.forward(params, cfg, toks, executor=ex)
+    with pytest.raises(ValueError, match="needs a mesh"):
         moe.moe_forward(params["blocks"][0]["moe"],
                         torch.zeros(1, 3, cfg.d_model), cfg, impl="ep")
+    with use_mesh(make_host_mesh(1, 1)):
+        ep, _ = lm.forward(params, cfg, toks, executor=ex)
+    sort, _ = lm.forward(params, base, toks, executor=ex)
+    assert (ep - sort).abs().max() <= 1e-5 * sort.abs().max()
 
 
 def test_full_width_parameter_count():
