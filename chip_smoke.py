@@ -256,6 +256,42 @@ Phases, each of which exits non-zero on failure:
             (d)'s shapes: the forward bitwise the bare kernel's, the
             gradients autograd's through the plain version, forward and
             backward ms.
+16. tooling — (a) ``python -m repro_torch.launch.dryrun --all`` in a
+            child process (TOOLING_JOBS worker processes on the host's
+            cores, no card; it must end within TOOLING_DRYRUN_DEADLINE_S
+            of the phase's start): every arch x live cell on the 16 x 16 mesh on
+            the meta device, each cell's FLOPs and bytes a device, the
+            one-card share's predicted peak, per-rank bytes, the collective
+            census, the roofline terms, the bottleneck and useful_fraction
+            printed as its record arrives; every cell must build; (b) as
+            the records arrive, each cell's one-card share (one data
+            replica of 16 x 16 with the model axis folded: batch
+            global_batch // 16, the full sequence, the whole model at full
+            width and depth in bf16, random weights from seed 0, the dry
+            run's batch and cache structs made real on the card) whose
+            predicted peak is within TOOLING_FIT of the card's memory, in
+            the cuda space: a warm step and one timed step (ms, tokens/s;
+            a prefill's from a zeroed cache),
+            measured against predicted peak bytes, the step against the
+            share's roofline, the LM kernels it must launch; a share
+            predicted to fit that runs out of memory fails; the shares not
+            run are listed with their predicted bytes; (c) each prefill
+            share's last-position logits within LM_BF16_TOL: the first
+            sequence's against the torch space on the card (chunked
+            attention), the second's against that sequence run alone in
+            the cuda space (so batch index 1 is held as well; MoE routes
+            replayed in both); (d) flash_attention at S = Skv =
+            32,768 (granite-8b's 32/8 heads, D 128, B 2; three query blocks
+            held against a dense f32 computation of those rows only, SDPA's
+            rows printed beside them, a repeat bitwise), rmsnorm at 65,536 rows of 4,096, ssd_scan at
+            zamba2's and rwkv6_scan_log at rwkv6's 2 x 32,768, held against
+            their plain versions and timed (TOOLING_REPS runs;
+            flash_attention's plain time is the torch space's chunked
+            attention, the dense one would not fit; SDPA causal its
+            library call); (e) ``python -m repro_torch.launch.inspect
+            solve`` for the five solvers at the default n on the card with
+            --trace and --metrics, then trace, validate and metrics on
+            those files: every exit code 0.
 
 It then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  A kernel's ``launches`` there is the
@@ -265,7 +301,8 @@ solves; the two serve calls; BiCGSTAB, CGS, GMRES, ParILU-BiCGSTAB and
 mixed-precision IR; the served stream of 11a and the three lanes of 11c;
 the distributed CG on one rank, on four ranks (each rank's counts, summed)
 and its pipelined window, and the launcher; the eight family serve calls;
-``train``, 15a's 40 steps, and ``train_families``, 15d's four cuda steps),
+``train``, 15a's 40 steps, ``train_families``, 15d's four cuda steps, and
+``tooling_shares``, the timed step of each of 16b's shares),
 each run counted from 0; ``launches_by_path`` gives each, and
 block_jacobi_apply's storage variants carry the same per storage dtype.
 ``max_abs_err`` is the larger over the shapes the kernel was held at;
@@ -274,7 +311,8 @@ hold the times at those paths' shapes of a kernel whose row is timed at
 phase 3's, and
 ``at_bicgstab_shape`` / ``at_row_pieces_shape`` those of phase 7's second
 shapes, ``at_family_shapes`` rmsnorm's and flash_attention's at phase 14's,
-``train_function`` each LM kernel's autograd Function at phase 15's; rmsnorm's ``at_decode_shape`` holds its rows at a decode step's 8
+``train_function`` each LM kernel's autograd Function at phase 15's,
+``at_cell_shapes`` the four LM kernels' at phase 16's 32k shapes; rmsnorm's ``at_decode_shape`` holds its rows at a decode step's 8
 rows and spmv_ell's ``at_amg_levels`` one row per AMG level operator and
 their sum per V(1,1) cycle.  It imports
 nothing of JAX or of the JAX package.  Without a CUDA device, or without the
@@ -466,6 +504,18 @@ TRAIN_FUNCTION_TOL = 1e-6
 # runs a Function's forward and forward + backward are timed over (the
 # backward takes up to 80 ms)
 TRAIN_FUNCTION_REPS = 10
+
+#: phase 16: the dry run's worker processes (one thread each) beside the
+#: card's work, a share runs where its predicted peak is within this share
+#: of the card's memory, timing repetitions at 32k, the time from the
+#: phase's start by which the dry run must have ended (its cells took
+#: 150-340 s of wall beside the card's work; past this the phase fails)
+#: and the solvers inspect runs
+TOOLING_JOBS = 6
+TOOLING_FIT = 0.9
+TOOLING_REPS = 5
+TOOLING_DRYRUN_DEADLINE_S = 420
+TOOLING_SOLVERS = ("cg", "fcg", "bicgstab", "cgs", "gmres")
 
 SERVE_HALF_LOAD_REQUESTS = 1024
 #: 11a's torch-space comparison runs the stream's first requests only (the
@@ -688,7 +738,7 @@ def check(name: str, err: float, tol: float) -> None:
 
 def kernel_row(torch, flush, copy_bw, name, src, line, err, kernel_fn,
                plain_fn, nbytes, flops, library_fn=None,
-               peak_flops=None, cupti=False) -> dict:
+               peak_flops=None, cupti=False, reps: int = REPS) -> dict:
     """One entry of the ``kernels`` line: the kernel's, its plain version's
     and (where one exists) a library call's device time, and the bounds;
     with ``cupti``, also the kernel's own device time in µs under
@@ -700,9 +750,9 @@ def kernel_row(torch, flush, copy_bw, name, src, line, err, kernel_fn,
         "source": f"src/repro_torch/kernels/csrc/{src}",
         "replaces": line,
         "max_abs_err": err,
-        "ms": device_ms(torch, kernel_fn, flush),
-        "plain_ms": device_ms(torch, plain_fn, flush),
-        "library_ms": (device_ms(torch, library_fn, flush)
+        "ms": device_ms(torch, kernel_fn, flush, reps),
+        "plain_ms": device_ms(torch, plain_fn, flush, reps),
+        "library_ms": (device_ms(torch, library_fn, flush, reps)
                        if library_fn is not None else None),
     }
     if cupti:
@@ -5285,6 +5335,526 @@ def phase_train(torch, card: str) -> tuple:
     return {"train": launches, "train_families": fam_launches}, summary, functions
 
 
+# -- phase 16: the tooling -------------------------------------------------------
+
+
+def _tooling_dryrun_start():
+    """``repro_torch.launch.dryrun --all`` in a child process (TOOLING_JOBS
+    workers of one thread each, on the host's cores, while the card runs
+    the shares): its records land one by one in experiments/dryrun_torch/,
+    its log in chiprun_out/dryrun_all.log."""
+    import shutil
+
+    out = ROOT / "experiments" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    log_dir = ROOT / "chiprun_out"
+    log_dir.mkdir(exist_ok=True)
+    log = open(log_dir / "dryrun_all.log", "w")
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    # a session of its own: its pool's workers are stopped with it
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--jobs",
+         str(TOOLING_JOBS)], cwd=str(ROOT), env=env, stdout=log,
+        stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, log, out
+
+
+def _tooling_records(out, order, proc, deadline: float):
+    """The dry run's records as they arrive (a file appears whole), the
+    first ready one in ``order`` each time, until the dry run has ended
+    and every present record was taken: yields ``(arch, shape, record)``.
+    Fails if the dry run is still running at ``deadline``
+    (``time.perf_counter()``)."""
+    pending = list(order)
+    while pending:
+        ready = [c for c in pending if (out / f"{c[0]}__{c[1]}.json").exists()]
+        if not ready:
+            if proc.poll() is not None:
+                return
+            if time.perf_counter() > deadline:
+                fail(f"the dry run had not ended within "
+                     f"{TOOLING_DRYRUN_DEADLINE_S} s of phase 16's start; "
+                     f"cells without a record: {pending}")
+            time.sleep(0.5)
+            continue
+        arch, shape = ready[0]
+        pending.remove((arch, shape))
+        yield arch, shape, json.loads((out / f"{arch}__{shape}.json").read_text())
+
+
+def _tooling_print_cell(rec: dict) -> None:
+    pd, r, mf = rec["per_device"], rec["roofline"], rec["model_flops"]
+    census = {op: (int(e["count"]), float(e["bytes"]))
+              for op, e in rec["collectives"].items()}
+    say(f"[tooling] dryrun {rec['arch']} x {rec['shape']} x {rec['mesh']}: "
+        f"{pd['logical_flops']:.6g} flop and {pd['logical_bytes_fused_est']:.6g} "
+        f"B fused ({pd['logical_bytes_unfused']:.6g} unfused) a device; peak "
+        f"{rec['share']['peak_bytes']:.6g} B a one-card share (batch "
+        f"{rec['share']['batch']}); per rank {rec['per_rank_bytes']}; "
+        f"collectives {census}; roofline compute {r['compute_s'] * 1e3:.4f} ms, "
+        f"memory {r['memory_s'] * 1e3:.4f} ms, collective "
+        f"{r['collective_s'] * 1e3:.4f} ms -> {r['bottleneck']}; useful "
+        f"{mf['useful_fraction']}")
+
+
+def _tooling_real(torch, meta, gen, vocab: int):
+    """A real tensor on the card for each ``meta`` one of a batch or cache
+    struct: token ids drawn below ``vocab``, embeddings standard normal,
+    a cache zeroed."""
+    from repro_torch.core import tree as tree_lib
+
+    def real(t):
+        if t.dtype in (torch.int32, torch.int64):
+            return torch.randint(0, vocab, tuple(t.shape), generator=gen,
+                                 device="cuda", dtype=t.dtype)
+        return torch.zeros(tuple(t.shape), dtype=t.dtype, device="cuda")
+
+    if isinstance(meta, dict) and ("tokens" in meta or "embeds" in meta):
+        out = {}
+        for k, t in meta.items():
+            if k == "embeds":
+                out[k] = torch.randn(tuple(t.shape), generator=gen,
+                                     device="cuda").to(t.dtype)
+            else:
+                out[k] = real(t)
+        if "labels" in out and "tokens" in out:
+            out["labels"] = out["tokens"]
+        return out
+    return tree_lib.tree_map(real, meta)
+
+
+def _tooling_share(torch, rec: dict) -> tuple:
+    """One cell's one-card share on the card in the cuda space: built from
+    the dry run's structs, one warm step, one timed step; measured against
+    predicted peak bytes, the step against the share's roofline; a prefill's
+    last-position logits of the second sequence against that sequence run
+    alone in the cuda space, and of the first against the torch space (MoE
+    routes replayed in both)."""
+    import dataclasses
+
+    from repro_torch import kernels as K
+    from repro_torch.core import make_executor
+    from repro_torch.launch import dryrun
+    from repro_torch.core import tree as tree_lib
+    from repro_torch.launch.mesh import Mesh, use_mesh
+    from repro_torch.models import lm
+    from repro_torch.nn import moe as moe_lib
+    from repro_torch.nn.common import trainable
+
+    arch, shape = rec["arch"], rec["shape"]
+    cell = dryrun.build_cell(arch, shape)
+    cfg, kind = cell.cfg, cell.shape.kind
+    B, S = cell.share_batch, cell.shape.seq_len
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(SEED + 16)
+    folded = Mesh({name: 1 for name in cell.mesh.axis_names})
+    ex = make_executor("cuda")
+    tag = f"[tooling] share {arch} x {shape} (batch {B}, {S} tokens)"
+    summary = {"arch": arch, "shape": shape, "kind": kind, "batch": B,
+               "seq_len": S, "predicted_peak_bytes": rec["share"]["peak_bytes"],
+               "bound_ms": rec["share"]["roofline"]["bound_s"] * 1e3}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    if cfg.family == "rwkv6":
+        # phase 9 (b)'s seeded decays: at the JAX package's init (every
+        # decay e^-1) the bf16 model is 0.3-0.4 of max |logit| from its own
+        # f32 result in either space, at 2,048 tokens as at 32k
+        _perturb_rwkv(torch, params, SEED + 9)
+    meta = cell.args(B)
+    if kind == "train":
+        params = trainable(params)
+        args = [params, cell.optimizer.init(params),
+                _tooling_real(torch, meta[2], gen, cfg.vocab)]
+    elif kind == "prefill":
+        args = [params, _tooling_real(torch, meta[1], gen, cfg.vocab),
+                _tooling_real(torch, meta[2], gen, cfg.vocab)]
+    else:
+        args = [params, _tooling_real(torch, meta[1], gen, cfg.vocab), S - 1,
+                _tooling_real(torch, meta[3], gen, cfg.vocab)]
+    torch.cuda.synchronize()
+    summary["setup_s"] = time.perf_counter() - t0
+    step = cell.step(ex)
+    routes = None
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with use_mesh(folded):
+            step(*args)  # warm
+            if kind == "prefill":
+                # a prefill starts from an empty cache: Zamba2's reads the
+                # conv window the warm step left there
+                for leaf in tree_lib.leaves(args[2]):
+                    leaf.zero_()
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            with _Routes(torch, moe_lib) as routes:
+                t1 = time.perf_counter()
+                start.record()
+                out = step(*args)
+                end.record()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+            launches = K.launch_counts()
+    except torch.cuda.OutOfMemoryError as e:
+        fail(f"{tag}: predicted {rec['share']['peak_bytes']:.6g} B fits, but "
+             f"the step ran out of memory: {e}")
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = start.elapsed_time(end)
+    tokens = B * (S if kind != "decode" else 1)
+    summary.update(step_ms=ms, wall_ms=wall * 1e3, tokens_per_s=tokens / (ms * 1e-3),
+                   measured_peak_bytes=peak,
+                   peak_ratio=peak / rec["share"]["peak_bytes"],
+                   roofline_fraction=summary["bound_ms"] / ms,
+                   launches={k: v for k, v in launches.items() if v})
+    say(f"{tag}: step {ms:.3f} ms (wall {wall * 1e3:.3f}), {tokens / (ms * 1e-3):.1f} "
+        f"tokens/s; peak {peak:.6g} B measured against {rec['share']['peak_bytes']:.6g} "
+        f"predicted ({summary['peak_ratio']:.4f}); roofline {summary['bound_ms']:.3f} "
+        f"ms, {summary['roofline_fraction']:.4f} of it; launches "
+        f"{summary['launches']}")
+    used = {n for n, v in launches.items() if v}
+    want = {"rmsnorm"} if cfg.norm_kind == "rmsnorm" else set()
+    if kind != "decode" and not cfg.is_attention_free:
+        want.add("flash_attention")
+    if cfg.family == "hybrid" and kind != "decode":
+        want.add("ssd_scan")
+    if cfg.family == "rwkv6" and kind != "decode":
+        want.add("rwkv6_scan_log")
+    if not want <= used:
+        fail(f"{tag}: kernels {sorted(want - used)} were not launched")
+    if kind == "prefill":
+        logits = out[0].float()
+        if not _finite(torch, logits):
+            fail(f"{tag}: non-finite logits")
+        out = None
+        del args[2]
+        torch.cuda.empty_cache()
+        # the second sequence (the largest batch offsets) alone at batch
+        # index 0 in the cuda space, held against the batch's: a fault that
+        # touches only batch index 1 shows here, and index 0 is held
+        # against the torch space below
+        second = {k: v[1:2] for k, v in args[1].items()}
+        replay = ([ids[S:2 * S] for ids in routes.ids]
+                  if cfg.family == "moe" else None)
+        with torch.no_grad(), use_mesh(folded), \
+                _Routes(torch, moe_lib, replay=replay):
+            alone = step(params, second, lm.init_cache(cfg, 1, S, dev))[0].float()
+        err2 = _rel_err(logits[1:2], alone)
+        summary.update(second_alone_err=err2,
+                       second_alone_bitwise=bool(torch.equal(logits[1:2], alone)))
+        say(f"{tag}: the second sequence's last-position logits against the "
+            f"same sequence alone (batch 1, cuda space"
+            f"{', routes replayed' if replay else ''}): {err2:.4e} of max "
+            f"|logit| (tolerance {LM_BF16_TOL}); bitwise: "
+            f"{summary['second_alone_bitwise']}")
+        if not err2 <= LM_BF16_TOL:
+            fail(f"{tag}: the second sequence's logits are {err2} of max "
+                 f"|logit| from the same sequence run alone")
+        del alone
+        torch.cuda.empty_cache()
+        logits = logits[:1]
+        ex_t = make_executor("torch", device=dev)
+        first = {k: v[:1] for k, v in args[1].items()}
+        cache1 = lm.init_cache(cfg, 1, S, dev)
+        replay = [ids[:S] for ids in routes.ids] if cfg.family == "moe" else None
+        t1 = time.perf_counter()
+        # TF32 in the reference's f32 products (its chunked attention's):
+        # quicker at 32k, its rounding far inside LM_BF16_TOL
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with torch.no_grad(), use_mesh(folded), \
+                _Routes(torch, moe_lib, replay=replay):
+            ref = cell.step(ex_t)(params, first, cache1)[0].float()
+        torch.cuda.synchronize()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        err = _rel_err(logits, ref)
+        summary.update(torch_space_err=err,
+                       torch_space_s=time.perf_counter() - t1,
+                       top1_agree=bool((logits.argmax(-1) == ref.argmax(-1)).all()))
+        say(f"{tag}: last-position logits against the torch space (chunked "
+            f"attention, TF32, the first sequence"
+            f"{', routes replayed' if replay else ''}): {err:.4e} of max "
+            f"|logit| (tolerance {LM_BF16_TOL}); top-1 "
+            f"agrees: {summary['top1_agree']}; {summary['torch_space_s']:.1f} s")
+        if not err <= LM_BF16_TOL:
+            fail(f"{tag}: logits {err} of max |logit| from the torch space")
+        del ref, cache1
+    elif kind == "train":
+        summary["loss"] = float(out[2]["loss"])
+        if not summary["loss"] == summary["loss"]:
+            fail(f"{tag}: the loss is not finite")
+    elif not _finite(torch, out[0]):
+        fail(f"{tag}: non-finite logits")
+    del out, args, params
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def _tooling_flash_rows(torch, q, k, v, o, starts) -> float:
+    """The flash kernel's output rows of three query blocks (128 rows from
+    each of ``starts``) against a dense f32 computation of those rows only
+    (the whole dense plain version at 32k would hold 137 GB of scores for
+    one sequence), held together as phase 8 holds a whole output: one bf16
+    ulp of each element plus 1e-5 of the largest over the rows held (the
+    last rows average 32k values, so their own largest is 0.05 where the
+    first rows' reaches 3.6); returns the largest error.  SDPA's rows
+    (causal) are printed on the same ruler beside them, not held."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    kf = torch.repeat_interleave(k, H // Hkv, dim=1).float()
+    vf = torch.repeat_interleave(v, H // Hkv, dim=1).float()
+    refs = []
+    for r0 in starts:
+        rows = torch.arange(r0, r0 + 128, device="cuda")
+        s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, r0:r0 + 128].float(),
+                         kf) / D ** 0.5
+        kv = torch.arange(S, device="cuda")
+        s = s.masked_fill(kv[None, :] > rows[:, None], float("-inf"))
+        refs.append(torch.softmax(s, dim=-1) @ vf)
+        del s
+    ref = torch.cat(refs, dim=2)
+    del refs
+    err = _held(torch, f"flash_attention rows {list(starts)} (+128 each) at "
+                f"S = Skv = {S}", torch.cat([o[:, :, r0:r0 + 128]
+                                             for r0 in starts], dim=2),
+                ref, 2.0 ** -7, 1e-5)
+    # the library call's rows on the same ruler, for comparison only
+    lib = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    lib = torch.cat([lib[:, :, r0:r0 + 128] for r0 in starts], dim=2).float()
+    ratio = float(((lib - ref).abs() / (2.0 ** -7 * ref.abs() + 1e-5
+                                        * float(ref.abs().max()))).max())
+    say(f"[kernels] scaled_dot_product_attention rows at S = Skv = {S} (not "
+        f"held): max_abs_err {float((lib - ref).abs().max()):.3e}; largest "
+        f"error {ratio:.3f} of the same tolerance")
+    return err
+
+
+def phase_tooling_kernels(torch, copy_bw) -> dict:
+    """The four LM kernels at the shape cells' shapes: flash_attention at
+    S = Skv = 32,768 (granite-8b's heads, the prefill share's batch),
+    rmsnorm at 65,536 rows (granite's d), ssd_scan at zamba2's and
+    rwkv6_scan_log at rwkv6's 2 x 32,768; each held against its plain
+    version and timed with its bound and library call."""
+    from repro_torch import kernels as K
+    from repro_torch.core.params import H100
+    from repro_torch.nn.attention import attention_chunked
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    bf16 = torch.bfloat16
+    B, S = 2, 32768
+    out = {}
+
+    H, Hkv, D = 32, 8, 128
+    q = torch.randn(B, H, S, D, generator=gen, device="cuda").to(bf16)
+    k = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(bf16)
+    v = torch.randn(B, Hkv, S, D, generator=gen, device="cuda").to(bf16)
+    o = K.flash_attention(q, k, v)
+    err = _tooling_flash_rows(torch, q, k, v, o, (0, S // 2 - 64, S - 128))
+    same = torch.equal(o, K.flash_attention(q, k, v))
+    if not same:
+        fail("flash_attention at 32k: a repeat is not bitwise equal")
+    del o
+    pairs = S * (S + 1) // 2
+    out["flash_attention"] = kernel_row(
+        torch, flush, copy_bw, "flash_attention", "flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:118", err,
+        lambda: K.flash_attention(q, k, v),
+        lambda: attention_chunked(q, k, v),
+        2 * B * (H + Hkv) * S * D * 2, 4 * D * B * H * pairs,
+        functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                          q, k, v, is_causal=True, enable_gqa=True),
+        peak_flops=H100.peak_flops_bf16, reps=TOOLING_REPS)
+    out["flash_attention"]["shape"] = {"B": B, "Hq": H, "Hkv": Hkv, "S": S,
+                                       "Skv": S, "D": D,
+                                       "plain": "attention_chunked (chunk 512)"}
+    del q, k, v
+
+    rows, d = B * S, 4096
+    x = torch.randn(rows, d, generator=gen, device="cuda").to(bf16)
+    w = 1 + 0.1 * torch.randn(d, generator=gen, device="cuda")
+    err = _held(torch, f"rmsnorm at {rows} x {d}", K.rmsnorm(x, w, 1e-5),
+                K.rmsnorm_plain(x, w, 1e-5), 2.0 ** -7, 1e-6)
+    w_lib = w.to(bf16)
+    out["rmsnorm"] = kernel_row(
+        torch, flush, copy_bw, "rmsnorm", "rmsnorm.cu",
+        "src/repro/kernels/rmsnorm/kernel.py:27", err,
+        lambda: K.rmsnorm(x, w, 1e-5), lambda: K.rmsnorm_plain(x, w, 1e-5),
+        2 * rows * d * 2 + d * 4, 4 * rows * d,
+        lambda: torch.nn.functional.rms_norm(x, (d,), w_lib, 1e-5))
+    out["rmsnorm"]["shape"] = {"rows": rows, "d": d}
+    del x
+
+    Hs, P, G, N = 80, 64, 2, 64
+    conv = torch.randn(B, S, Hs * P + 2 * G * N, generator=gen, device="cuda")
+    conv[..., Hs * P:] *= 0.3
+    xv, Bv, Cv = torch.split(conv.to(bf16), [Hs * P, G * N, G * N], dim=-1)
+    xs = xv.reshape(B, S, Hs, P).contiguous()
+    Bm, Cm = (t.reshape(B, S, G, N).contiguous() for t in (Bv, Cv))
+    del conv, xv, Bv, Cv
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, S, Hs, generator=gen, device="cuda") - 1.0)
+    A = -torch.exp(0.5 * torch.randn(Hs, generator=gen, device="cuda"))
+    y, h = K.ssd_scan(xs, dt, A, Bm, Cm)
+    yp, hp = K.ssd_scan_plain(xs, dt, A, Bm, Cm)
+    err = max(_held(torch, f"ssd_scan y at B {B}, S {S}", y, yp, 2.0 ** -7, 1e-4),
+              _held(torch, f"ssd_scan state at B {B}, S {S}", h, hp, 0.0, 1e-4))
+    del y, h, yp, hp
+    L = 64
+    out["ssd_scan"] = kernel_row(
+        torch, flush, copy_bw, "ssd_scan", "ssd_scan.cu",
+        "src/repro/kernels/ssd/kernel.py:98", err,
+        lambda: K.ssd_scan(xs, dt, A, Bm, Cm),
+        lambda: K.ssd_scan_plain(xs, dt, A, Bm, Cm),
+        2 * B * S * Hs * P * 2 + B * S * Hs * 4 + 2 * B * S * G * N * 2
+        + Hs * 4 + B * Hs * N * P * 4,
+        2 * L * (L * N + L * P + 2 * N * P) * B * Hs * -(-S // L),
+        peak_flops=H100.peak_flops_bf16, reps=TOOLING_REPS)
+    out["ssd_scan"]["shape"] = {"B": B, "S": S, "H": Hs, "P": P, "G": G, "N": N}
+    del xs, dt, A, Bm, Cm
+
+    H, D = 40, 64
+    r, kk, vv = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(bf16)
+                 for _ in range(3))
+    logw = -torch.exp(-1.0 + torch.randn(B, S, H, D, generator=gen, device="cuda"))
+    u = (0.5 * torch.randn(H, D, generator=gen, device="cuda")).to(bf16)
+    args = (r, kk, vv, logw, u)
+    y, st = K.rwkv6_scan_log(*args)
+    yp, sp = K.rwkv6_scan_plain(*args)
+    err = max(_held(torch, f"rwkv6_scan_log y at B {B}, S {S}", y, yp, 2.0 ** -7,
+                    1e-4),
+              _held(torch, f"rwkv6_scan_log state at B {B}, S {S}", st, sp, 0.0,
+                    1e-4))
+    del y, st, yp, sp
+    lower = L * (L - 1) // 2
+    out["rwkv6_scan_log"] = kernel_row(
+        torch, flush, copy_bw, "rwkv6_scan_log", "rwkv6_scan.cu",
+        "src/repro/kernels/rwkv6/kernel.py:124", err,
+        lambda: K.rwkv6_scan_log(*args), lambda: K.rwkv6_scan_plain(*args),
+        4 * B * S * H * D * 2 + B * S * H * D * 4 + B * H * D * D * 4 + H * D * 2,
+        B * H * -(-S // L) * (4 * L * D * D + 2 * lower * D + 4 * lower * D),
+        peak_flops=H100.peak_flops_bf16, reps=TOOLING_REPS)
+    out["rwkv6_scan_log"]["shape"] = {"B": B, "S": S, "H": H, "K": D, "V": D}
+    del args, r, kk, vv, logw, u
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tooling_inspect(torch) -> dict:
+    """``inspect solve`` for each solver at the default n on the card with a
+    trace and metrics, then ``trace``, ``validate`` and ``metrics`` on those
+    files; every command must return 0."""
+    from repro_torch.launch import inspect as inspect_lib
+    from repro_torch.observability import metrics, trace
+
+    out_dir = ROOT / "chiprun_out" / "inspect"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    rcs = {}
+    for solver in TOOLING_SOLVERS:
+        tr, me = out_dir / f"{solver}.json", out_dir / f"{solver}.jsonl"
+        trace.reset()
+        metrics.reset()
+        rcs[f"solve {solver}"] = inspect_lib.main(
+            ["solve", "--solver", solver, "--trace", str(tr), "--metrics",
+             str(me)])
+        trace.disable()
+        for cmd, path in (("trace", tr), ("validate", tr), ("metrics", me)):
+            rcs[f"{cmd} {solver}"] = inspect_lib.main([cmd, str(path)])
+    bad = {k: v for k, v in rcs.items() if v != 0}
+    say(f"[tooling] inspect: {len(rcs)} commands, exit codes {rcs}")
+    if bad:
+        fail(f"inspect commands failed: {bad}")
+    return rcs
+
+
+def phase_tooling(torch, copy_bw) -> tuple:
+    """Phase 16: the dry run of every cell (in a child process), the
+    one-card shares predicted to fit (run as their records arrive), the four
+    LM kernels at the cells' shapes, and inspect on the card."""
+    from repro_torch.configs import ARCH_IDS, cells
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    proc, log, out = _tooling_dryrun_start()
+    _, total = torch.cuda.mem_get_info()
+    limit = TOOLING_FIT * total
+    say(f"[tooling] dry run started ({TOOLING_JOBS} processes); shares run "
+        f"where the predicted peak is within {TOOLING_FIT} of the card's "
+        f"{total} B ({limit:.6g} B)")
+    order = sorted(((a, s) for a in ARCH_IDS for s in cells(a)),
+                   key=lambda c: (c[0] in ("zamba2_2_7b", "rwkv6_3b"),
+                                  c[1] == "train_4k"))
+    summary = {"shares": [], "not_run": [], "limit_bytes": limit,
+               "card_bytes": total}
+    launches = collections.Counter()
+    records, t = {}, {}
+    try:
+        # the four kernels at the cells' shapes first: the card would wait
+        # for the dry run's first records meanwhile
+        t0 = time.perf_counter()
+        rows = phase_tooling_kernels(torch, copy_bw)
+        t["kernels"] = time.perf_counter() - t0
+        deadline = t_phase + TOOLING_DRYRUN_DEADLINE_S
+        for arch, shape, rec in _tooling_records(out, order, proc, deadline):
+            records[arch, shape] = rec
+            _tooling_print_cell(rec)
+            peak = rec["share"]["peak_bytes"]
+            if peak > limit:
+                summary["not_run"].append({"arch": arch, "shape": shape,
+                                           "predicted_peak_bytes": peak})
+                say(f"[tooling] share {arch} x {shape} not run: predicted "
+                    f"peak above the limit ({peak:.6g} B)")
+                continue
+            t_share = time.perf_counter()
+            s, counts = _tooling_share(torch, rec)
+            s["seconds"] = time.perf_counter() - t_share
+            say(f"[tooling] share {arch} x {shape}: {s['seconds']:.1f} s, "
+                f"{time.perf_counter() - t_phase:.1f} s into the phase")
+            summary["shares"].append(s)
+            launches.update(counts)
+            if "dryrun_seen_ended_s" not in summary and proc.poll() is not None:
+                summary["dryrun_seen_ended_s"] = time.perf_counter() - t_phase
+        try:
+            rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            fail(f"the dry run had not ended within {TOOLING_DRYRUN_DEADLINE_S} "
+                 f"s of phase 16's start")
+        summary.setdefault("dryrun_seen_ended_s", time.perf_counter() - t_phase)
+    finally:
+        import signal
+
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+        log.close()
+    tail = (ROOT / "chiprun_out" / "dryrun_all.log").read_text().splitlines()[-3:]
+    say(f"[tooling] dry run exit code {rc}: {tail}")
+    missing = [(a, s) for a in ARCH_IDS for s in cells(a)
+               if (a, s) not in records]
+    if rc != 0 or missing:
+        fail(f"the dry run failed (exit code {rc}); cells without a record: "
+             f"{missing}")
+    summary["cells"] = len(records)
+    summary["dryrun_cell_s"] = max(r["build_s"] for r in records.values())
+    t["shares"] = time.perf_counter() - t_phase - t["kernels"]
+    t0 = time.perf_counter()
+    summary["inspect"] = phase_tooling_inspect(torch)
+    t["inspect"] = time.perf_counter() - t0
+    summary["part_seconds"] = t
+    summary["seconds"] = time.perf_counter() - t_phase
+    say(f"[tooling] phase 16 took {summary['seconds']:.1f} s: {len(records)} "
+        f"cells built (the dry run seen ended {summary['dryrun_seen_ended_s']:.1f} "
+        f"s in), {len(summary['shares'])} shares run, "
+        f"{len(summary['not_run'])} not run; parts (s) {t}")
+    return dict(launches), summary, rows
+
+
 def main() -> None:
     import torch
 
@@ -5360,6 +5930,7 @@ def main() -> None:
     family_paths, path["lm_families"], family_rows = phase_families(torch,
                                                                    copy_bw)
     train_paths, path["train"], train_functions = phase_train(torch, card)
+    tool_launches, path["tooling"], tool_rows = phase_tooling(torch, copy_bw)
     paths.update({"amg_check": (amg_launches, amg_storage),
                   "sellp_cg": (sellp_launches, {}),
                   "batch_solve": (batch_launches, batch_storage),
@@ -5367,7 +5938,13 @@ def main() -> None:
                   "rwkv6_serve": (rwkv_launches, {}), **krylov_paths,
                   **serve_paths, **dist_paths,
                   **{p: (c, {}) for p, c in family_paths.items()},
-                  **{p: (c, {}) for p, c in train_paths.items()}})
+                  **{p: (c, {}) for p, c in train_paths.items()},
+                  "tooling_shares": (tool_launches, {})})
+    # phase 16's cell shapes of the four LM kernels, and the larger error
+    for name, extra in tool_rows.items():
+        rows[name]["at_cell_shapes"] = extra
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                        extra["max_abs_err"])
     # each LM kernel's autograd Function, held and timed (15g)
     for name, cases in train_functions.items():
         rows[name]["train_function"] = cases

@@ -12,10 +12,10 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
 
 __all__ = ["ARCH_IDS", "ARCH_ALIASES", "PORTED_ARCHS", "ModelConfig",
-           "get_config", "get_smoke_config"]
+           "ShapeConfig", "SHAPES", "get_config", "get_smoke_config", "cells"]
 
 ARCH_IDS = (
     "qwen2_moe_a2_7b",
@@ -128,6 +128,26 @@ class ModelConfig:
         return self.family in ("rwkv6", "hybrid")
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One shape cell: a global batch of ``seq_len`` tokens and the kind of
+    step that takes it."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+#: the JAX package's shape cells, field for field
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 def _module(arch: str):
     arch = _normalize(ARCH_ALIASES.get(arch, arch))
     if arch not in ARCH_IDS:
@@ -143,3 +163,11 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     """The reduced same-family configuration of ``arch`` for CPU tests."""
     return _module(arch).smoke_config()
+
+
+def cells(arch: str) -> Tuple[str, ...]:
+    """The live (arch x shape) cells: long_500k only for sub-quadratic archs."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if get_config(arch).supports_long_context:
+        names.append("long_500k")
+    return tuple(names)

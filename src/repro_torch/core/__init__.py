@@ -27,7 +27,13 @@ from repro_torch.core.linop import (
     as_linop,
 )
 from repro_torch.core.params import H100, HardwareParams, TARGETS, get_target
-from repro_torch.core.registry import NotCompiledError, operation, register
+from repro_torch.core.registry import (
+    NotCompiledError,
+    all_operations,
+    operation,
+    register,
+    registered_spaces,
+)
 
 __all__ = [
     "coop",
@@ -55,6 +61,8 @@ __all__ = [
     "TARGETS",
     "get_target",
     "NotCompiledError",
+    "all_operations",
     "operation",
     "register",
+    "registered_spaces",
 ]

@@ -41,6 +41,9 @@ class HardwareParams:
     hbm_bandwidth: Optional[float] = None
     peak_flops_f32: Optional[float] = None
     peak_flops_bf16: Optional[float] = None
+    #: bytes/s one device sends to its peers in one direction over the
+    #: device interconnect; None where unknown
+    interconnect_bandwidth: Optional[float] = None
 
 
 H100 = HardwareParams(
@@ -54,6 +57,9 @@ H100 = HardwareParams(
     hbm_bandwidth=3.35e12,
     peak_flops_f32=67e12,
     peak_flops_bf16=989e12,
+    # NVLink 4: NVIDIA's published 900 GB/s both ways, 450 GB/s a
+    # direction; a published figure, not measured on the card
+    interconnect_bandwidth=450e9,
 )
 
 CPU_TORCH = HardwareParams(name="cpu_torch", kernel_space="torch")

@@ -30,6 +30,8 @@ __all__ = [
     "Operation",
     "operation",
     "register",
+    "registered_spaces",
+    "all_operations",
     "instantiate_common",
 ]
 
@@ -153,6 +155,16 @@ def operation(name: str, doc: str = "") -> Operation:
 def register(name: str, space: str) -> Callable[[Callable], Callable]:
     """Shorthand: ``@register("spmv_ell", "cuda")``."""
     return operation(name).register(space)
+
+
+def registered_spaces(name: str) -> tuple:
+    """The kernel spaces that serve operation ``name``, sorted."""
+    return tuple(sorted(_OPERATIONS[name]._impls))
+
+
+def all_operations() -> Dict[str, "Operation"]:
+    """Every operation defined so far, by name."""
+    return dict(_OPERATIONS)
 
 
 def instantiate_common(

@@ -21,8 +21,14 @@ runs the unchanged solver source on it.  This module is what that needs:
   (assembling a global vector);
 * :func:`all_reduce`, :func:`all_to_all`, :func:`all_gather` and
   :func:`ring_shift` over a group — the collectives of the training path
-  (gradient compression, expert parallelism, the ring matmuls); not
-  counted;
+  (gradient compression, expert parallelism, the ring matmuls), counted
+  as ``all-reduce``, ``all-to-all``, ``all-gather`` and
+  ``collective-permute`` with their result's bytes
+  (:func:`collective_bytes`) when they cross ranks;
+* :class:`CensusGroup` — a stand-in group of ``size`` ranks that moves
+  nothing: a collective over it is counted and returns this rank's result
+  shaped (zeros, or its input), so the dry run counts a step's collectives
+  on ``meta`` tensors without a world;
 * :func:`run_world` — spawn a world of P processes, run one function on
   every rank and return the results in rank order.
 
@@ -55,7 +61,9 @@ __all__ = [
     "sum_fixed",
     "all_gather_shards",
     "collective_counts",
+    "collective_bytes",
     "reset_collective_counts",
+    "CensusGroup",
     "all_reduce",
     "all_to_all",
     "all_gather",
@@ -66,7 +74,11 @@ __all__ = [
 #: seconds a collective may wait for the other ranks before it raises
 DEFAULT_TIMEOUT_S = 120.0
 
-_COUNTS: Dict[str, int] = {"reduction": 0, "halo": 0, "gather": 0}
+#: the training path's collectives, by the names of the JAX package's census
+TRAIN_KINDS = ("all-reduce", "all-gather", "all-to-all", "collective-permute")
+_COUNTS: Dict[str, int] = {"reduction": 0, "halo": 0, "gather": 0,
+                           **{k: 0 for k in TRAIN_KINDS}}
+_BYTES: Dict[str, int] = {k: 0 for k in TRAIN_KINDS}
 
 
 def collective_counts() -> Dict[str, int]:
@@ -74,9 +86,33 @@ def collective_counts() -> Dict[str, int]:
     return dict(_COUNTS)
 
 
+def collective_bytes() -> Dict[str, int]:
+    """Bytes of the training collectives' results since the last reset, by
+    kind (an all-gather's whole gathered result, an all-reduce's or an
+    all-to-all's own size)."""
+    return dict(_BYTES)
+
+
 def reset_collective_counts() -> None:
     for k in _COUNTS:
         _COUNTS[k] = 0
+    for k in _BYTES:
+        _BYTES[k] = 0
+
+
+class CensusGroup:
+    """A group of ``size`` ranks in name only (see the module docstring)."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+
+    def __repr__(self) -> str:
+        return f"CensusGroup({self.size})"
+
+
+def _count(kind: str, out: torch.Tensor) -> None:
+    _COUNTS[kind] += 1
+    _BYTES[kind] += out.numel() * out.element_size()
 
 
 def _dist():
@@ -193,6 +229,9 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     """A new tensor: ``t`` reduced over ``group`` (the default group when
     None) with ``op`` ("sum" or "max"); ``t`` itself when no process group
     is initialised (a world of one)."""
+    if isinstance(group, CensusGroup):
+        _count("all-reduce", t)
+        return t.clone()
     if not _initialized():
         return t
     dist = _dist()
@@ -200,6 +239,7 @@ def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
     buf = t.cpu() if staged else t.clone()
     dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM,
                              "max": dist.ReduceOp.MAX}[op], group=group)
+    _count("all-reduce", buf)
     return buf.to(t.device) if staged else buf
 
 
@@ -207,6 +247,9 @@ def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
     """Row block ``j`` of ``t`` (leading axis: one block a rank of
     ``group``) goes to rank ``j``; the result's block ``i`` came from rank
     ``i`` (``jax.lax.all_to_all`` with split and concat axis 0, untiled)."""
+    if isinstance(group, CensusGroup):
+        _count("all-to-all", t)
+        return t.clone()
     if not _initialized():
         return t
     dist = _dist()
@@ -214,11 +257,16 @@ def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
     src = t.cpu().contiguous() if staged else t.contiguous()
     out = torch.empty_like(src)
     dist.all_to_all(list(out.unbind(0)), list(src.unbind(0)), group=group)
+    _count("all-to-all", out)
     return out.to(t.device) if staged else out
 
 
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """``(size, *t.shape)``: every rank's ``t`` in ``group`` rank order."""
+    if isinstance(group, CensusGroup):
+        out = t.new_zeros((group.size,) + tuple(t.shape))
+        _count("all-gather", out)
+        return out
     if not _initialized():
         return t[None]
     dist = _dist()
@@ -227,6 +275,7 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     out = torch.empty((dist.get_world_size(group),) + tuple(src.shape),
                       dtype=src.dtype, device=src.device)
     dist.all_gather(list(out.unbind(0)), src, group=group)
+    _count("all-gather", out)
     return out.to(t.device) if staged else out
 
 
@@ -234,6 +283,10 @@ def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
     """Send ``t`` to the next rank of ``group`` and return what the previous
     one sent (``jax.lax.ppermute`` with ``i -> i + 1 mod size``): one
     ``batch_isend_irecv`` pair."""
+    if isinstance(group, CensusGroup):
+        if group.size > 1:
+            _count("collective-permute", t)
+        return t.clone()
     if not _initialized():
         return t
     dist = _dist()
@@ -250,6 +303,7 @@ def ring_shift(t: torch.Tensor, group=None) -> torch.Tensor:
            dist.P2POp(dist.irecv, out, ranks[(me - 1) % size], group=group)]
     for w in dist.batch_isend_irecv(ops):
         w.wait()
+    _count("collective-permute", out)
     return out.to(t.device) if staged else out
 
 

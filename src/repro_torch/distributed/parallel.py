@@ -35,6 +35,8 @@ __all__ = ["enter", "leave", "mean", "take", "gather", "all_to_all",
 
 
 def group_size(group) -> int:
+    if isinstance(group, comm.CensusGroup):
+        return group.size
     if group is None or not comm._initialized():
         return 1
     import torch.distributed as dist
@@ -43,6 +45,8 @@ def group_size(group) -> int:
 
 
 def group_rank(group) -> int:
+    if isinstance(group, comm.CensusGroup):
+        return 0
     if group is None or not comm._initialized():
         return 0
     import torch.distributed as dist

@@ -17,6 +17,10 @@ A case is a dict with ``op`` one of
 * ``"moe_ep"`` — ``cfg`` (ModelConfig fields), ``mesh`` ({"data": D,
   "model": M}), ``seed``, ``x`` (B, S, d): the rank's data shard through
   ``impl="ep"``, the loss sum(y^2): ``{"y", "metrics", "grads", "dx"}``;
+* ``"census_step"`` — ``arch`` (its smoke config, expert-parallel over
+  the mesh's model axis), ``mesh``, ``batch`` (B, S) host tokens: one
+  ``make_train_step`` on the rank's data shard of seed-0 weights, and the
+  training collectives it issued: ``{"counts", "bytes"}``;
 * ``"compressed_dp"`` — ``arch``, ``steps``, ``global_batch``, ``seq_len``,
   ``lr`` and optionally ``smoke``, ``n_layers``, ``data_seed``, ``dtype``:
   :func:`compressed_dp_run` on the rank.
@@ -100,6 +104,38 @@ def _moe_ep(case, device):
             "grads": {k: _np(g) for k, g in zip(keys, grads[:-1])},
             "dx": _np(grads[-1]),
             "params": {k: _np(v) for k, v in p.items()}}
+
+
+def _census_step(case, device):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import make_executor
+    from repro_torch.distributed import comm
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.mesh import make_mesh, use_mesh
+    from repro_torch.models import lm
+    from repro_torch.nn.common import trainable
+    from repro_torch.optim import adamw, warmup_cosine_schedule
+
+    cfg = dataclasses.replace(get_smoke_config(case["arch"]),
+                              moe_spec=(("data",), "model"))
+    mesh = make_mesh(case["mesh"])
+    params = trainable(lm.init_model(cfg, device=device))
+    opt = adamw(warmup_cosine_schedule(3e-4, 10, 100))
+    tokens = torch.as_tensor(np.asarray(case["batch"]), device=device)
+    b = tokens.shape[0] // mesh.shape["data"]
+    d = mesh.coords["data"]
+    local = tokens[d * b:(d + 1) * b]
+    step = steps_lib.make_train_step(cfg, opt, executor=make_executor(
+        "torch", device=device))
+    opt_state = opt.init(params)
+    comm.reset_collective_counts()
+    with use_mesh(mesh):
+        step(params, opt_state, {"tokens": local, "labels": local})
+    counts, nbytes = comm.collective_counts(), comm.collective_bytes()
+    return {"counts": {k: counts[k] for k in comm.TRAIN_KINDS},
+            "bytes": {k: nbytes[k] for k in comm.TRAIN_KINDS}}
 
 
 def _host_truncated_normal(rs, shape, std, dtype, device):
@@ -200,7 +236,7 @@ def compressed_dp_run(arch: str, steps: int, global_batch: int, seq_len: int,
 
 
 _OPS = {"compressed_psum": _compressed_psum, "ring_rs": _ring,
-        "ring_ag": _ring, "moe_ep": _moe_ep}
+        "ring_ag": _ring, "moe_ep": _moe_ep, "census_step": _census_step}
 
 
 def run_train_cases(cases: List[dict], device) -> List:

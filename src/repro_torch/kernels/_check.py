@@ -35,8 +35,13 @@ def on_cuda(name: str, *tensors: torch.Tensor,
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """The ``cuda`` kernel space runs its kernels or raises: it does not take
-    CPU tensors to the plain version."""
+    CPU tensors to the plain version.  While the cost model records kernel
+    units (:mod:`repro_torch.kernels._cost`) it takes ``meta`` tensors."""
+    from repro_torch.kernels import _cost
+
     for t in tensors:
+        if t.device.type == "meta" and _cost.recording():
+            continue
         if t.device.type != "cuda":
             raise ValueError(
                 f"{name}: the cuda kernel space needs CUDA tensors, got a "

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, _workspace
+from repro_torch.kernels import _build, _cost, _workspace
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["axpy_norm", "axpy_norm_plain", "axpy_norm_rows", "launch_grid",
@@ -85,6 +85,9 @@ def axpy_norm(alpha, x: torch.Tensor, y: torch.Tensor, *,
             "must be equal 1-D vectors")
     alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
     require(alpha.numel() == 1, name, "alpha must be a scalar")
+    if _cost.recording():
+        return _cost.unit(name, (alpha, x, y),
+                          (torch.empty_like(x), x.new_empty(())), 4 * x.numel())
     if not on_cuda(name, x, y):
         return axpy_norm_plain(alpha, x, y)
     _check_geometry(name, block_threads, grid_blocks)
@@ -134,6 +137,9 @@ def axpy_norm_rows(alpha, x: torch.Tensor, y: torch.Tensor, *,
     alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
     require(alpha.ndim == 0 or alpha.shape == (nb,), name,
             f"alpha {tuple(alpha.shape)} must be a scalar or ({nb},)")
+    if _cost.recording():
+        return _cost.unit(name, (alpha, x, y),
+                          (torch.empty_like(x), x.new_empty(nb)), 4 * x.numel())
     if not on_cuda(name, x, y):
         return axpy_norm_plain(alpha, x, y)
     _check_geometry(name, block_threads, grid_blocks)

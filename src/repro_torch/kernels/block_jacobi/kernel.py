@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["block_jacobi_apply", "block_jacobi_apply_plain"]
@@ -48,6 +48,9 @@ def block_jacobi_apply(inv_blocks: torch.Tensor, vp: torch.Tensor, *,
             and vp.shape == inv_blocks.shape[:2], name,
             f"inv_blocks {tuple(inv_blocks.shape)} / vp {tuple(vp.shape)} "
             "must be (nb, bs, bs) / (nb, bs)")
+    if _cost.recording():
+        return _cost.unit(name, (inv_blocks, vp), torch.empty_like(vp),
+                          2 * inv_blocks.numel())
     if not on_cuda(name, inv_blocks, vp):
         return block_jacobi_apply_plain(inv_blocks, vp)
     require(32 <= block_threads <= 1024 and block_threads % 32 == 0, name,

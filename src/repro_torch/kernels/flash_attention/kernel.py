@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_smem_bytes",
@@ -117,6 +117,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"of {sorted(map(str, _ENTRY))}")
     if scale is None:
         scale = 1.0 / (D ** 0.5)
+    if _cost.recording():
+        # causal: query i sees keys up to i + Skv - S
+        if causal:
+            seen = (S * max(Skv - S, 0) + S * (S + 1) // 2 if Skv >= S
+                    else Skv * (Skv + 1) // 2)
+        else:
+            seen = S * Skv
+        return _cost.unit(name, (q, k, v), torch.empty_like(q),
+                          4 * D * B * Hq * seen)
     if not on_cuda(name, q, k, v):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     require(D % 16 == 0 and 16 <= D <= MAX_HEAD_DIM, name,

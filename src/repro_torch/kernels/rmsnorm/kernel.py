@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["rmsnorm", "rmsnorm_plain", "rmsnorm_geometry", "row_stride",
@@ -119,6 +119,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     ld = row_stride(x)
     require(ld is not None, name, "x's rows must be contiguous, at one stride "
             f"(shape {tuple(x.shape)}, strides {tuple(x.stride())})")
+    if _cost.recording():
+        return _cost.unit(name, (x, w), torch.empty(x.shape, dtype=x.dtype,
+                                                    device=x.device),
+                          4 * x.numel())
     if not on_cuda(name, w, strided=(x,)):
         return rmsnorm_plain(x, w, eps)
     require(1 <= rows_per_block <= MAX_THREADS // 32, name,

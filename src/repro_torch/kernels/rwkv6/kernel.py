@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["rwkv6_scan", "rwkv6_scan_log", "rwkv6_scan_plain",
@@ -144,6 +144,14 @@ def rwkv6_scan_log(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"must be one of {sorted(map(str, _ENTRY))}, all alike")
     require(logw.dtype == torch.float32, name,
             f"logw must be float32, got {logw.dtype}")
+    if _cost.recording():
+        L = CHUNK
+        lower = L * (L - 1) // 2  # pairs s < t of a chunk
+        out = (torch.empty((Bsz, S, H, V), dtype=r.dtype, device=r.device),
+               torch.empty((Bsz, H, K, V), dtype=torch.float32, device=r.device))
+        return _cost.unit(name, (r, k, v, logw, u), out,
+                          Bsz * H * -(-S // L) * (4 * L * K * V + 2 * lower * K
+                                                  + 4 * lower * V))
     if not on_cuda(name, r, k, v, logw, u):
         return rwkv6_scan_plain(r, k, v, logw, u)
     require(1 <= K <= MAX_DIM and 1 <= V <= MAX_DIM, name,

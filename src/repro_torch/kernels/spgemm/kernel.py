@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["csr_permute", "csr_permute_plain", "spgemm_expand",
@@ -69,6 +69,9 @@ def spgemm_expand(a_vals: torch.Tensor, idx: torch.Tensor, b_pad: torch.Tensor,
             "be (T,) / (T, K)")
     require(b_pad.ndim == 1 and b_pad.shape[0] >= 1, name,
             "b_pad must be 1-D with the zero pad at slot 0")
+    if _cost.recording():
+        return _cost.unit(name, (a_vals, idx, b_pad),
+                          a_vals.new_empty(idx.shape), idx.numel())
     if not on_cuda(name, a_vals, idx, b_pad):
         return spgemm_expand_plain(a_vals, idx, b_pad)
     _check_threads(name, block_threads)
@@ -92,6 +95,9 @@ def csr_permute(values: torch.Tensor, order: torch.Tensor, *,
     require(order.dtype == torch.int32, name, "order must be int32")
     require(values.ndim == 1 and order.ndim == 1, name,
             f"values {tuple(values.shape)} / order {tuple(order.shape)} must be 1-D")
+    if _cost.recording():
+        return _cost.unit(name, (values, order), values.new_empty(order.shape),
+                          0)
     if not on_cuda(name, values, order):
         return csr_permute_plain(values, order)
     _check_threads(name, block_threads)

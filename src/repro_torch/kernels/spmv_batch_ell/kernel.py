@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels._check import on_cuda, require
 from repro_torch.kernels.spmv_ell.kernel import (ROWS_WALK_MAX_K,
                                                 ROWS_WALK_THREADS,
@@ -107,6 +107,10 @@ def spmv_batch_ell(col_idx: torch.Tensor, values: torch.Tensor,
             f"x {tuple(x.shape)} must be (nb, n) with nb = {values.shape[0]}")
     require(x.shape[1] > 0 or values.numel() == 0, name,
             "empty x with stored entries (padding gathers x[:, 0])")
+    if _cost.recording():
+        return _cost.unit(name, (col_idx, values, x),
+                          values.new_empty(values.shape[:2]),
+                          2 * values.numel())
     if not on_cuda(name, col_idx, values, x):
         return spmv_batch_ell_plain(col_idx, values, x)
     check_geometry(name, block_threads, subgroup)

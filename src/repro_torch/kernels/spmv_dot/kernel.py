@@ -16,7 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, _workspace
+from repro_torch.kernels import _build, _cost, _workspace
 from repro_torch.kernels._check import on_cuda, require
 from repro_torch.kernels.spmv_ell.kernel import (
     ROWS_WALK_MAX_K,
@@ -73,6 +73,10 @@ def spmv_dot_ell(col_idx: torch.Tensor, values: torch.Tensor, x: torch.Tensor,
     m, k = values.shape
     require(w.dtype == values.dtype and w.shape == (m,), name,
             f"w must be ({m},) {values.dtype}, got {tuple(w.shape)} {w.dtype}")
+    if _cost.recording():
+        return _cost.unit(name, (col_idx, values, x, w),
+                          (values.new_empty(m), values.new_empty(())),
+                          2 * m * k + 2 * m)
     if not on_cuda(name, col_idx, values, x, w):
         return spmv_dot_ell_plain(col_idx, values, x, w)
     check_geometry(name, block_threads, subgroup)

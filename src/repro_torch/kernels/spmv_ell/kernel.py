@@ -14,7 +14,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["spmv_ell", "spmv_ell_plain", "ROWS_WALK_MAX_K", "ROWS_WALK_THREADS"]
@@ -66,6 +66,9 @@ def spmv_ell(col_idx: torch.Tensor, values: torch.Tensor, x: torch.Tensor, *,
     ROWS_WALK_THREADS threads a block), a power of two above 1 with that
     many lanes."""
     check_ell("spmv_ell", col_idx, values, x)
+    if _cost.recording():
+        return _cost.unit("spmv_ell", (col_idx, values, x), values.new_empty(
+            values.shape[0]), 2 * values.numel())
     if not on_cuda("spmv_ell", col_idx, values, x):
         return spmv_ell_plain(col_idx, values, x)
     check_geometry("spmv_ell", block_threads, subgroup)

@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["spmv_sellp", "spmv_sellp_plain", "sellp_slice_of_column",
@@ -103,6 +103,9 @@ def spmv_sellp(col_idx: torch.Tensor, values: torch.Tensor,
     one thread per row (:func:`sellp_geometry`)."""
     name = "spmv_sellp"
     check_sellp(name, col_idx, values, slice_sets, x, m, slice_size)
+    if _cost.recording():
+        return _cost.unit(name, (col_idx, values, slice_sets, x),
+                          values.new_empty(m), 2 * values.numel())
     if not on_cuda(name, col_idx, values, slice_sets, x):
         return spmv_sellp_plain(col_idx, values, slice_sets, x, m, slice_size)
     require(32 <= block_threads <= 1024 and block_threads % 32 == 0, name,

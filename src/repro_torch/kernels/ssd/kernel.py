@@ -23,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _cost
 from repro_torch.kernels._check import on_cuda, require
 
 __all__ = ["ssd_scan", "ssd_scan_plain", "ssd_smem_bytes", "ssd_tensor_cores",
@@ -143,6 +143,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             f"one of {sorted(map(str, _ENTRY))}, all alike")
     require(dt.dtype == torch.float32 and A.dtype == torch.float32, name,
             f"dt and A must be float32, got {dt.dtype}, {A.dtype}")
+    if _cost.recording():
+        L = CHUNK
+        out = (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+               torch.empty((Bsz, H, N, P), dtype=torch.float32, device=x.device))
+        return _cost.unit(name, (x, dt, A, B_mat, C), out,
+                          2 * L * (L * N + L * P + 2 * N * P) * Bsz * H
+                          * -(-S // L))
     if not on_cuda(name, dt, A, strided=(x, B_mat, C)):
         return ssd_scan_plain(x, dt, A, B_mat, C)
     require(1 <= N <= MAX_DIM and 1 <= P <= MAX_DIM, name,

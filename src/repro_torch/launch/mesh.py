@@ -20,7 +20,8 @@ import contextvars
 import itertools
 from typing import Dict, Iterable, Mapping, Optional, Tuple, Union
 
-__all__ = ["Mesh", "make_mesh", "make_host_mesh", "use_mesh", "current_mesh"]
+__all__ = ["Mesh", "make_mesh", "make_host_mesh", "make_census_mesh",
+           "use_mesh", "current_mesh"]
 
 Names = Union[str, Iterable[str]]
 
@@ -119,6 +120,22 @@ def make_mesh(shape: Mapping[str, int]) -> Mesh:
                 if me in ranks:
                     groups[key] = g
     return Mesh(shape, rank=me, groups=groups)
+
+
+def make_census_mesh(shape: Mapping[str, int]) -> Mesh:
+    """Rank 0 of a mesh of ``shape`` with no world: every group along a set
+    of axes is a :class:`~repro_torch.distributed.comm.CensusGroup` of
+    their size, so a step run on it counts its collectives and moves
+    nothing (the dry run)."""
+    from repro_torch.distributed.comm import CensusGroup
+
+    mesh = Mesh(shape)
+    names = mesh.axis_names
+    groups = {}
+    for k in range(1, len(names) + 1):
+        for subset in itertools.combinations(names, k):
+            groups[tuple(sorted(subset))] = CensusGroup(mesh.axis_size(subset))
+    return Mesh(shape, groups=groups)
 
 
 def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:

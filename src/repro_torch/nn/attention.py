@@ -77,15 +77,18 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Hq, S, Dv)
 
 
-def _masked_scores(qf, ks, ki, scale, causal, chunk, kv_len):
-    """Chunk ``ki``'s scores (B, Hkv, g, S, chunk), -inf where masked."""
+def _masked_scores(qf, ks, ki, scale, causal, chunk, kv_len, first_pos=None):
+    """Chunk ``ki``'s scores (B, Hkv, g, S, chunk), -inf where masked; the
+    first row of ``qf`` sits at position ``first_pos`` (default kv_len - S)."""
     S = qf.shape[3]
     dev = qf.device
+    if first_pos is None:
+        first_pos = kv_len - S
     s = torch.einsum("bhgsd,bhtd->bhgst", qf, ks.to(torch.float32)) * scale
     kv_idx = ki * chunk + torch.arange(chunk, device=dev)
     mask = kv_idx[None, :] < kv_len
     if causal:
-        q_pos = torch.arange(S, device=dev) + (kv_len - S)
+        q_pos = torch.arange(S, device=dev) + first_pos
         mask = mask & (q_pos[:, None] >= kv_idx[None, :])
     return torch.where(mask, s, NEG_INF)
 
@@ -100,17 +103,28 @@ def _chunked_forward(q, k, v, scale, causal, chunk, kv_len):
     m = torch.full((B, Hkv, g, S, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, Hkv, g, S, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, Hkv, g, S, Dv), dtype=torch.float32, device=dev)
+    off = kv_len - S  # query row i sits at position i + off
     for ki in range(k.shape[2] // chunk):
+        # causal: the rows before r0 see none of this chunk, and for them
+        # the update is the identity (m kept; corr 1, or 0 on a zero l and
+        # acc), so they are left out: a causal prefill does half the work
+        r0 = min(S, max(0, ki * chunk - off)) if causal else 0
+        if r0 == S:
+            break
         ks = k[:, :, ki * chunk:(ki + 1) * chunk]
         vs = v[:, :, ki * chunk:(ki + 1) * chunk].to(torch.float32)
-        s = _masked_scores(qf, ks, ki, scale, causal, chunk, kv_len)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        s = _masked_scores(qf[:, :, :, r0:], ks, ki, scale, causal, chunk,
+                           kv_len, r0 + off)
+        mr = m[:, :, :, r0:]
+        m_new = torch.maximum(mr, s.amax(dim=-1, keepdim=True))
         m_safe = torch.where(m_new == NEG_INF, 0.0, m_new)
-        p = torch.where(s == NEG_INF, 0.0, torch.exp(s - m_safe))
-        corr = torch.where(m == NEG_INF, 0.0, torch.exp(m - m_safe))
-        l = corr * l + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + torch.einsum("bhgst,bhtd->bhgsd", p, vs)
-        m = m_new
+        # m_safe is finite, so a masked score's exp(-inf) is exactly 0
+        p = torch.exp(s - m_safe)
+        corr = torch.where(mr == NEG_INF, 0.0, torch.exp(mr - m_safe))
+        l[:, :, :, r0:] = corr * l[:, :, :, r0:] + p.sum(dim=-1, keepdim=True)
+        acc[:, :, :, r0:] = (acc[:, :, :, r0:] * corr
+                             + torch.einsum("bhgst,bhtd->bhgsd", p, vs))
+        m[:, :, :, r0:] = m_new
     l_safe = torch.where(l == 0.0, 1.0, l)
     out = (acc / l_safe).to(q.dtype)
     lse = torch.where(m == NEG_INF, NEG_INF, m + torch.log(l_safe))

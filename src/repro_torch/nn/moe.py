@@ -8,7 +8,11 @@ The port of ``repro/nn/moe.py``.  Three dispatch formulations, the same math:
   — the JAX package's ``jax.lax.ragged_dot`` grouped GEMMs, which are XLA
   ops, not Pallas kernels, so the port's grouped GEMM is plain PyTorch.
   The segment bounds (a ``searchsorted`` of the sorted ids) are read on
-  the host once a call.
+  the host once a call.  On ``meta`` tensors (the cost model and the dry
+  run, :mod:`repro_torch.launch.dryrun`) there are no ids to read: the rows
+  are split over the experts evenly (balanced routing), which gives the
+  grouped GEMM's operations for any routing (every row through one expert's
+  three products) and reads every expert's weights once.
 * ``dense``: every expert processes every token, combined with the routing
   weights — the oracle for the sort path;
 * ``ep`` (taken when ``cfg.moe_spec`` names the mesh axes): expert
@@ -102,10 +106,15 @@ def _segment_swiglu(xs, sorted_ids, gate, up, down) -> torch.Tensor:
     """The grouped GEMM: the rows of each expert's contiguous segment of
     ``xs`` (sorted by expert id) through its SwiGLU, joined in order."""
     E = gate.shape[0]
-    # the segment bounds, read on the host once a call (torch.bincount
-    # would read the ids' maximum first: a second host read)
-    experts = torch.arange(E + 1, device=sorted_ids.device)
-    bounds = torch.searchsorted(sorted_ids, experts).tolist()
+    if xs.device.type == "meta":
+        # no ids to read: equal segments (see the module docstring)
+        R = xs.shape[0]
+        bounds = [e * (R // E) + min(e, R % E) for e in range(E + 1)]
+    else:
+        # the segment bounds, read on the host once a call (torch.bincount
+        # would read the ids' maximum first: a second host read)
+        experts = torch.arange(E + 1, device=sorted_ids.device)
+        bounds = torch.searchsorted(sorted_ids, experts).tolist()
     pieces = []  # the experts' outputs in sorted order, joined once
     for e in range(E):
         start, end = bounds[e], bounds[e + 1]

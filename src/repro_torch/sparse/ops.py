@@ -137,9 +137,14 @@ def _spmv_csr_torch(ex, A: Csr, x):
 
 
 def _spmv_ell_plain(ex, A: Ell, x):
-    if x.ndim != 1:
-        raise NotImplementedError("ELL spmv takes one right-hand side")
-    return spmv_ell_plain(A.col_idx, A.values, x)
+    """One right-hand side, or X (n, r): the gather x[col_idx] (m, k, r)
+    contracted over k.  Each right-hand side's terms are laid out (r, m, k)
+    and summed over their last axis, as the 1-D call sums its (m, k) terms,
+    so every column of Y is the 1-D call's on that column of X."""
+    if x.ndim == 1:
+        return spmv_ell_plain(A.col_idx, A.values, x)
+    terms = x[A.col_idx].permute(2, 0, 1).contiguous()  # (r, m, k)
+    return (A.values * terms).sum(dim=-1).t().contiguous()
 
 
 spmv_ell.register("reference")(_spmv_ell_plain)
