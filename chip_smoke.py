@@ -24,6 +24,15 @@ Phases, each of which exits non-zero on failure:
             spmv_dot_ell, axpy_norm and axpy_norm_rows (256 x 1,024, rows
             in pieces) each one device kernel a call under torch.profiler,
             and 1,000 back-to-back calls of each bit for bit;
+            block_jacobi_apply at every (vector, storage) pair — f32 vectors
+            with f32, bf16 and fp16 blocks, f64 vectors with f64, bf16 and
+            fp16 blocks — within 2 bs eps of the vector's type, repeated
+            bit for bit, with its CUPTI µs and beside its first design (one
+            thread a row, kernels/block_jacobi/rowwise.cu, built in phase
+            2) where that design had the pair; so at every later path's
+            blocks (AMG, batched, serve, adaptive CGS); and held at block
+            sizes no path uses, 5 (the general route), 40 and 64 (the wide
+            route, a block's rows over several warps);
 4. path   — solves poisson_3d(128) (2,097,152 rows, ELL k = 7, f32) with
             block-Jacobi CG through the CUDA executor, checks convergence, the
             true residual and every kernel's launch count, and repeats the
@@ -137,9 +146,12 @@ Phases, each of which exits non-zero on failure:
             Pe 5, upwind) as ELL (1,048,576 rows, k = 5, f32) with
             block-Jacobi 8, fused BiCGSTAB (spmv_dot_ell twice an iteration,
             with w = r-hat and w = s, axpy_norm once) and CGS (in f64 with
-            f64 blocks: in f32 it diverges on this system), each converged
-            within Stop(3000, 1e-6) to a true residual of NONSYM_TRUE_TOL
-            and repeated bit for bit;
+            f64 blocks: in f32 it diverges on this system), and CGS in f64
+            with adaptive block-Jacobi (f64 vectors with fp16 / bf16
+            blocks; each reduced class held and timed at the path's blocks
+            first, launches pinned by storage), each converged within
+            Stop(3000, 1e-6) to a true residual of NONSYM_TRUE_TOL and
+            repeated bit for bit;
             GMRES(30) for at most 40 restart cycles (the residual falling
             cycle by cycle, the torch space's within 1e-3 at the same cycle
             count, device and wall ms a cycle); ParILU-preconditioned
@@ -671,12 +683,26 @@ def walk_occupancy_check(table: list) -> None:
 
 
 def phase_build() -> float:
-    from repro_torch.kernels import _build
+    import threading
+
+    from repro_torch.kernels import _build, block_jacobi_probe
 
     t0 = time.perf_counter()
-    _build.load()
+    # block_jacobi_apply's first design, built beside the library
+    first = {}
+    side = threading.Thread(target=lambda: first.update(
+        lib=block_jacobi_probe.build_rowwise()))
+    side.start()
+    try:
+        _build.load()
+    finally:
+        side.join()
+    if "lib" not in first:
+        fail("kernels/block_jacobi/rowwise.cu did not build")
+    _BJ_FIRST["rowwise"] = block_jacobi_probe.Rowwise()
     seconds = time.perf_counter() - t0
-    say(f"[build] {seconds:.2f} s -> {_build.last_build.get('path')}")
+    say(f"[build] {seconds:.2f} s -> {_build.last_build.get('path')} "
+        f"(and {first['lib']})")
     # registers and static shared memory of every kernel (the dynamic shared
     # memory of a launch is printed where the kernel is held)
     table = ptxas_table(str(_build.last_build.get("log", "")))
@@ -872,28 +898,80 @@ def one_pass_checks(torch, calls) -> None:
 
 def held_block_jacobi(torch, ex, inv, vp, where: str = "") -> dict:
     """Holds ``block_jacobi_apply(inv, vp)`` against its plain version —
-    within 2 bs eps of max_b,i sum_j |inv_bij v_bj| — with the launch
-    configuration the registry binding gives these blocks, and returns the
-    rest of its ``kernel_row`` arguments (the library call is ``torch.bmm``
-    on the blocks in f32)."""
+    within 2 bs eps of max_b,i sum_j |inv_bij v_bj|, eps of the vector's
+    type — and repeated bit for bit, with the launch configuration the
+    registry binding gives these blocks, and returns the rest of its
+    ``kernel_row`` arguments (the library call is ``torch.bmm`` on the
+    blocks in the vector's type)."""
     from repro_torch import kernels as K
 
-    eps = torch.finfo(torch.float32).eps
+    eps = torch.finfo(vp.dtype).eps
     nb, bs = vp.shape
-    bt = ex.launch_config("block_jacobi", {"nb": nb, "bs": bs})["block_threads"]
-    inv32 = inv.float()
-    yb = K.block_jacobi_apply(inv, vp, block_threads=bt)
+    geo = {"block_threads": ex.launch_config(
+        "block_jacobi", {"nb": nb, "bs": bs})["block_threads"]}
+    inv_v = inv.to(vp.dtype)
+    yb = K.block_jacobi_apply(inv, vp, **geo)
     yb_ref = K.block_jacobi_apply_plain(inv, vp)
     err = float((yb - yb_ref).abs().max())
-    sc = float(K.block_jacobi_apply_plain(inv32.abs(), vp.abs()).max())
-    check(f"block_jacobi_apply[{inv.dtype}]{where}", err, 2 * bs * eps * sc)
+    sc = float(K.block_jacobi_apply_plain(inv_v.abs(), vp.abs()).max())
+    pair = (f"{str(vp.dtype).removeprefix('torch.')} vector, "
+            f"{str(inv.dtype).removeprefix('torch.')} blocks")
+    check(f"block_jacobi_apply[{pair}]{where} ({nb} x {bs})", err,
+          2 * bs * eps * sc)
+    if not torch.equal(K.block_jacobi_apply(inv, vp, **geo), yb):
+        fail(f"block_jacobi_apply[{pair}]{where}: a repeat differs")
     vcol = vp[:, :, None]
     return dict(err=err,
-                kernel_fn=lambda: K.block_jacobi_apply(inv, vp, block_threads=bt),
+                kernel_fn=lambda: K.block_jacobi_apply(inv, vp, **geo),
                 plain_fn=lambda: K.block_jacobi_apply_plain(inv, vp),
-                nbytes=nb * bs * bs * inv.element_size() + 2 * nb * bs * 4,
+                nbytes=(nb * bs * bs * inv.element_size()
+                        + 2 * nb * bs * vp.element_size()),
                 flops=2 * nb * bs * bs,
-                library_fn=lambda: torch.bmm(inv32, vcol))
+                library_fn=lambda: torch.bmm(inv_v, vcol))
+
+
+#: the first design of block_jacobi_apply (one thread a row), built from
+#: kernels/block_jacobi/rowwise.cu beside the library in phase 2
+_BJ_FIRST = {}
+
+
+def bj_row(torch, flush, copy_bw, ex, inv, vp, where: str = "") -> dict:
+    """``block_jacobi_apply`` held (``held_block_jacobi``) and timed, with
+    its CUPTI µs; beside it the first design's time (events and CUPTI) where
+    that design had the pair, and for reduced storage the library's cast
+    and product timed together."""
+    from repro_torch.kernels.block_jacobi_probe import hold, kernel_us
+
+    entry = kernel_row(torch, flush, copy_bw, "block_jacobi_apply",
+                       "block_jacobi.cu",
+                       "src/repro/kernels/block_jacobi/kernel.py:36",
+                       **held_block_jacobi(torch, ex, inv, vp, where),
+                       cupti=True)
+    nb, bs = vp.shape
+    entry.update(vector=str(vp.dtype).removeprefix("torch."),
+                 storage=str(inv.dtype).removeprefix("torch."),
+                 shape={"blocks": nb, "bs": bs})
+    first = _BJ_FIRST["rowwise"](inv, vp)
+    if first is None:
+        entry["first_design"] = "refused: it had no entry for this pair"
+        told = "first design refused the pair"
+    else:
+        hold(f"first design{where}", first(), inv, vp)
+        entry["first_design_ms"] = device_ms(torch, first, flush)
+        entry["first_design_us"] = kernel_us(first, flush)
+        told = (f"first design {entry['first_design_ms']:.4f} ms, "
+                f"{entry['first_design_us']} us")
+    if inv.dtype != vp.dtype:
+        vcol = vp[:, :, None]
+        entry["library_with_cast_ms"] = device_ms(
+            torch, lambda: torch.bmm(inv.to(vp.dtype), vcol), flush)
+        told += f"; cast and bmm {entry['library_with_cast_ms']:.4f} ms"
+    say(f"[kernels] block_jacobi_apply{where} ({entry['vector']} vector, "
+        f"{entry['storage']} blocks, {nb} x {bs}): "
+        f"{entry['kernel_us']} us CUPTI against a "
+        f"{entry['bound_ms'] * 1e3:.2f} us bound; {told}; bmm "
+        f"{entry['library_ms']:.4f} ms")
+    return entry
 
 
 def held_batch_ell(torch, ex, col_idx, values, X, where: str = "",
@@ -1131,22 +1209,32 @@ def phase_kernels(torch, A, A_host, P, ex, copy_bw) -> dict:
         "axpy_norm_rows (pieces)": lambda: K.axpy_norm_rows(ar, Xr, Yr, **geo_r),
     })
 
-    # block_jacobi_apply — every storage dtype at the main path's block count
+    # block_jacobi_apply — every (vector, storage) pair at the main path's
+    # block count: f32 vectors with f32, bf16 and fp16 blocks, f64 vectors
+    # with f64, bf16 and fp16 blocks
     nb, bs = P.num_blocks, P.block_size
-    vp = torch.randn(nb, bs, generator=gen, device="cuda")
-    base = torch.cat([t.float() for t in P.inv_blocks])  # main-path blocks, f32
+    base = torch.cat([t.double() for t in P.inv_blocks])  # main-path blocks
     variants = []
     main_dtype = P.inv_blocks[0].dtype
-    for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        variants.append(row(
-            "block_jacobi_apply", "block_jacobi.cu",
-            "src/repro/kernels/block_jacobi/kernel.py:36",
-            **held_block_jacobi(torch, ex, base.to(dtype), vp)))
-        variants[-1]["storage"] = str(dtype).removeprefix("torch.")
-    entry = dict(next(v for v in variants if v["storage"] ==
-                      str(main_dtype).removeprefix("torch.")))
+    for vec in (torch.float32, torch.float64):
+        vp = torch.randn(nb, bs, generator=gen, device="cuda", dtype=vec)
+        for dtype in (vec, torch.bfloat16, torch.float16):
+            variants.append(bj_row(torch, flush, copy_bw, ex,
+                                   base.to(vec).to(dtype), vp))
+    entry = dict(next(v for v in variants if v["vector"] == "float32" and
+                      v["storage"] == str(main_dtype).removeprefix("torch.")))
     entry["storage_variants"] = variants
     out["block_jacobi_apply"] = entry
+    # block sizes no path uses, held but not timed: 5 (the general route),
+    # 40 and 64 (the wide route: a block's rows over several warps)
+    for bs_x in (5, 40, 64):
+        for vec, dtype in ((torch.float32, torch.float32),
+                           (torch.float64, torch.float16)):
+            inv_x = torch.randn(4096, bs_x, bs_x, generator=gen, device="cuda",
+                                dtype=torch.float64).to(dtype)
+            vp_x = torch.randn(4096, bs_x, generator=gen, device="cuda",
+                               dtype=vec)
+            held_block_jacobi(torch, ex, inv_x, vp_x, " (no path's block size)")
     return out
 
 
@@ -1456,12 +1544,16 @@ def phase_fcg(torch, A, b):
                                   "torch_space_iterations": res_t.iterations}
 
 
-def _nonsym_solve(torch, tag, A, b, run, run_torch, want, iter_rel):
+def _nonsym_solve(torch, tag, A, b, run, run_torch, want, iter_rel,
+                  history_hold=None):
     """One counted solve of phase 10 in the cuda space: converged, a true
     residual of at most NONSYM_TRUE_TOL, the launches ``want(k)`` exactly, a
     repeat bit for bit; then the torch space on the card: converged,
     iterations within ``iter_rel`` of the cuda space's, x within 1e-3
-    (relative)."""
+    (relative).  With ``history_hold = (n, rtol)`` (both runs made with
+    ``history=True``) the two spaces' residual norms also agree within
+    ``rtol`` (relative) at each of the first n iterations; the first
+    iteration where they part by more than 1e-3 is printed."""
     res, wall, launches, by_storage, _ = counted(torch, run)
     k = res.iterations
     rel = true_residual(torch, A, res.x, b)
@@ -1484,16 +1576,36 @@ def _nonsym_solve(torch, tag, A, b, run, run_torch, want, iter_rel):
     if (not res_t.converged or abs(res_t.iterations - k) > iter_rel * k
             or not dx <= 1e-3):
         fail(f"{tag}: the torch space disagrees with the cuda space")
-    return launches, by_storage, {
+    summary = {
         "iterations": k, "true_relative_residual": rel, "wall_s": wall,
         "ms_per_iteration": wall / k * 1e3,
         "torch_space_iterations": res_t.iterations, "torch_space_wall_s": wall_t,
         "torch_space_true_relative_residual": rel_t, "relative_difference": dx}
+    if history_hold is not None:
+        n_h, rtol_h = history_hold
+        both = min(k, res_t.iterations)
+        d = ((res.history[:both] - res_t.history[:both]).abs()
+             / res_t.history[:both].abs())
+        worst = float(d[:n_h].max())
+        far = torch.nonzero(d > 1e-3)
+        parted = int(far[0, 0]) if far.numel() else None
+        say(f"[krylov] {tag}: residual norms of the two spaces within "
+            f"{worst:.3e} (relative) over the first {min(n_h, both)} "
+            f"iterations; first parted by 1e-3 at iteration {parted}")
+        if not worst <= rtol_h:
+            fail(f"{tag}: the spaces' residual norms part by {worst:.3e} within "
+                 f"the first {n_h} iterations, past {rtol_h}")
+        summary.update(history_max_relative_difference=worst,
+                       history_held_iterations=min(n_h, both),
+                       history_parted_at=parted)
+    return launches, by_storage, summary
 
 
-def phase_krylov(torch):
+def phase_krylov(torch, copy_bw):
     """Phase 10: the nonsymmetric solvers, ParILU and mixed-precision IR at
-    sizes users solve (see the module docstring)."""
+    sizes users solve (see the module docstring).  Returns the counted
+    paths, the summary and block_jacobi_apply held at the adaptive CGS's
+    reduced classes."""
     import numpy as np
 
     from repro_torch.core import make_executor
@@ -1544,7 +1656,56 @@ def phase_krylov(torch):
         lambda k: {"spmv_ell": 1 + 2 * k,
                    "block_jacobi_apply": 2 * k * classes64}, 0.25)
     out["cgs"] = paths["cgs"][2]
-    del A64, b64, P64
+
+    # the same CGS with adaptive block-Jacobi: f64 vectors with bf16 / fp16
+    # blocks (ROADMAP C13: the port refused the pair).  Each reduced class
+    # is held and timed at this path's blocks first; the solve's launches
+    # are kept as "float64/<storage>", apart from the f32 vectors' reduced
+    # classes.  Iterations are held as the other runs', and the two spaces'
+    # residual norms within 1e-5 over the first 300 iterations, where they
+    # still agree: past them CGS parts the spaces by a few per cent of its
+    # iterations on these blocks (PERF.md §6; the iteration they part at is
+    # printed).
+    t0 = time.perf_counter()
+    P64a = block_jacobi(A64, PRECOND_OPTS["block_size"], adaptive=True,
+                        executor=ex)
+    torch.cuda.synchronize()
+    classes64a = len(P64a.inv_blocks)
+    reduced = [t for t in P64a.inv_blocks if t.dtype != torch.float64]
+    say(f"[krylov] CGS (f64, adaptive): block-Jacobi {P64a.precision_counts}, "
+        f"{P64a.storage_bytes} bytes (f64 blocks: {P64.storage_bytes}); setup "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not reduced:
+        fail("CGS (f64, adaptive): no block took reduced storage")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    held = {"block_jacobi_apply": [bj_row(
+        torch, flush, copy_bw, ex, t,
+        torch.randn(t.shape[0], t.shape[1], generator=gen, device="cuda",
+                    dtype=torch.float64), " (adaptive CGS path)")
+        for t in reduced]}
+    launches_a, storage_a, out["cgs_adaptive"] = _nonsym_solve(
+        torch, "CGS (f64, adaptive)", A64, b64,
+        lambda: cgs(A64, b64, M=P64a, stop=stop, executor=ex, history=True),
+        lambda: cgs(A64, b64, M=P64a, stop=stop, executor=ex_t, history=True),
+        lambda k: {"spmv_ell": 1 + 2 * k,
+                   "block_jacobi_apply": 2 * k * classes64a}, 0.25,
+        history_hold=(300, 1e-5))
+    k_a = out["cgs_adaptive"]["iterations"]
+    want = {str(t.dtype).removeprefix("torch."): 2 * k_a
+            for t in P64a.inv_blocks}
+    if storage_a != want:
+        fail(f"CGS (f64, adaptive): block_jacobi_apply by storage {storage_a}, "
+             f"expected {want}")
+    paths["cgs_adaptive"] = (launches_a, {
+        (d if d == "float64" else f"float64/{d}"): c
+        for d, c in storage_a.items()}, None)
+    out["cgs_adaptive"].update(precision_counts=P64a.precision_counts,
+                               launches_by_storage=storage_a,
+                               seconds=time.perf_counter() - t0)
+    say(f"[krylov] CGS (f64, adaptive): {out['cgs_adaptive']['seconds']:.1f} s "
+        "with its held kernels")
+    del A64, b64, P64, P64a, flush
 
     # GMRES(30): each cycle one SpMV for its residual, m in the Arnoldi
     # steps and one for the new residual, m + 1 preconditioner applies;
@@ -1658,7 +1819,7 @@ def phase_krylov(torch):
                        "true_relative_residual": rel,
                        "pure_f32_true_relative_residual": rel32,
                        "wall_s": wall, "spmv_ell_by_dtype": by_dtype}
-    return {name: (p[0], p[1]) for name, p in paths.items()}, out
+    return {name: (p[0], p[1]) for name, p in paths.items()}, out, held
 
 
 class SpanTotals:
@@ -1954,12 +2115,8 @@ def phase_amg(torch, copy_bw):
     bs = r.M_bj.block_size
     for inv in r.M_bj.inv_blocks:
         vp = torch.randn(inv.shape[0], bs, generator=gen, device="cuda")
-        held["block_jacobi_apply"].append(row(
-            "block_jacobi_apply", "block_jacobi.cu",
-            "src/repro/kernels/block_jacobi/kernel.py:36",
-            **held_block_jacobi(torch, ex, inv, vp, " (AMG path)")))
-        held["block_jacobi_apply"][-1]["storage"] = \
-            str(inv.dtype).removeprefix("torch.")
+        held["block_jacobi_apply"].append(bj_row(
+            torch, flush, copy_bw, ex, inv, vp, " (AMG path)"))
 
     # the two kernels at level 0's shapes: R.(AP) and P^T
     L0 = M.levels[0]
@@ -2456,12 +2613,8 @@ def phase_batch(torch, copy_bw):
     # block_jacobi_apply at the block-Jacobi run's blocks (f32, 8 x 8)
     inv = Mbj.inv_blocks[0]
     vp = torch.randn(inv.shape[0], inv.shape[1], generator=gen, device="cuda")
-    held = {"block_jacobi_apply": [row(
-        "block_jacobi_apply", "block_jacobi.cu",
-        "src/repro/kernels/block_jacobi/kernel.py:36",
-        **held_block_jacobi(torch, ex, inv, vp, " (batch path)"))]}
-    held["block_jacobi_apply"][-1]["storage"] = \
-        str(inv.dtype).removeprefix("torch.")
+    held = {"block_jacobi_apply": [bj_row(torch, flush, copy_bw, ex, inv, vp,
+                                          " (batch path)")]}
     return dict(launches_total), dict(storage_total), summary, rows, held
 
 
@@ -3806,13 +3959,8 @@ def phase_serve(torch, card: str, copy_bw: float):
         "axpy_norm_rows", "axpy_norm.cu", "src/repro/kernels/axpy_norm/kernel.py:39",
         **held_axpy_norm_rows(torch, ex, X, Y, gen, " (serve)"))]
     held["axpy_norm_rows"][-1]["shape"] = {"nb": S, "n": n}
-    held["block_jacobi_apply"] = [row(
-        "block_jacobi_apply", "block_jacobi.cu",
-        "src/repro/kernels/block_jacobi/kernel.py:36",
-        **held_block_jacobi(torch, ex, inv, vp, " (serve)"))]
-    held["block_jacobi_apply"][-1]["storage"] = "float32"
-    held["block_jacobi_apply"][-1]["shape"] = {"blocks": inv.shape[0],
-                                               "bs": inv.shape[1]}
+    held["block_jacobi_apply"] = [bj_row(torch, flush, copy_bw, ex, inv, vp,
+                                         " (serve)")]
     _nan_rows_check(torch, ex, col_idx, vals, X, Y, inv, vp, gen)
     summary["phase_s"] = time.perf_counter() - t_phase
     say(f"[serve] ({card}) phase 11: {summary['phase_s']:.1f} s")
@@ -5920,7 +6068,7 @@ def main() -> None:
     rows.update(lm_rows)
     rwkv_launches, path["rwkv6_serve"], rwkv_rows = phase_rwkv(torch, copy_bw)
     rows.update(rwkv_rows)
-    krylov_paths, path["krylov"] = phase_krylov(torch)
+    krylov_paths, path["krylov"], held_cgs = phase_krylov(torch, copy_bw)
     serve_paths, path["solve_serve"], held_serve = phase_serve(torch, card,
                                                                copy_bw)
     dist_paths, path["distributed"] = phase_dist(
@@ -5958,11 +6106,13 @@ def main() -> None:
     # error (for block_jacobi_apply, in the variant of its storage)
     for key, held in (("at_amg_path_shape", held_amg),
                       ("at_batch_path_shape", held_batch),
-                      ("at_serve_path_shape", held_serve)):
+                      ("at_serve_path_shape", held_serve),
+                      ("at_adaptive_cgs_path_shape", held_cgs)):
         for name, extra in held.items():
             for e in extra:
                 targets = [v for v in rows[name].get("storage_variants", ())
-                           if v["storage"] == e.get("storage")] or [rows[name]]
+                           if v["storage"] == e.get("storage")
+                           and v.get("vector") == e.get("vector")] or [rows[name]]
                 for t in targets:
                     t[key] = e
                     t["max_abs_err"] = max(t["max_abs_err"], e["max_abs_err"])
@@ -5978,8 +6128,12 @@ def main() -> None:
                                      for p, (counts, _) in paths.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
         for var in entry.get("storage_variants", ()):
+            # f64 vectors' reduced classes are counted as "float64/<storage>"
+            counted_as = (var["storage"] if var["vector"] == "float32"
+                          or var["storage"] == "float64"
+                          else f"float64/{var['storage']}")
             var["launches_by_path"] = {
-                p: storage.get(var["storage"], 0)
+                p: storage.get(counted_as, 0)
                 for p, (_, storage) in paths.items()}
             var["launches"] = sum(var["launches_by_path"].values())
     for name, entry in rows.items():

@@ -1,7 +1,7 @@
 """repro_torch.core — hardware tables, registry, tuning, executors, LinOps,
 cooperative groups."""
 
-from repro_torch.core import coop
+from repro_torch.core import coop, tuning
 
 from repro_torch.core.executor import (
     CudaExecutor,
@@ -26,17 +26,27 @@ from repro_torch.core.linop import (
     Transpose,
     as_linop,
 )
-from repro_torch.core.params import H100, HardwareParams, TARGETS, get_target
+from repro_torch.core.params import (
+    CPU_REFERENCE,
+    H100,
+    HardwareParams,
+    TARGETS,
+    get_target,
+)
 from repro_torch.core.registry import (
     NotCompiledError,
+    Operation,
     all_operations,
+    instantiate_common,
     operation,
     register,
     registered_spaces,
 )
+from repro_torch.core.tuning import LaunchConfig, TuningSpec
 
 __all__ = [
     "coop",
+    "tuning",
     "CudaExecutor",
     "Executor",
     "ReferenceExecutor",
@@ -57,12 +67,17 @@ __all__ = [
     "Transpose",
     "as_linop",
     "H100",
+    "CPU_REFERENCE",
     "HardwareParams",
     "TARGETS",
     "get_target",
     "NotCompiledError",
+    "Operation",
     "all_operations",
+    "instantiate_common",
     "operation",
     "register",
     "registered_spaces",
+    "LaunchConfig",
+    "TuningSpec",
 ]

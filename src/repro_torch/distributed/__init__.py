@@ -12,7 +12,7 @@ process group, its collectives and the world runner;
 :mod:`~repro_torch.distributed.sharding` the padded-shard masking.
 """
 
-from repro_torch.distributed import comm, sharding
+from repro_torch.distributed import collective_matmul, comm, sharding
 from repro_torch.distributed.matrix import (
     DistCsr,
     DistEll,
@@ -39,6 +39,7 @@ from repro_torch.distributed.vector import (
 )
 
 __all__ = [
+    "collective_matmul",
     "comm",
     "sharding",
     "Partition",

@@ -5,8 +5,10 @@ PyTorch version.
 launch in ``block_jacobi_apply.launches`` and, under the storage dtype's name
 (``"float16"``, ...), in ``block_jacobi_apply.launches_by_storage``; for CPU
 tensors it returns the plain version.  Blocks may be stored in a reduced
-precision (bf16/fp16 for f32 vectors) and are up-cast to the vector's dtype
-inside the kernel.
+precision — bf16 or fp16 for f32 and for f64 vectors, the classes the
+adaptive selection makes — and are up-cast to the vector's dtype inside the
+kernel, which sums in that dtype.  No path of either package applies
+block-Jacobi to a 16-bit vector, so the wrapper refuses one.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ _ENTRY = {
     (torch.float32, torch.bfloat16): "repro_block_jacobi_f32_bf16",
     (torch.float32, torch.float16): "repro_block_jacobi_f32_f16",
     (torch.float64, torch.float64): "repro_block_jacobi_f64_f64",
+    (torch.float64, torch.bfloat16): "repro_block_jacobi_f64_bf16",
+    (torch.float64, torch.float16): "repro_block_jacobi_f64_f16",
 }
 _ARGS = (_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P)
 
@@ -40,7 +44,8 @@ def block_jacobi_apply_plain(inv_blocks: torch.Tensor,
 def block_jacobi_apply(inv_blocks: torch.Tensor, vp: torch.Tensor, *,
                        block_threads: int = 256) -> torch.Tensor:
     """y[b] = inv_blocks[b] @ vp[b] for ``(nb, bs, bs)`` blocks, ``(nb, bs)``
-    segments."""
+    segments; on the card a warp a tile of whole blocks (of 32 rows of one
+    block where bs is above 32), ``block_threads`` threads a block."""
     name = "block_jacobi_apply"
     require((vp.dtype, inv_blocks.dtype) in _ENTRY, name,
             f"vector {vp.dtype} with storage {inv_blocks.dtype} not supported")

@@ -1,1 +1,3 @@
 """repro_torch.models — the language models (the port of ``repro.models``)."""
+
+__all__ = ["lm"]

@@ -7,9 +7,11 @@ builds mixed-precision iterative refinement on that interface.
 """
 
 from repro_torch.solvers.common import (
+    LinearOperator,
     ScalarJacobi,
     SolveResult,
     Stop,
+    block_jacobi_preconditioner,
     ensure_symmetric,
     identity_preconditioner,
     jacobi_preconditioner,
@@ -38,12 +40,14 @@ from repro_torch.solvers.parilu import (
 )
 
 __all__ = [
+    "LinearOperator",
     "ScalarJacobi",
     "SolveResult",
     "Stop",
     "ensure_symmetric",
     "identity_preconditioner",
     "jacobi_preconditioner",
+    "block_jacobi_preconditioner",
     "probe_symmetry",
     "cg",
     "fcg",

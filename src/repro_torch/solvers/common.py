@@ -9,24 +9,63 @@ so one solver source serves every executor.  Scalars of the iteration stay
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import registry
-from repro_torch.core.linop import Identity, LinOp
+from repro_torch.core.linop import Identity, LinOp, as_linop
 from repro_torch.sparse.formats import Coo, Csr, Dense, Ell, Sellp, csr_host_arrays
 
 __all__ = [
+    "LinearOperator",
     "SolveResult",
     "Stop",
     "ScalarJacobi",
     "probe_symmetry",
     "ensure_symmetric",
     "jacobi_preconditioner",
+    "block_jacobi_preconditioner",
     "identity_preconditioner",
 ]
+
+
+class LinearOperator(LinOp):
+    """Deprecated back-compat shim — use the operand directly, or
+    :func:`repro_torch.core.linop.as_linop`.
+
+    Formats, preconditioners and solver factories are LinOps themselves;
+    wrapping one adds nothing.  The class delegates to ``as_linop`` so call
+    sites written against the JAX package's shim keep its behaviour (a
+    format applies through its registry-dispatched SpMV, a callable as a
+    matrix-free operator).
+    """
+
+    def __init__(self, A, executor=None):
+        warnings.warn(
+            "repro_torch.solvers.common.LinearOperator is deprecated: formats, "
+            "preconditioners and solvers are LinOps — pass them directly "
+            "(or use repro_torch.core.linop.as_linop for bare callables)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        self.A = A
+        self.op = as_linop(A)
+        self.executor = executor
+
+    @property
+    def shape(self):
+        return getattr(self.op, "shape", None)
+
+    @property
+    def dtype(self):
+        return getattr(self.op, "dtype", None)
+
+    def _apply(self, x: torch.Tensor, executor) -> torch.Tensor:
+        ex = executor if executor is not None else self.executor
+        return self.op.apply(x, executor=ex)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,6 +186,28 @@ def jacobi_preconditioner(A, executor=None, *,
         inv = inv.to(getattr(torch, adaptive) if isinstance(adaptive, str)
                      else adaptive)
     return ScalarJacobi(inv)
+
+
+def block_jacobi_preconditioner(A, block_size: Optional[int] = None,
+                                executor=None, *, blocks=None,
+                                adaptive: Union[bool, str, torch.dtype] = False,
+                                tau: Optional[float] = None):
+    """Block-Jacobi (gko::preconditioner::Jacobi with block size > 1):
+    M^{-1} = blockdiag(A_11^{-1}, A_22^{-1}, ...).
+
+    Delegates to :func:`repro_torch.precond.block_jacobi`: host-side block
+    discovery (``blocks`` pins explicit pointers, e.g. from
+    :func:`repro_torch.precond.natural_blocks`), extraction, batched
+    Gauss-Jordan inversion and the executor-dispatched apply.
+    ``block_size=None`` takes the executor's subgroup width from the
+    hardware table; ``adaptive`` selects per-block storage precision.  The
+    result is callable and reports ``storage_bytes`` / ``precision_counts``.
+    """
+    from repro_torch.precond import block_jacobi
+
+    return block_jacobi(A, block_size, blocks=blocks, adaptive=adaptive,
+                        executor=executor,
+                        **({} if tau is None else {"tau": tau}))
 
 
 #: the identity preconditioner — a LinOp with ``storage_bytes == 0``

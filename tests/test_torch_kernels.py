@@ -100,23 +100,119 @@ def test_axpy_norm_matches_pallas(n):
     _close(ss, ss_j, float(np.asarray(ss_j)))
 
 
-@pytest.mark.parametrize("storage", ["float32", "bfloat16", "float16"])
-@pytest.mark.parametrize("nb", [13, 8])
-def test_block_jacobi_apply_matches_pallas(storage, nb):
-    bs = 8
-    rng = np.random.default_rng(nb)
-    inv = rng.standard_normal((nb, bs, bs)).astype(np.float32)
-    vp = rng.standard_normal((nb, bs)).astype(np.float32)
+@pytest.fixture
+def x64():
+    """``jax_enable_x64`` on for one test and restored after it (the JAX
+    package's f64 arrays; ``jax.experimental.enable_x64`` is gone)."""
+    import jax
+
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", prev)
+
+
+#: every (vector, storage) pair the adaptive selection makes for the float
+#: types the solvers take: the vector's own type, bf16 and fp16
+BJ_PAIRS = [(vec, storage) for vec in ("float32", "float64")
+            for storage in (vec, "bfloat16", "float16")]
+
+
+@pytest.mark.parametrize("bs", [4, 8, 5, 40])
+@pytest.mark.parametrize("vec,storage", BJ_PAIRS)
+def test_block_jacobi_apply_matches_pallas(vec, storage, bs, x64):
+    """Each pair at the kernel's two packed block sizes, a general one and
+    one above a warp (the CUDA kernel's wide route); 13 blocks fill no tile
+    (the Pallas tile of 8 blocks, the CUDA warp's 4 or 8).  f64 vectors with bf16/fp16 blocks are the adaptive
+    block-Jacobi of an f64 system (ROADMAP C13)."""
+    nb = 13
+    rng = np.random.default_rng(nb * bs)
+    inv = rng.standard_normal((nb, bs, bs))
+    vp = rng.standard_normal((nb, bs)).astype(vec)
     inv_j = jnp.asarray(inv).astype(storage)
     want = jax_bj(inv_j, jnp.asarray(vp), block_nb=8, interpret=True)
+    assert want.dtype == jnp.dtype(vec)
     # the storage array crosses over as numpy (ml_dtypes for bfloat16)
     inv_t = convert.tensor(np.asarray(inv_j), device="cpu")
     assert inv_t.dtype == getattr(torch, storage)
     got = K.block_jacobi_apply(inv_t, torch.from_numpy(vp))
-    assert got.dtype == torch.float32 and got.shape == (nb, bs)
-    scale = float(np.abs(np.asarray(inv_j, np.float32)).sum(2).max()
+    assert got.dtype == getattr(torch, vec) and got.shape == (nb, bs)
+    scale = float(np.abs(np.asarray(inv_j, np.float64)).sum(2).max()
                   * np.abs(vp).max())
-    _close(got, want, scale)
+    # f32: sums in another order (RTOL); f64: 4 bs eps of the sum of terms
+    tol = RTOL if vec == "float32" else 4 * bs * np.finfo(np.float64).eps
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol * scale)
+
+
+@pytest.mark.parametrize("vec,storage", [
+    ("float16", "float16"), ("float16", "bfloat16"),
+    ("bfloat16", "bfloat16"), ("bfloat16", "float16")])
+def test_block_jacobi_apply_refuses_16_bit_vectors(vec, storage):
+    """No path of either package applies block-Jacobi to a 16-bit vector (a
+    solve in bf16 or fp16): the wrapper names such a pair and refuses it."""
+    with pytest.raises(ValueError, match=f"vector torch.{vec} with storage "
+                       f"torch.{storage} not supported"):
+        K.block_jacobi_apply(torch.zeros(2, 4, 4, dtype=getattr(torch, storage)),
+                             torch.zeros(2, 4, dtype=getattr(torch, vec)))
+
+
+def test_adaptive_f64_block_jacobi_classes_and_apply(x64):
+    """The adaptive block-Jacobi of an f64 system: the port picks the JAX
+    package's storage class for every block (f64, bf16 and fp16 all occur)
+    and stores the same inverted blocks (the reduced classes bit for bit,
+    the f64 class within 8 eps of its largest entry: the two inversions
+    round differently), and the wrapper on the port's blocks with f64
+    vectors equals the Pallas kernel on the JAX package's in interpret
+    mode."""
+    from repro import sparse as jsparse
+    from repro.precond import block_jacobi as jax_block_jacobi
+    from repro_torch.precond import block_jacobi
+    from repro_torch.sparse import formats as F
+
+    # blocks of 8: well conditioned (fp16), tiny with a huge inverse (bf16),
+    # stretched to a condition number past both (f64); a weak coupling
+    rng = np.random.default_rng(8)
+    a = np.zeros((60, 60))
+    for bi, s in enumerate(range(0, 60, 8)):
+        w = min(8, 60 - s)
+        blk = rng.normal(size=(w, w))
+        blk = blk @ blk.T / w + 4 * np.eye(w)
+        if bi % 3 == 1:
+            blk = 1e-6 * np.eye(w)
+        elif bi % 3 == 2:
+            scale = np.linspace(1.0, 1e4, w)
+            blk = blk * np.sqrt(scale[:, None] * scale[None, :])
+        a[s:s + w, s:s + w] = blk
+    for i in range(52):
+        a[i, i + 8] = a[i + 8, i] = 0.01
+    Pj = jax_block_jacobi(jsparse.ell_from_dense(a), 8, adaptive=True)
+    Pt = block_jacobi(F.ell_from_dense(a, device="cpu"), 8, adaptive=True)
+    assert Pt.precision_counts == Pj.precision_counts
+    assert [d for d, _ in Pt.precision_counts] == ["float64", "bfloat16",
+                                                   "float16"]
+    # the same blocks in the same class order
+    np.testing.assert_array_equal(Pt.gather_idx.numpy(), np.asarray(Pj.gather_idx))
+    rng = np.random.default_rng(5)
+    for tj, tt in zip(Pj.inv_blocks, Pt.inv_blocks):
+        assert str(tt.dtype) == f"torch.{tj.dtype}"
+        inv_j = np.asarray(tj).astype(np.float64)
+        inv_t = tt.double().numpy()
+        if tt.dtype == torch.float64:
+            np.testing.assert_allclose(
+                inv_t, inv_j, rtol=0,
+                atol=8 * np.finfo(np.float64).eps * np.abs(inv_j).max())
+        else:
+            np.testing.assert_array_equal(inv_t, inv_j)
+        vp = rng.standard_normal(tj.shape[:2])
+        want = np.asarray(jax_bj(tj, jnp.asarray(vp), block_nb=8,
+                                 interpret=True))
+        got = K.block_jacobi_apply(tt, torch.from_numpy(vp))
+        assert got.dtype == torch.float64
+        scale = float(np.abs(np.asarray(tj, np.float64)).sum(2).max()
+                      * np.abs(vp).max())
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=4 * 8 * np.finfo(np.float64).eps * scale)
 
 
 @pytest.mark.parametrize("space", ["reference", "torch"])
@@ -150,7 +246,7 @@ def test_wrappers_check_their_arguments():
         K.spmv_ell(c, v, xt.to("meta"))
     with pytest.raises(ValueError, match="not supported"):
         K.block_jacobi_apply(torch.zeros(2, 4, 4, dtype=torch.float16),
-                             torch.zeros(2, 4, dtype=torch.float64))
+                             torch.zeros(2, 4, dtype=torch.float16))
 
 
 def test_tuning_geometry_for_h100():

@@ -56,6 +56,66 @@ def test_sparse_top_level_names(name):
     assert name in sparse.__all__ and name in jax_sparse.__all__
 
 
+#: every package of the JAX package with an ``__all__``, and the names of
+#: it the port leaves out on purpose: the TPU's Pallas and XLA executors
+#: and the hardware tables of targets the port does not run on
+ALL_LEFT_OUT = {
+    "batch": set(), "checkpoint": set(), "configs": set(),
+    "core": {"PallasTpuExecutor", "PallasInterpretExecutor", "XlaExecutor",
+             "TPU_V4", "TPU_V5E", "CPU_INTERPRET", "CPU_XLA"},
+    "data": set(), "distributed": set(), "kernels": set(),
+    "models": set(), "nn": set(), "observability": set(), "optim": set(),
+    "precond": set(), "runtime": set(), "serve": set(), "solvers": set(),
+    "sparse": set(),
+}
+
+
+@pytest.mark.parametrize("pkg", sorted(ALL_LEFT_OUT))
+def test_public_names_match_the_jax_package(pkg):
+    """Each package's ``__all__`` holds its JAX counterpart's names, but for
+    those left out on purpose, and every name it lists resolves."""
+    import importlib
+
+    jax_mod = importlib.import_module(f"repro.{pkg}")
+    mod = importlib.import_module(f"repro_torch.{pkg}")
+    names = set(getattr(mod, "__all__", ()))
+    left_out = ALL_LEFT_OUT[pkg]
+    assert set(jax_mod.__all__) - names == left_out
+    assert not left_out & names
+    for name in names:
+        assert hasattr(mod, name) or importlib.util.find_spec(
+            f"{mod.__name__}.{name}") is not None, name
+
+
+def test_block_jacobi_preconditioner_and_linear_operator_shim():
+    """``block_jacobi_preconditioner`` takes the executor's subgroup width
+    when ``block_size`` is None and reports storage; the deprecated
+    ``LinearOperator`` warns and applies its operand."""
+    import numpy as np
+
+    from repro_torch import sparse
+    from repro_torch.core import make_executor
+    from repro_torch.solvers import (LinearOperator,
+                                     block_jacobi_preconditioner)
+
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=(20, 20)).astype(np.float32) + 8 * np.eye(20, dtype=np.float32)
+    A = sparse.csr_from_dense(a, device="cpu")
+    ex = make_executor("torch")
+    M = block_jacobi_preconditioner(A, executor=ex)
+    assert M.block_size == ex.hw.subgroup_size == 8
+    assert M.precision_counts == (("float32", 3),)
+    assert M.storage_bytes == 3 * 8 * 8 * 4
+    M16 = block_jacobi_preconditioner(A, 4, ex, adaptive="float16", tau=0.5)
+    assert M16.precision_counts == (("float16", 5),)
+    x = torch.from_numpy(rng.normal(size=20).astype(np.float32))
+    with pytest.warns(DeprecationWarning, match="LinearOperator is deprecated"):
+        op = LinearOperator(A, executor=ex)
+    assert op.shape == (20, 20)
+    np.testing.assert_allclose(op.apply(x).numpy(), a @ x.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_sparse_top_level_functions_compute():
     import numpy as np
 
