@@ -3668,9 +3668,8 @@ def phase_serve(torch, card: str, copy_bw: float):
 
     from repro_torch import kernels as K
     from repro_torch.core import make_executor
-    from repro_torch.core.params import H100
     from repro_torch.launch import solve_serve
-    from repro_torch.observability import metrics, roofline_summary, trace
+    from repro_torch.observability import metrics, trace
     from repro_torch.serve import (ContinuousBatchEngine, ServeConfig, SetupCache,
                                    SolveService, TrafficConfig, generate_traffic)
     from repro_torch.solvers import Stop
@@ -3904,8 +3903,6 @@ def phase_serve(torch, card: str, copy_bw: float):
             with open(tpath) as f:
                 n_events = len(json.load(f)["traceEvents"])
             trace.reset()
-            rows = roofline_summary(ex.dispatch_events,
-                                    hbm_bandwidth=H100.hbm_bandwidth)
             metrics.export_jsonl(mpath)
             back = metrics.load_jsonl(mpath)
             same = back == json.loads(json.dumps(metrics.samples(), default=str))
@@ -3913,28 +3910,16 @@ def phase_serve(torch, card: str, copy_bw: float):
             fail(f"serve 11d: the trace is invalid: {errors[:5]}")
         if not all(r.converged for r in responses_d):
             fail("serve 11d: a traced request did not converge")
-        top = max(rows, key=lambda r: r["frac_of_bound"])
-        for r in rows:
-            if r["op"] in ("spmv_batch_ell", "axpy_norm", "block_jacobi_apply",
-                           "batch_blas_dot", "batch_blas_norm2"):
-                say(f"[serve] ({card}) 11d roofline {r['op']}/{r['space']}: "
-                    f"{r['count']} dispatches, {r['est_bytes']} bytes, "
-                    f"{r['wall_us']:.1f} us (synchronised), {r['gbs']:.2f} GB/s, "
-                    f"{r['frac_of_bound']:.4f} of 3.35 TB/s")
-        if not top["frac_of_bound"] <= 1.05:
-            fail(f"serve 11d: {top['op']} at {top['frac_of_bound']:.3f} of the "
-                 "HBM bound")
         if not same or not any(r["name"] == "dispatch_total" for r in back):
             fail("serve 11d: the metrics JSONL does not round-trip")
+        n_dispatch = len(ex.dispatch_events)
         say(f"[serve] ({card}) 11d: {len(responses_d)} requests traced in "
-            f"{wall_d:.4f} s, {n_events} trace events valid; {len(rows)} "
-            f"roofline rows, the highest {top['op']} at "
-            f"{top['frac_of_bound']:.4f} of the bound; {len(back)} metric "
-            "series round-trip through JSONL")
+            f"{wall_d:.4f} s, {n_events} trace events valid, {n_dispatch} "
+            f"dispatch events; {len(back)} metric series round-trip through "
+            "JSONL")
         summary["traced"] = {"requests": len(responses_d), "wall_s": wall_d,
                              "trace_events": n_events,
-                             "max_frac_of_bound": top["frac_of_bound"],
-                             "max_frac_op": top["op"],
+                             "dispatch_events": n_dispatch,
                              "metric_series": len(back)}
 
     # the three kernels at this path's shapes: a lane's operator and blocks

@@ -11,15 +11,17 @@ implementation runs.  Spaces are ``reference`` (sequential-semantics torch),
   The chain picks the first space that has an implementation; it never
   catches an implementation's error to try the next space.
 * Every implementation receives the executor as its first argument.
+* While a ``torch.profiler`` runs, each dispatch is a host range named
+  ``op.<operation>``; with tracing and the profiler off that costs one flag
+  read.
 """
 
 from __future__ import annotations
 
 import functools
-import time
 from typing import Any, Callable, Dict, Tuple
 
-import torch
+from torch.autograd import profiler as _profiler
 
 from repro_torch.observability import events as _events
 from repro_torch.observability import metrics as _metrics
@@ -50,6 +52,7 @@ class Operation:
         if name in _OPERATIONS:
             raise ValueError(f"operation {name!r} already defined")
         self.name = name
+        self.range_name = "op." + name
         self.__doc__ = doc or f"executor-dispatched operation {name!r}"
         self._impls: Dict[str, Callable[..., Any]] = {}
         _OPERATIONS[name] = self
@@ -96,49 +99,52 @@ class Operation:
 
         ex = executor if executor is not None else current_executor()
         space, impl = self.resolve(ex)
-        if not _trace.TRACING:
+        if _trace.TRACING:
+            return self._traced_call(ex, space, impl, args, kwargs)
+        if _profiler._is_profiler_enabled:
+            out = self._ranged(ex, impl, args, kwargs)
+        else:
             out = impl(ex, *args, **kwargs)
-            ex.dispatch_log.record(self.name)
-            return out
-        return self._traced_call(ex, space, impl, args, kwargs)
+        ex.dispatch_log.record(self.name)
+        return out
+
+    def _ranged(self, ex, impl, args, kwargs):
+        """The call inside its ``op.<name>`` host range for the profiler."""
+        with _trace.host_range(self.range_name):
+            return impl(ex, *args, **kwargs)
 
     def _traced_call(self, ex, space, impl, args, kwargs):
         """Dispatch with a structured event: op, space, operand shapes, the
-        LaunchConfig the kernel resolved, a bytes estimate and wall time,
-        handed to the tracer and folded into the metrics registry.
+        LaunchConfig the kernel resolved and the call's host time, handed to
+        the tracer and folded into the metrics registry.
 
-        Kernels launch asynchronously, so on a CUDA device the call is
-        synchronised before and after: the wall time then covers the device
-        work of this dispatch alone, and the achieved GB/s of
-        :func:`~repro_torch.observability.events.roofline_summary` is a rate
-        the device reached.  The untraced path never synchronises."""
-        sync = ex.device.type == "cuda"
-        if sync:
-            torch.cuda.synchronize(ex.device)
+        Nothing synchronises: on a card the host time is the launch's, and
+        the kernel's time is read from ``torch.profiler``'s device trace,
+        on whose clock the event is stamped."""
         tracer = _trace.get_tracer()
         ex._last_launch_config = None  # set again if the kernel resolves one
-        t0 = time.perf_counter()
-        out = impl(ex, *args, **kwargs)
-        if sync:
-            torch.cuda.synchronize(ex.device)
-        wall_us = (time.perf_counter() - t0) * 1e6
+        t0 = _trace.now_ns()
+        if _profiler._is_profiler_enabled:
+            out = self._ranged(ex, impl, args, kwargs)
+        else:
+            out = impl(ex, *args, **kwargs)
+        host_us = (_trace.now_ns() - t0) * 1e-3
         ts_us = tracer.rel_us(t0) if tracer is not None else 0.0
         event = _events.make_event(
             op=self.name,
             space=space,
             executor=ex,
             launch=ex._last_launch_config,
-            wall_us=wall_us,
+            host_us=host_us,
             ts_us=ts_us,
             operands=args,
-            out=out,
         )
         ex.dispatch_log.record(self.name, event)
         if tracer is not None:
             tracer.complete(
-                self.name, ts_us, wall_us, cat="dispatch", args=event.to_args()
+                self.name, ts_us, host_us, cat="dispatch", args=event.to_args()
             )
-        _metrics.observe_dispatch(event, ex.hw.hbm_bandwidth)
+        _metrics.observe_dispatch(event)
         return out
 
     def __repr__(self) -> str:

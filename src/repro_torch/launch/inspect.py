@@ -4,9 +4,10 @@ The port of ``repro/launch/inspect.py``, the read side of
 :mod:`repro_torch.observability`: a small CLI that turns the artifacts the
 instrumented code writes into terminal-sized answers.
 
-* ``trace <file>``    — summarize a Chrome trace: span table + a roofline
-  aggregation of the dispatch events (count, bytes, wall, achieved GB/s
-  per op x space x target);
+* ``trace <file>``    — summarize a Chrome trace: span table + the dispatch
+  events' count and host time per op x space x target (the JAX command
+  adds bytes and GB/s, which a host time cannot give: no dispatch
+  synchronises the card);
 * ``validate <file>`` — schema-check a trace file (the CI gate); exit 1 and
   print every problem when invalid;
 * ``metrics <file>``  — render an exported metrics JSONL as an aligned table;
@@ -17,8 +18,8 @@ instrumented code writes into terminal-sized answers.
   ``--device cpu`` (with ``--executor torch`` or ``reference``) asks for
   the CPU.
 
-The text of ``trace`` and ``metrics`` is the JAX command's, character for
-character, on the same file.
+The text of ``metrics``, and the span table of ``trace``, is the JAX
+command's, character for character, on the same file.
 
 Usage:
     python -m repro_torch.launch.inspect trace repro_trace.json
@@ -90,7 +91,7 @@ def _fmt_table(rows: List[tuple], header: tuple) -> str:
 
 def summarize_trace(data) -> str:
     """Human summary of a Chrome trace object (or a path to one): per-name
-    span totals, then a roofline aggregation of the ``dispatch`` events."""
+    span totals, then the ``dispatch`` events' count and host time per op."""
     if isinstance(data, str):
         with open(data) as f:
             data = json.load(f)
@@ -115,28 +116,24 @@ def summarize_trace(data) -> str:
         lines.append("")
         lines.append(_fmt_table(rows, ("cat", "name", "count", "total_ms")))
 
-    # -- roofline aggregation of dispatch events ---------------------------------
+    # -- dispatch events: count and host time per op x space x target ---------
     agg: Dict[tuple, Dict[str, Any]] = {}
     for ev in events:
         if ev.get("cat") != "dispatch" or ev.get("ph") != "X":
             continue
         args = ev.get("args", {})
         key = (ev["name"], args.get("space", "?"), args.get("target", "?"))
-        row = agg.setdefault(key, {"count": 0, "bytes": 0, "wall_us": 0.0})
+        row = agg.setdefault(key, {"count": 0, "host_us": 0.0})
         row["count"] += 1
-        row["bytes"] += int(args.get("est_bytes", 0) or 0)
-        row["wall_us"] += float(ev.get("dur", 0.0))
+        row["host_us"] += float(ev.get("dur", 0.0))
     if agg:
-        rows = []
-        for (op, space, target), row in sorted(agg.items()):
-            wall_s = row["wall_us"] * 1e-6
-            gbs = row["bytes"] / wall_s / 1e9 if wall_s > 0 else 0.0
-            rows.append((op, space, target, str(row["count"]),
-                         str(row["bytes"]), f"{gbs:.3f}"))
+        rows = [(op, space, target, str(row["count"]),
+                 f"{row['host_us'] / 1e3:.3f}")
+                for (op, space, target), row in sorted(agg.items())]
         lines.append("")
-        lines.append("dispatch roofline (trace-time GB/s):")
+        lines.append("dispatches (host time; device time is the profiler's):")
         lines.append(_fmt_table(
-            rows, ("op", "space", "target", "count", "est_bytes", "gbs")))
+            rows, ("op", "space", "target", "count", "host_ms")))
     return "\n".join(lines)
 
 

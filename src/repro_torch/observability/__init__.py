@@ -2,27 +2,24 @@
 
 The port's ``gko::log`` layer, four pieces usable alone:
 
-* :mod:`repro_torch.observability.trace` — span tracer with Chrome
+* :mod:`repro_torch.observability.trace` — spans to a tracer with Chrome
   trace-event export (``REPRO_TRACE=1`` or ``--trace out.json`` on the
-  entry points);
+  entry points) and to a running ``torch.profiler``, on its clock, some
+  timed on the device;
 * :mod:`repro_torch.observability.events` — structured dispatch events
-  behind ``Executor.dispatch_log`` and their roofline summary;
+  behind ``Executor.dispatch_log``;
 * :mod:`repro_torch.observability.metrics` — counters, gauges and
   histograms with JSONL and table exporters;
 * :mod:`repro_torch.observability.convergence` — the residual-history ring
   buffer behind every solver's ``history=`` option.
 
-``trace``, ``events`` and ``metrics`` are stdlib only, so the dispatch layer
-imports them unconditionally; ``convergence`` needs torch and is imported
-lazily here.
+The dispatch layer imports ``trace``, ``events`` and ``metrics``
+unconditionally (``events`` and ``metrics`` are stdlib only, ``trace``
+binds torch's profiler module); ``convergence`` is imported lazily here.
 """
 
 from repro_torch.observability import events, metrics, trace
-from repro_torch.observability.events import (
-    DispatchEvent,
-    DispatchLog,
-    roofline_summary,
-)
+from repro_torch.observability.events import DispatchEvent, DispatchLog
 from repro_torch.observability.trace import span, validate_trace
 
 __all__ = [
@@ -32,7 +29,6 @@ __all__ = [
     "convergence",
     "DispatchEvent",
     "DispatchLog",
-    "roofline_summary",
     "span",
     "validate_trace",
 ]

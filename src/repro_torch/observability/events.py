@@ -11,8 +11,9 @@ is on.  Each event holds what Ginkgo's operation logger sees at a launch:
   bucketing of :func:`repro_torch.core.tuning.bucket_shapes`);
 * the :class:`~repro_torch.core.tuning.LaunchConfig` the kernel resolved,
   where it resolved one;
-* **wall time** of the dispatch and **estimated bytes moved** (each operand
-  and result once), the roofline numerator of :func:`roofline_summary`.
+* the **host time** of the dispatch: the call's time on the host, which
+  on a card is the launch and not the kernel (no dispatch synchronises;
+  device time is the profiler's).
 
 Stdlib only: the registry imports it at module load.
 """
@@ -28,7 +29,6 @@ __all__ = [
     "DispatchEvent",
     "DispatchLog",
     "make_event",
-    "roofline_summary",
     "shape_bucket",
     "summarize_operands",
 ]
@@ -103,8 +103,7 @@ class DispatchEvent:
     shapes: Tuple[tuple, ...]
     shape_bucket: int
     launch: Optional[Dict[str, Any]]
-    wall_us: float
-    est_bytes: int
+    host_us: float
     ts_us: float
 
     def to_args(self) -> Dict[str, Any]:
@@ -115,25 +114,16 @@ class DispatchEvent:
             "target": self.target,
             "shapes": [list(s) for s in self.shapes],
             "shape_bucket": self.shape_bucket,
-            "est_bytes": self.est_bytes,
         }
         if self.launch is not None:
             args["launch"] = self.launch
         return args
 
-    @property
-    def gbs(self) -> float:
-        """Achieved GB/s (bytes estimate over wall time; 0 when unknown)."""
-        if self.wall_us <= 0.0:
-            return 0.0
-        return self.est_bytes / (self.wall_us * 1e-6) / 1e9
 
-
-def make_event(*, op: str, space: str, executor, launch, wall_us: float,
-               ts_us: float, operands, out) -> DispatchEvent:
+def make_event(*, op: str, space: str, executor, launch, host_us: float,
+               ts_us: float, operands) -> DispatchEvent:
     """A :class:`DispatchEvent` for a finished dispatch."""
-    in_shapes, in_bytes = summarize_operands(operands)
-    _, out_bytes = summarize_operands([out])
+    in_shapes, _ = summarize_operands(operands)
     launch_dict = None
     if launch is not None and dataclasses.is_dataclass(launch):
         launch_dict = dataclasses.asdict(launch)
@@ -142,12 +132,11 @@ def make_event(*, op: str, space: str, executor, launch, wall_us: float,
         space=space,
         executor=type(executor).__name__,
         target=executor.hw.name,
-        wall_us=wall_us,
+        host_us=host_us,
         ts_us=ts_us,
         shapes=tuple(in_shapes),
         shape_bucket=shape_bucket(in_shapes),
         launch=launch_dict,
-        est_bytes=in_bytes + out_bytes,
     )
 
 
@@ -166,31 +155,3 @@ class DispatchLog(collections.Counter):
     def clear(self) -> None:  # counts and events clear as one unit
         super().clear()
         self.events.clear()
-
-
-def roofline_summary(events, hbm_bandwidth: Optional[float] = None
-                     ) -> List[Dict[str, Any]]:
-    """Dispatch events aggregated per (op, space, target): count, bytes, wall
-    µs and achieved GB/s, and with ``hbm_bandwidth`` (bytes/s; the ``h100``
-    target's 3.35e12) the fraction of that bound."""
-    agg: Dict[tuple, Dict[str, Any]] = {}
-    for ev in events:
-        key = (ev.op, ev.space, ev.target)
-        row = agg.get(key)
-        if row is None:
-            row = agg[key] = {"op": ev.op, "space": ev.space,
-                              "target": ev.target, "count": 0,
-                              "est_bytes": 0, "wall_us": 0.0}
-        row["count"] += 1
-        row["est_bytes"] += ev.est_bytes
-        row["wall_us"] += ev.wall_us
-    rows = []
-    for key in sorted(agg):
-        row = agg[key]
-        wall_s = row["wall_us"] * 1e-6
-        row["gbs"] = row["est_bytes"] / wall_s / 1e9 if wall_s > 0 else 0.0
-        if hbm_bandwidth:
-            row["bound_gbs"] = hbm_bandwidth / 1e9
-            row["frac_of_bound"] = row["gbs"] / (hbm_bandwidth / 1e9)
-        rows.append(row)
-    return rows

@@ -4,8 +4,8 @@ A copy of the JAX package's registry (stdlib only):
 
 * :class:`Counter` — monotonically increasing (dispatches, iterations,
   serve-cache hits);
-* :class:`Gauge` — last write wins (AMG's ``amg_level_rows``, achieved GB/s
-  of a dispatch);
+* :class:`Gauge` — last write wins (AMG's ``amg_level_rows``, SELL-P's
+  ``sellp_stored_slots``);
 * :class:`Histogram` — count/sum/min/max, power-of-two bucket counts
   (sub-unit ones for wall times in seconds) and bucket quantiles (the solve
   service's p50/p99 latency).
@@ -263,17 +263,10 @@ def load_jsonl(path: str) -> List[Dict[str, Any]]:
         return [json.loads(line) for line in f if line.strip()]
 
 
-def observe_dispatch(event, hbm_bandwidth: Optional[float] = None) -> None:
+def observe_dispatch(event) -> None:
     """Fold one :class:`~repro_torch.observability.events.DispatchEvent` into
-    the default registry: ``dispatch_total`` and ``dispatch_wall_us`` per
-    op x space x target, and, when the event carries a bytes estimate, the
-    achieved ``dispatch_gbs`` with ``dispatch_frac_of_bound`` against
-    ``hbm_bandwidth`` (bytes/s)."""
+    the default registry: ``dispatch_total`` and the ``dispatch_host_us``
+    histogram per op x space x target."""
     labels = {"op": event.op, "space": event.space, "target": event.target}
     counter("dispatch_total", **labels).inc()
-    histogram("dispatch_wall_us", **labels).observe(event.wall_us)
-    if event.est_bytes and event.wall_us > 0:
-        g = event.gbs
-        gauge("dispatch_gbs", **labels).set(g)
-        if hbm_bandwidth:
-            gauge("dispatch_frac_of_bound", **labels).set(g / (hbm_bandwidth / 1e9))
+    histogram("dispatch_host_us", **labels).observe(event.host_us)

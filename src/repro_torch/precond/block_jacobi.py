@@ -35,6 +35,7 @@ import torch
 from repro_torch.batch.linop import BatchLinOp
 from repro_torch.core import registry
 from repro_torch.core.linop import LinOp
+from repro_torch.observability.trace import span
 from repro_torch.sparse.formats import csr_host_arrays, host_array
 
 __all__ = [
@@ -328,44 +329,57 @@ def block_jacobi(
             block_size = ex.hw.subgroup_size
         block_ptrs = uniform_block_ptrs(n, block_size)
 
+    with span("precond.generate", cat="precond", n=n):
+        return _generate(A, n, block_ptrs, adaptive, tau, executor)
+
+
+def _generate(A, n: int, block_ptrs: np.ndarray, adaptive, tau: float,
+              executor) -> BlockJacobi:
+    """:func:`block_jacobi`'s phases, a span each.  None synchronises on its
+    own: ``precond.invert`` ends at the read-back of the inverses, and the
+    casts and copies of ``precond.maps`` may outlast it on the device."""
     dev = A.values.device
-    blocks_np, sizes = extract_blocks(A, block_ptrs)
+    with span("precond.extract", cat="precond"):
+        blocks_np, sizes = extract_blocks(A, block_ptrs)
     nb, bs = blocks_np.shape[0], blocks_np.shape[1]
-    inv = invert_blocks(torch.as_tensor(blocks_np, device=dev))
-    inv_np = inv.cpu().numpy()
+    with span("precond.invert", cat="precond", blocks=nb):
+        inv = invert_blocks(torch.as_tensor(blocks_np, device=dev))
+        inv_np = inv.cpu().numpy()
 
-    class_id = _class_ids(adaptive, blocks_np, inv_np, sizes, tau, inv.dtype)
-    order = np.argsort(class_id, kind="stable")
+    with span("precond.select", cat="precond"):
+        class_id = _class_ids(adaptive, blocks_np, inv_np, sizes, tau, inv.dtype)
+        order = np.argsort(class_id, kind="stable")
 
-    # gather/scatter maps in class order
-    gather = np.full((nb, bs), n, np.int64)
-    scatter = np.zeros(n, np.int64)
-    pos_of_block = np.empty(nb, np.int64)
-    pos_of_block[order] = np.arange(nb)
-    local = np.arange(bs)
-    in_block = local[None, :] < sizes[order][:, None]  # (nb, bs) in class order
-    rows = block_ptrs[order][:, None] + local[None, :]
-    gather[in_block] = rows[in_block]
-    all_rows = np.arange(n)
-    row_blk = np.searchsorted(block_ptrs, all_rows, side="right") - 1
-    scatter[:] = pos_of_block[row_blk] * bs + (all_rows - block_ptrs[row_blk])
+    with span("precond.maps", cat="precond"):
+        # gather/scatter maps in class order
+        gather = np.full((nb, bs), n, np.int64)
+        scatter = np.zeros(n, np.int64)
+        pos_of_block = np.empty(nb, np.int64)
+        pos_of_block[order] = np.arange(nb)
+        local = np.arange(bs)
+        in_block = local[None, :] < sizes[order][:, None]  # (nb, bs) in class order
+        rows = block_ptrs[order][:, None] + local[None, :]
+        gather[in_block] = rows[in_block]
+        all_rows = np.arange(n)
+        row_blk = np.searchsorted(block_ptrs, all_rows, side="right") - 1
+        scatter[:] = pos_of_block[row_blk] * bs + (all_rows - block_ptrs[row_blk])
 
-    tensors = []
-    sorted_ids = class_id[order]
-    for cid, dtype in enumerate(_storage_classes(inv.dtype)):
-        members = order[sorted_ids == cid]
-        if len(members):
-            tensors.append(inv[torch.as_tensor(members, device=dev)].to(dtype))
+        tensors = []
+        sorted_ids = class_id[order]
+        for cid, dtype in enumerate(_storage_classes(inv.dtype)):
+            members = order[sorted_ids == cid]
+            if len(members):
+                tensors.append(inv[torch.as_tensor(members, device=dev)].to(dtype))
 
-    return BlockJacobi(
-        inv_blocks=tuple(tensors),
-        gather_idx=torch.as_tensor(gather, device=dev),
-        scatter_idx=torch.as_tensor(scatter, device=dev),
-        n=n,
-        block_size=bs,
-        num_blocks=nb,
-        executor=executor,
-    )
+        return BlockJacobi(
+            inv_blocks=tuple(tensors),
+            gather_idx=torch.as_tensor(gather, device=dev),
+            scatter_idx=torch.as_tensor(scatter, device=dev),
+            n=n,
+            block_size=bs,
+            num_blocks=nb,
+            executor=executor,
+        )
 
 
 # =============================================================================

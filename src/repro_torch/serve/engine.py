@@ -400,9 +400,11 @@ class ContinuousBatchEngine:
                 metrics.histogram("serve_latency_s").observe(latency)
             if trace.TRACING and tracer is not None and req.submitted_s is not None:
                 # the request's span, submit -> retire, written at retire
+                # (its start on the tracer's clock: now less its latency)
                 tracer.complete(
-                    "serve.request", tracer.rel_us(req.submitted_s),
-                    (now - req.submitted_s) * 1e6, cat="serve",
+                    "serve.request",
+                    tracer.rel_us(trace.now_ns() - int(latency * 1e9)),
+                    latency * 1e6, cat="serve",
                     args={"request": req.request_id,
                           "iterations": resp.iterations,
                           "pattern_hit": flags[0], "factors_hit": flags[1],

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import registry
 from repro_torch.core.linop import Identity, LinOp, as_linop
+from repro_torch.observability.trace import span
 from repro_torch.sparse.formats import Coo, Csr, Dense, Ell, Sellp, csr_host_arrays
 
 __all__ = [
@@ -253,7 +254,9 @@ def ensure_symmetric(A, *, solver: str, strict: bool = True, seed: int = 0) -> N
     nonsymmetric; ``strict=False`` skips the probe."""
     if not strict:
         return
-    if probe_symmetry(A, seed=seed) is False:
+    with span("solver.probe", cat="solver", solver=solver):
+        symmetric = probe_symmetry(A, seed=seed)
+    if symmetric is False:
         raise ValueError(
             f"{solver} requires a symmetric (SPD) operator, but a seeded "
             "symmetry probe found u^T A v != v^T A u. CG-family iterations "

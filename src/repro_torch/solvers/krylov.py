@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core.linop import LinOp, as_linop
 from repro_torch.observability import convergence
+from repro_torch.observability import trace as _trace
 from repro_torch.solvers.common import (
     SolveResult,
     Stop,
@@ -98,6 +99,20 @@ def _keep_going(k: int, stop: Stop, rnorm, thresh) -> bool:
     return k < stop.max_iters and bool(rnorm > thresh)
 
 
+def _stop_test(k: int, stop: Stop, rnorm, thresh) -> bool:
+    """:func:`_keep_going` in a ``cg.stop_test`` span: the CG loops'
+    blocking read of the residual norm."""
+    with _trace.span("cg.stop_test"):
+        return _keep_going(k, stop, rnorm, thresh)
+
+
+def _precond(Mfn, r):
+    """``Mfn(r)`` in a ``precond.apply`` span, timed on r's device while it
+    records."""
+    with _trace.span("precond.apply", device_of=r):
+        return Mfn(r)
+
+
 def cg(
     A,
     b: torch.Tensor,
@@ -152,19 +167,19 @@ def cg(
     thresh = stop.threshold(bnorm)
 
     r = b - Aop.apply(x, executor=ex)
-    z = Mfn(r)
+    z = _precond(Mfn, r)
     p = z
     rz = blas.dot(r, z, executor=ex)
     rnorm = blas.norm2(r, executor=ex)
     hist = convergence.init(convergence.capacity(history, stop),
                             dtype=rnorm.dtype, device=b.device)
     k = 0
-    while _keep_going(k, stop, rnorm, thresh):
+    while _stop_test(k, stop, rnorm, thresh):
         Ap = Aop.apply(p, executor=ex)
         alpha = rz / blas.dot(p, Ap, executor=ex)
         x = blas.axpy(alpha, p, x, executor=ex)
         r = blas.axpy(-alpha, Ap, r, executor=ex)
-        z = Mfn(r)
+        z = _precond(Mfn, r)
         rz_new = blas.dot(r, z, executor=ex)
         beta = rz_new / rz
         p = blas.axpy(beta, p, z, executor=ex)
@@ -191,14 +206,14 @@ def _cg_fused(A, b, x0, *, stop, M, precond_opts, executor, history=None):
     thresh = stop.threshold(bnorm)
 
     r = b - Aop.apply(x, executor=ex)
-    z = Mfn(r)
+    z = _precond(Mfn, r)
     p = z
     rz = blas.dot(r, z, executor=ex)
     rnorm = blas.norm2(r, executor=ex)
     hist = convergence.init(convergence.capacity(history, stop),
                             dtype=rnorm.dtype, device=b.device)
     k = 0
-    while _keep_going(k, stop, rnorm, thresh):
+    while _stop_test(k, stop, rnorm, thresh):
         Ap, pAp = blas.spmv_dot(A, p, executor=ex)
         alpha = rz / pAp
         x = blas.axpy(alpha, p, x, executor=ex)
@@ -206,7 +221,7 @@ def _cg_fused(A, b, x0, *, stop, M, precond_opts, executor, history=None):
         if identity_M:
             z, rz_new = r, rr
         else:
-            z = Mfn(r)
+            z = _precond(Mfn, r)
             rz_new = blas.dot(r, z, executor=ex)
         beta = rz_new / rz
         p = blas.axpy(beta, p, z, executor=ex)
@@ -615,8 +630,9 @@ class KrylovSolver(LinOp):
 
     def solve(self, b: torch.Tensor, x0=None, *, executor=None) -> SolveResult:
         ex = executor if executor is not None else self.executor
-        return type(self)._fn(self.A, b, x0, stop=self.stop, M=self.M,
-                              executor=ex, **self.options)
+        with _trace.span("solve", solve=_trace.next_solve_index()):
+            return type(self)._fn(self.A, b, x0, stop=self.stop, M=self.M,
+                                  executor=ex, **self.options)
 
     def _apply(self, b, executor):
         return self.solve(b, executor=executor).x

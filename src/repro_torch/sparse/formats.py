@@ -28,6 +28,8 @@ import torch
 
 from repro_torch.core.executor import default_device
 from repro_torch.core.linop import LinOp
+from repro_torch.observability import metrics
+from repro_torch.observability.trace import span
 
 __all__ = [
     "Dense",
@@ -297,7 +299,14 @@ def csr_from_dense(a: np.ndarray, *, device=None) -> Csr:
 
 def ell_from_csr_host(indptr, indices, values, shape, max_nnz=None, *,
                       device=None) -> Ell:
-    """Host CSR -> :class:`Ell` on ``device`` (padding: column 0, value 0)."""
+    """Host CSR -> :class:`Ell` on ``device`` (padding: column 0, value 0),
+    in a ``format.convert`` span."""
+    with span("format.convert", cat="format", to="ell", rows=int(shape[0])):
+        return _ell_from_csr_host(indptr, indices, values, shape, max_nnz,
+                                  device)
+
+
+def _ell_from_csr_host(indptr, indices, values, shape, max_nnz, device) -> Ell:
     indptr = np.asarray(indptr)
     indices = np.asarray(indices)
     values = np.asarray(values)
@@ -338,8 +347,22 @@ def sellp_from_csr_host(indptr, indices, values, shape, slice_size: int = 8,
     """Host CSR -> :class:`Sellp` on ``device`` with Ginkgo's slice layout.
 
     An empty matrix gets no slice.  Every slice has at least one column, so
-    an all-empty slice stores one padded column.
+    an all-empty slice stores one padded column.  Runs in a
+    ``format.convert`` span and sets the gauges ``sellp_stored_slots`` and
+    ``sellp_true_nonzeros`` (the CSR entries), whose ratio is the share of
+    the streamed slots that hold an entry.
     """
+    with span("format.convert", cat="format", to="sellp", rows=int(shape[0])):
+        A = _sellp_from_csr_host(indptr, indices, values, shape, slice_size,
+                                 stride_factor, device)
+    metrics.gauge("sellp_stored_slots").set(A.nnz)
+    ip = np.asarray(indptr)
+    metrics.gauge("sellp_true_nonzeros").set(int(ip[-1]) - int(ip[0]))
+    return A
+
+
+def _sellp_from_csr_host(indptr, indices, values, shape, slice_size: int,
+                         stride_factor: int, device) -> Sellp:
     indptr = np.asarray(indptr, np.int64)
     indices = np.asarray(indices)
     values = np.asarray(values)

@@ -3,10 +3,11 @@
 Mirrors ``tests/observability/`` (tracer, metrics, dispatch events and the
 traced CG's launch structure) on the port, and holds the pure functions
 against the JAX package's on the same inputs: ``shape_bucket`` and
-``summarize_operands`` on numpy operands, ``roofline_summary`` on the same
-events, the histogram buckets and quantiles, and a traced CG whose body
-launches equal the JAX package's live traced solve and ``BENCH_pr6.json``'s
-pins.
+``summarize_operands`` on numpy operands, the histogram buckets and
+quantiles, and a traced CG whose body launches equal the JAX package's live
+traced solve and ``BENCH_pr6.json``'s pins.  The port's own part: spans to
+``torch.profiler`` as host-only ranges on the profiler's clock, the
+device-timed spans' totals, and a traced dispatch that never synchronises.
 """
 
 import argparse
@@ -29,17 +30,15 @@ from repro.observability import metrics as jmetrics
 from repro.observability import trace as jtrace
 from repro.solvers import krylov as jkrylov
 from repro.solvers.common import Stop as JStop
-from repro_torch.core import make_executor, params, registry
+from repro_torch.core import make_executor, registry
 from repro_torch.observability import convergence, events, metrics, trace
 from repro_torch.observability.events import (
     DispatchEvent,
     DispatchLog,
-    make_event,
-    roofline_summary,
     shape_bucket,
     summarize_operands,
 )
-from repro_torch.solvers import Stop, cg
+from repro_torch.solvers import CgSolver, Stop, cg
 from repro_torch.sparse import formats as F
 from repro_torch.sparse import ops as blas
 
@@ -153,16 +152,19 @@ def test_maybe_enable_from_env(monkeypatch, tmp_path, flag, on):
 
 
 def test_disabled_dispatch_retains_no_allocations():
-    """With tracing off, repeated dispatches retain no memory: no event
-    objects, no trace records, no per-call state."""
+    """With tracing and the profiler off, repeated dispatches inside a span
+    retain no memory: no event objects, no trace records, no per-call
+    state, and the span is the shared no-op one."""
     ex = make_executor("torch")
     x = torch.ones(64)
 
     def run(n):
         for _ in range(n):
-            blas.dot(x, x, executor=ex)
+            with trace.span("precond.apply", device_of=x):
+                blas.dot(x, x, executor=ex)
 
     assert not trace.enabled()
+    assert trace.span("precond.apply", device_of=x) is trace._NULL_SPAN
     run(20)  # first-call caches, Counter keys
     deltas = []
     for _ in range(3):
@@ -246,29 +248,29 @@ def test_jsonl_roundtrip_and_table(tmp_path):
     assert metrics.render_table() == "(no metrics recorded)"
 
 
-def _event(wall_us=10.0, est_bytes=8000):
+def _event(host_us=10.0):
     return DispatchEvent(op="spmv_csr", space="torch", executor="TorchExecutor",
-                         target="cpu_torch", wall_us=wall_us, ts_us=0.0,
-                         shapes=((8,), (8, 8)), shape_bucket=64, launch=None,
-                         est_bytes=est_bytes)
+                         target="cpu_torch", host_us=host_us, ts_us=0.0,
+                         shapes=((8,), (8, 8)), shape_bucket=64, launch=None)
 
 
 def test_observe_dispatch_folds_counters_and_gauges():
     labels = dict(op="spmv_csr", space="torch", target="cpu_torch")
-    metrics.observe_dispatch(_event(), hbm_bandwidth=100e9)
-    metrics.observe_dispatch(_event(wall_us=5.0), hbm_bandwidth=100e9)
+    metrics.observe_dispatch(_event())
+    metrics.observe_dispatch(_event(host_us=5.0))
     assert metrics.counter("dispatch_total", **labels).value == 2
-    assert metrics.histogram("dispatch_wall_us", **labels).count == 2
-    # last event: 8000 B / 5 us = 1.6 GB/s against 100 GB/s
-    assert metrics.gauge("dispatch_gbs", **labels).value == pytest.approx(1.6)
-    assert metrics.gauge("dispatch_frac_of_bound",
-                         **labels).value == pytest.approx(0.016)
+    h = metrics.histogram("dispatch_host_us", **labels)
+    assert (h.count, h.min, h.max) == (2, 5.0, 10.0)
+    # a host time gives no rate: no gauge series is folded in
+    assert not [r for r in metrics.samples() if r["kind"] == "gauge"]
 
 
-def test_observe_dispatch_without_bytes_skips_gauges():
-    metrics.observe_dispatch(_event(est_bytes=0))
-    names = {r["name"] for r in metrics.samples()}
-    assert "dispatch_gbs" not in names and "dispatch_total" in names
+def test_dispatch_event_has_host_time_and_no_bytes():
+    ev = _event(host_us=3.5)
+    assert ev.host_us == 3.5
+    assert not hasattr(ev, "est_bytes") and not hasattr(ev, "gbs")
+    assert "est_bytes" not in ev.to_args()
+    assert not hasattr(events, "roofline_summary")
 
 
 # -- dispatch events -----------------------------------------------------------
@@ -318,7 +320,7 @@ def test_events_recorded_only_while_tracing():
     (ev,) = ex.dispatch_events
     assert (ev.op, ev.space, ev.target) == ("blas_norm2", "torch", "cpu_torch")
     assert ev.shapes == ((32,),) and ev.shape_bucket == 32
-    assert ev.est_bytes == 32 * 4 + 4 and ev.wall_us >= 0.0 and ev.ts_us >= 0.0
+    assert ev.host_us >= 0.0 and ev.ts_us >= 0.0
     (rec,) = [r for r in metrics.samples() if r["name"] == "dispatch_total"]
     assert rec["labels"] == {"op": "blas_norm2", "space": "torch",
                              "target": "cpu_torch"}
@@ -348,27 +350,21 @@ def test_event_carries_resolved_launch_config():
     assert norm.launch is None and "launch" not in norm.to_args()
 
 
-def test_roofline_summary_equals_the_jax_package():
-    def pair(op, wall, nbytes):
-        kw = dict(op=op, space="torch", launch=None, wall_us=wall, ts_us=0.0,
-                  out=None)
-        arr = np.ones(max(nbytes // 4, 1), np.float32)
-        return (make_event(executor=make_executor("torch"), operands=[arr], **kw),
-                jevents.make_event(executor=jax_make_executor("xla"),
-                                   operands=[arr], **kw))
-
-    evs = [pair("a", 10.0, 4000), pair("a", 10.0, 4000), pair("b", 5.0, 1000)]
-    bw = params.H100.hbm_bandwidth
-    rows = roofline_summary([e for e, _ in evs], hbm_bandwidth=bw)
-    jrows = jevents.roofline_summary([j for _, j in evs], hbm_bandwidth=bw)
-    assert [r["op"] for r in rows] == ["a", "b"]
-    ra = rows[0]
-    assert ra["count"] == 2 and ra["est_bytes"] == 8000
-    assert ra["gbs"] == pytest.approx(8000 / 20e-6 / 1e9)
-    assert ra["frac_of_bound"] == pytest.approx(ra["gbs"] / 3350.0)
-    for r, j in zip(rows, jrows):
-        j = dict(j, target=r["target"])  # the targets' names differ
-        assert r == j
+def test_traced_dispatch_does_not_synchronise(monkeypatch):
+    """A traced dispatch on an executor whose device is a card calls no
+    ``torch.cuda.synchronize``: the event's time is the host's."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **k: calls.append(a))
+    ex = make_executor("torch")
+    monkeypatch.setattr(ex, "device", torch.device("cuda"), raising=False)
+    assert ex.device.type == "cuda"
+    trace.enable()
+    _PROBE(torch.ones(64), executor=ex)
+    blas.norm2(torch.ones(4), executor=ex)
+    assert calls == []
+    assert [e.op for e in ex.dispatch_events] == [
+        "observability_launch_probe", "blas_norm2"]
 
 
 def test_event_deque_is_bounded():
@@ -456,3 +452,171 @@ def test_traced_cg_matches_bench_pins(tmp_path, fused):
                                     if ev.get("cat") == "dispatch")
     assert _body(spans, fused) == want * k
     assert convergence.trim(res.history) is not None
+
+
+# -- spans to torch.profiler, on its clock ---------------------------------------
+
+
+def _profiled(fn):
+    """``fn()`` under torch.profiler (CPU activity): its host events as
+    ``(name, scope, start_ns, end_ns)``, and ``fn``'s result."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    evs = [(e.name(), int(e.scope()), e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()]
+    return evs, out
+
+
+def _stencil_solver(n=64):
+    a = _spd(n)
+    A = F.ell_from_dense(a, device="cpu")
+    ex = make_executor("torch")
+    solver = CgSolver(A, stop=Stop(max_iters=200, reduction_factor=1e-6),
+                      M="block_jacobi", precond_opts={"block_size": 4},
+                      executor=ex)
+    b = torch.from_numpy(a @ np.ones(n, np.float32))
+    return solver, b
+
+
+def test_spans_are_function_scope_host_ranges_under_the_profiler():
+    """Under torch.profiler the solve's spans are host events of FUNCTION
+    scope, nested as written: every stop test, preconditioner apply and
+    dispatch inside the solve, the block kernel's dispatch inside an
+    apply."""
+    from torch._C._profiler import RecordScope
+
+    solver, b = _stencil_solver()
+    assert not trace.enabled()
+    evs, res = _profiled(lambda: solver.solve(b))
+    assert res.converged
+    ours = [e for e in evs if e[0] in ("solve", "cg.stop_test", "precond.apply")
+            or e[0].startswith("op.")]
+    assert {e[1] for e in ours} == {int(RecordScope.FUNCTION)}
+    by = collections.defaultdict(list)
+    for name, _, s, e in ours:
+        by[name].append((s, e))
+    k = int(res.iterations)
+    assert len(by["solve"]) == 1
+    assert len(by["cg.stop_test"]) == k + 1
+    assert len(by["precond.apply"]) == k + 1
+    assert len(by["op.block_jacobi_apply"]) >= k + 1
+    (s0, e0), = by["solve"]
+    for name, spans in by.items():
+        assert all(s0 <= s and e <= e0 for s, e in spans), name
+
+    def inside(span, outer):
+        return any(s <= span[0] and span[1] <= e for s, e in outer)
+
+    assert all(inside(x, by["precond.apply"]) for x in by["op.block_jacobi_apply"])
+    assert not any(inside(x, by["cg.stop_test"]) for x in by["precond.apply"])
+    # the spans feed no tracer: the port's tracing stayed off
+    assert trace.get_tracer() is None
+
+
+def test_both_sinks_share_the_profilers_clock():
+    """With the tracer and the profiler both on, a span is in each, and the
+    tracer's ``ts`` plus its ``t0_ns`` lands within 5 ms of the profiler's
+    start of the same span.  The file validates; the solve span carries a
+    solve index."""
+    solver, b = _stencil_solver(32)
+    tracer = trace.enable()
+    evs, _ = _profiled(lambda: solver.solve(b))
+    trace.disable()
+    data = tracer.to_json()
+    assert trace.validate_trace(data) == []
+    t0 = data["otherData"]["t0_ns"]
+    assert data["otherData"]["clock"] == "unix_epoch_ns"
+    (ours,) = [e for e in data["traceEvents"] if e["name"] == "solve"]
+    assert isinstance(ours["args"]["solve"], int)
+    (prof,) = [e for e in evs if e[0] == "solve"]
+    assert abs(t0 + ours["ts"] * 1e3 - prof[2]) < 5e6
+    names = collections.Counter(e["name"] for e in data["traceEvents"])
+    assert names["cg.stop_test"] == names["precond.apply"] >= 2
+    # a dispatch is a range for the profiler and an event for the tracer
+    n_dot = sum(1 for e in evs if e[0] == "op.blas_dot")
+    assert n_dot and n_dot == names["blas_dot"]
+
+
+def test_solve_index_counts_this_processs_solves():
+    solver, b = _stencil_solver(16)
+    tracer = trace.enable()
+    solver.solve(b)
+    solver.solve(b)
+    trace.disable()
+    a, c = [e["args"]["solve"] for e in tracer.events if e["name"] == "solve"]
+    assert c == a + 1
+
+
+class _FakeEvent:
+    """A timing event whose completion and time the test sets."""
+
+    def __init__(self):
+        self.done, self.at, self.records, self.waits = False, 0.0, 0, 0
+
+    def record(self, stream):
+        self.records += 1
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.waits += 1
+        self.done = True
+
+    def elapsed_time(self, end):
+        return end.at - self.at  # ms
+
+
+def test_device_spans_fold_completed_pairs_and_pool_them():
+    made = []
+
+    def event():
+        made.append(_FakeEvent())
+        return made[-1]
+
+    ds = trace._DeviceSpans(event=event, stream=lambda dev: None)
+    ds.FOLD_AT = 1  # fold at every close
+    x = torch.ones(2)
+    first = ds.open(x)
+    ds.close("precond.apply", first)
+    a, b = first[2]
+    assert len(ds._pending) == 1 and ds._totals == {}  # not complete yet
+    b.at, b.done = 2.5, True
+    second = ds.open(x)  # a new pair: the first is not back in the pool
+    assert second[2][0] is not a and len(made) == 4
+    ds.close("precond.apply", second)  # folds the first, the second waits
+    assert ds._totals == {"precond.apply": [1, 2.5e-3]}
+    assert len(ds._pending) == 1
+    second[2][1].at = 1.0
+    tot = ds.totals()  # waits for the pair still in flight
+    assert tot == {"precond.apply": {"count": 2, "device_s": 3.5e-3}}
+    assert second[2][1].waits == 1 and not ds._pending
+    third = ds.open(x)  # from the pool: no event made
+    assert len(made) == 4 and third[2] in ((a, b), second[2])
+    ds.close("cg.stop_test", third)
+    ds.reset()
+    assert ds.totals() == {}
+
+
+def test_device_spans_fold_in_batches_and_bound_their_pending_pairs():
+    ds = trace._DeviceSpans(event=_FakeEvent, stream=lambda dev: None)
+    x = torch.ones(2)
+    for _ in range(ds.FOLD_AT - 1):
+        ds.close("s", ds.open(x))
+    assert len(ds._pending) == ds.FOLD_AT - 1 and not ds._totals
+    ds.FOLD_AT, ds.MAX_PENDING = 2, 3
+    for _ in range(10):
+        ds.close("s", ds.open(x))  # none completes: each close waits
+    assert len(ds._pending) <= 3
+    assert ds.totals()["s"]["count"] == 10 + 31
+
+
+def test_a_cpu_tensor_is_not_device_timed():
+    tracer = trace.enable()
+    with trace.span("precond.apply", device_of=torch.ones(3)):
+        pass
+    trace.disable()
+    assert [e["name"] for e in tracer.events] == ["precond.apply"]
+    assert "precond.apply" not in trace.device_span_totals()

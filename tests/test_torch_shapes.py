@@ -57,14 +57,17 @@ def test_sparse_top_level_names(name):
 
 
 #: every package of the JAX package with an ``__all__``, and the names of
-#: it the port leaves out on purpose: the TPU's Pallas and XLA executors
-#: and the hardware tables of targets the port does not run on
+#: it the port leaves out on purpose: the TPU's Pallas and XLA executors,
+#: the hardware tables of targets the port does not run on, and
+#: ``roofline_summary`` (GB/s from synchronised dispatch times; the port's
+#: traced dispatches do not synchronise, device time is the profiler's)
 ALL_LEFT_OUT = {
     "batch": set(), "checkpoint": set(), "configs": set(),
     "core": {"PallasTpuExecutor", "PallasInterpretExecutor", "XlaExecutor",
              "TPU_V4", "TPU_V5E", "CPU_INTERPRET", "CPU_XLA"},
     "data": set(), "distributed": set(), "kernels": set(),
-    "models": set(), "nn": set(), "observability": set(), "optim": set(),
+    "models": set(), "nn": set(), "observability": {"roofline_summary"},
+    "optim": set(),
     "precond": set(), "runtime": set(), "serve": set(), "solvers": set(),
     "sparse": set(),
 }
