@@ -71,8 +71,11 @@ Phases, each of which exits non-zero on failure:
             repeat bit for bit too), the storage ELL would need; spmv_sellp
             held against its plain version (per row, 2 (w + 1) eps relative
             to the row's magnitudes, w its slice's width) and timed,
-            torch.sparse.mm on the CSR as library; the same matrix at
-            C = 32 and C = 12 held alike, each repeat bit for bit;
+            torch.sparse.mm on the CSR as library; held alike, each repeat
+            bit for bit, at C = 8 and 12 in f32 and f64 and C = 32 in f32,
+            and at the Graph 500 Kronecker Laplacian of scale 18 (hub
+            slices over several of the walk's ranges) at C = 8 and 12 in
+            f32 and f64;
 7. batch  — repro_torch.launch.batch_solve at 16,384 systems of 1,024 rows
             (f32 BatchEll, k = 3) with no preconditioner and with Jacobi,
             batch_cg with 8-row block-Jacobi, and BiCGSTAB at 1,024 x 64:
@@ -365,6 +368,12 @@ AMG_KW = dict(cycle="v", theta=0.08, tol=1e-6, max_iters=6000, iter_cut=5)
 #: iterations; the longest row has 11,156 entries)
 SELLP_N = 2 ** 21
 SELLP_SEED = 4
+#: the Graph 500 Kronecker Laplacian spmv_sellp is also held at: the Graph
+#: 500 spec's initiator and edge factor at scale 18, drawn by
+#: portbench/generators/graph500_laplacian.py (hub slices of thousands of
+#: columns, each over several of the walk's ranges)
+SELLP_KRON = {"scale": 18, "edgefactor": 16, "A": 0.57, "B": 0.19, "C": 0.19,
+              "shift": 0.01, "graph_seed": 13}
 #: the batched path: batch_solve's CG runs and its BiCGSTAB run
 BATCH_ARGS = ["--batch", "16384", "--n", "1024"]
 BATCH_BICGSTAB_ARGS = ["--batch", "1024", "--n", "64", "--solver", "bicgstab"]
@@ -2190,6 +2199,15 @@ def phase_amg(torch, copy_bw):
     return launches, by_storage, summary, rows_out, held, ell_levels
 
 
+def kron_laplacian(params: dict):
+    """Host CSR of L + shift I of the Graph 500 Kronecker graph of
+    ``params`` (SELLP_KRON), drawn on the card by the Graph 500 generator
+    of ``portbench/generators/graph500_laplacian.py``."""
+    from portbench.generators import graph500_laplacian
+
+    return graph500_laplacian.generate(params, device="cuda")
+
+
 def phase_sellp(torch, copy_bw):
     """The SELL-P path: Jacobi-CG on power_law_laplacian(2**21, seed=4) as
     SELL-P through the CUDA executor (counted), then its checks, the torch
@@ -2199,6 +2217,9 @@ def phase_sellp(torch, copy_bw):
 
     from repro_torch import kernels as K
     from repro_torch.core import make_executor
+    from repro_torch.kernels.spmv_sellp.kernel import (range_cols,
+                                                       resident_warps,
+                                                       sellp_geometry)
     from repro_torch.solvers import Stop, cg, jacobi_preconditioner
     from repro_torch.sparse import gallery, sellp_from_csr_host
 
@@ -2305,58 +2326,89 @@ def phase_sellp(torch, copy_bw):
              f"iterations against {k}, x differs by {dx}")
     profile = phase_profile(torch, A, b, P, ex, iters=k, tag="profile sellp")
 
-    # spmv_sellp at this matrix against its plain version, per row within
-    # 2 (w + 1) eps of the row's magnitude (w its slice's width: both sums
-    # round at most w times)
-    eps = torch.finfo(torch.float32).eps
+    # spmv_sellp against its plain version, per row within 2 (w + 1) eps of
+    # the row's magnitude (w its slice's width: both sums round at most w
+    # times), and a repeat bit for bit: at this matrix with C = 8, 12, 18,
+    # 32 and 96 and at a Graph 500 Kronecker Laplacian whose hub slices span
+    # several of the walk's ranges with C = 8, 12 and 18, each in f32 and
+    # f64 (C = 32 and the Kronecker C = 18 in f32).  At C = 18 (a lane-load a
+    # slot) and 96 (four) a column takes 18 and 24 lanes, the rest idle
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     xv = torch.randn(m, generator=gen, device="cuda")
     C = A.slice_size
     cfg = ex.launch_config("spmv_sellp", {"m": m, "slice_size": C, "itemsize": 4})
-    geo = dict(block_threads=cfg["block_threads"], wide_cols=cfg["wide_cols"])
+    geo = dict(block_threads=cfg["block_threads"])
     args = (A.col_idx, A.values, A.slice_sets, xv, m, C)
-    y = K.spmv_sellp(*args, **geo)
-    y_ref = K.spmv_sellp_plain(*args)
-    mag = K.spmv_sellp_plain(A.col_idx, A.values.abs(), A.slice_sets,
-                             xv.abs(), m, C)
-    width = A.slice_cols.repeat_interleave(C)[:m].to(mag.dtype)
-    err_rows = (y - y_ref).abs()
-    ratio = float((err_rows / (2 * (width + 1) * eps * mag).clamp_min(1e-30)).max())
-    err = float(err_rows.max())
-    say(f"[kernels] spmv_sellp: max_abs_err {err:.3e}; largest error "
-        f"{ratio:.3f} of its row's tolerance; shared memory "
-        f"{cfg.smem_bytes} bytes a block")
-    if not ratio <= 1.0:
-        fail(f"spmv_sellp disagrees with its plain version ({ratio} of the "
-             "per-row tolerance)")
-    # the same matrix with C = 32 (one lane a row of the warp walk) and
-    # C = 12 (not dividing 32: a thread a row), held alike, repeats bitwise
-    held_at = {}
-    for Cx in (32, 12):
-        Ax = sellp_from_csr_host(ip, ix, v, shape, slice_size=Cx, device="cuda")
-        cfg_x = ex.launch_config("spmv_sellp", {"m": m, "slice_size": Cx,
-                                                "itemsize": 4})
-        geo_x = dict(block_threads=cfg_x["block_threads"],
-                     wide_cols=cfg_x["wide_cols"])
-        args_x = (Ax.col_idx, Ax.values, Ax.slice_sets, xv, m, Cx)
-        y_x = K.spmv_sellp(*args_x, **geo_x)
-        same = torch.equal(y_x, K.spmv_sellp(*args_x, **geo_x))
-        mag_x = K.spmv_sellp_plain(Ax.col_idx, Ax.values.abs(), Ax.slice_sets,
-                                   xv.abs(), m, Cx)
-        width_x = Ax.slice_cols.repeat_interleave(Cx)[:m].to(mag_x.dtype)
-        err_x = (y_x - K.spmv_sellp_plain(*args_x)).abs()
-        ratio_x = float((err_x / (2 * (width_x + 1) * eps * mag_x)
+
+    def plan_of(B):
+        """The walk's geometry for B at its tuned threads a block."""
+        bt = ex.launch_config("spmv_sellp", {
+            "m": B.shape[0], "slice_size": B.slice_size,
+            "itemsize": B.values.element_size()})["block_threads"]
+        warps = resident_warps(B.col_idx, B.values, B.slice_size, bt)
+        R = range_cols(B.slice_size, B.values.numel() // B.slice_size, warps)
+        return bt, {"resident_warps": warps, **sellp_geometry(
+            B.slice_size, B.slice_sets, R,
+            itemsize=B.values.element_size())}
+
+    say(f"[kernels] spmv_sellp: geometry {geo}, {plan_of(A)[1]}; shared "
+        f"memory {cfg.smem_bytes} bytes a block")
+    kron = kron_laplacian(SELLP_KRON)
+
+    def held(name, csr, Cx, dtype, same_as=None):
+        ipx, ixx, vx, shx = csr
+        mx = shx[0]
+        Bx = (same_as if same_as is not None else sellp_from_csr_host(
+            ipx, ixx, vx.astype(np.float64 if dtype == torch.float64
+                                else np.float32), shx, slice_size=Cx,
+            device="cuda"))
+        bt_x, plan = plan_of(Bx)
+        geo_x = dict(block_threads=bt_x)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        xx = torch.randn(mx, generator=g, device="cuda", dtype=dtype)
+        a_x = (Bx.col_idx, Bx.values, Bx.slice_sets, xx, mx, Cx)
+        y_x = K.spmv_sellp(*a_x, **geo_x)
+        same = torch.equal(y_x, K.spmv_sellp(*a_x, **geo_x))
+        mag_x = K.spmv_sellp_plain(Bx.col_idx, Bx.values.abs(), Bx.slice_sets,
+                                   xx.abs(), mx, Cx)
+        width_x = Bx.slice_cols.repeat_interleave(Cx)[:mx].to(mag_x.dtype)
+        err_x = (y_x - K.spmv_sellp_plain(*a_x)).abs()
+        eps_x = torch.finfo(dtype).eps
+        ratio_x = float((err_x / (2 * (width_x + 1) * eps_x * mag_x)
                          .clamp_min(1e-30)).max())
-        held_at[f"C{Cx}"] = {"stored": Ax.nnz, "max_abs_err": float(err_x.max()),
-                             "tolerance_share": ratio_x, **geo_x}
-        say(f"[kernels] spmv_sellp at C = {Cx} ({Ax.nnz} stored): max_abs_err "
-            f"{float(err_x.max()):.3e}, largest error {ratio_x:.3f} of its "
-            f"row's tolerance; repeat bitwise equal: {same}")
+        entry = {"stored": Bx.nnz, "widest_slice": Bx.max_slice_cols,
+                 "max_abs_err": float(err_x.max()), "tolerance_share": ratio_x,
+                 "repeat_bitwise": same, **geo_x, **plan}
+        say(f"[kernels] spmv_sellp {name} C = {Cx} {dtype} ({Bx.nnz} stored, "
+            f"widest slice {Bx.max_slice_cols}, {plan['ranges']} ranges of "
+            f"{plan['range_cols']} columns, {plan['carries']} slices cut): "
+            f"max_abs_err {entry['max_abs_err']:.3e}, largest error "
+            f"{ratio_x:.3f} of its row's tolerance; repeat bitwise equal: "
+            f"{same}")
         if not ratio_x <= 1.0 or not same:
-            fail(f"spmv_sellp at C = {Cx} disagrees with its plain version or "
-                 "does not repeat")
-        err = max(err, float(err_x.max()))
-        del Ax, y_x, mag_x, width_x, err_x
+            fail(f"spmv_sellp {name} at C = {Cx} {dtype} disagrees with its "
+                 "plain version or does not repeat")
+        return entry
+
+    csr = (ip, ix, v, shape)
+    held_at = {"path_C8_float32": held("path", csr, C, torch.float32, A)}
+    err = held_at["path_C8_float32"]["max_abs_err"]
+    for name, mat, Cx, dt in (
+            ("path", csr, 8, torch.float64), ("path", csr, 12, torch.float32),
+            ("path", csr, 12, torch.float64), ("path", csr, 18, torch.float32),
+            ("path", csr, 18, torch.float64), ("path", csr, 32, torch.float32),
+            ("path", csr, 96, torch.float32), ("path", csr, 96, torch.float64),
+            ("kron", kron, 8, torch.float32), ("kron", kron, 8, torch.float64),
+            ("kron", kron, 12, torch.float32),
+            ("kron", kron, 12, torch.float64),
+            ("kron", kron, 18, torch.float32)):
+        key = f"{name}_C{Cx}_{str(dt).replace('torch.', '')}"
+        held_at[key] = held(name, mat, Cx, dt)
+    hub = held_at["kron_C8_float32"]
+    if not hub["widest_slice"] > 2 * hub["range_cols"]:
+        fail(f"the Kronecker matrix's widest slice ({hub['widest_slice']} "
+             f"columns) spans no more than two ranges of {hub['range_cols']}")
+    del kron
     A_csr = torch.sparse_csr_tensor(
         torch.from_numpy(ip.astype(np.int32)).cuda(),
         torch.from_numpy(ix).cuda(), torch.from_numpy(v).cuda(), size=shape)

@@ -312,22 +312,31 @@ def test_cuda_space_and_wrapper_checks():
 
 
 def test_sellp_geometry_for_h100():
-    """The H100 geometry (the probe's sweep on the path matrix): a wide
-    slice's partials (one per thread of the block's column groups) are the
-    kernel's shared memory; a slice wider than the block is walked per row
-    and needs none."""
+    """The H100 geometry (the probe's sweep on the path matrix): blocks of
+    256 threads, the one tuned parameter, which the wrapper also defaults
+    to; the range size follows from the matrix and the warps of a wave.  The
+    kernel's shared memory is each warp's ring of the stream (4 steps of its
+    lanes' slots, a column index and a value each) and, with several columns
+    a step, its tile of row partials."""
     from repro_torch.core import tuning
+    from repro_torch.kernels.spmv_sellp import kernel as SK
 
     hw = make_executor("h100").hw
     cfg = tuning.resolve("spmv_sellp", {"m": 2_097_152, "slice_size": 8,
                                         "itemsize": 4}, hw)
-    assert cfg["block_threads"] == 512 and cfg["wide_cols"] == 256
-    assert cfg.smem_bytes == 512 * 4
+    assert dict(cfg.block) == {"block_threads": 256} == {
+        "block_threads": SK.BLOCK_THREADS}
+    # the path matrix (3,996,928 stored columns at C = 8) over a wave of 132
+    # SMs x 32 warps: 474 columns a range, 8,433 ranges
+    R = SK.range_cols(8, 3_996_928, 132 * 32)
+    assert R == 474 and -(-3_996_928 // R) <= SK.RANGES_PER_WARP * 132 * 32
+    assert cfg.smem_bytes == 256 * (4 * 4 * 8 + 4 * 4)
     cfg = tuning.resolve("spmv_sellp", {"m": 100, "slice_size": 3,
                                         "itemsize": 8}, hw)
-    assert cfg.smem_bytes == (512 // 3) * 3 * 8
+    assert cfg.smem_bytes == 256 * (4 * 1 * 12 + 1 * 8)
     assert tuning.resolve("spmv_sellp", {"m": 100, "slice_size": 512,
-                                         "itemsize": 4}, hw).smem_bytes == 0
+                                         "itemsize": 4}, hw).smem_bytes == (
+        256 * 4 * 4 * 8)
 
 
 def _sellp_source_constants():
@@ -335,38 +344,242 @@ def _sellp_source_constants():
     import re
 
     src = (Path(K.__file__).parent / "csrc" / "spmv_sellp.cu").read_text()
-    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
-            for k in ("kWarp",)}
+    found = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+             for k in ("kWarp", "kStages")}
+    found["launch_bounds"] = int(re.search(
+        r"__launch_bounds__\((\d+), min_blocks<T>\(\)\)\nspmv_sellp_kernel",
+        src).group(1))
+    found["flush_guard"] = re.search(
+        r"if \(cps == 1\) \{\n(?:\s*//.*\n)*\s*if \((.*)\) \{", src).group(1)
+    return found
 
 
-@pytest.mark.parametrize("C,walk,lanes,chunk,groups", [
-    (3, "row", 1, 170, 170), (8, "warp", 4, 16, 64), (32, "warp", 1, 16, 16),
-    (512, "row", 1, 1, 0)])
-def test_sellp_lane_mapping_and_counts(C, walk, lanes, chunk, groups):
-    """The kernel's geometry at the H100 block of 512 threads: a warp per
-    slice when C divides 32 (32 / C lanes a row, 16 slices a chunk), else a
-    thread per row (512 / C slices a chunk, one when C > 256); the wide walk's
-    column groups.  In the warp walk, lane l sums entries l, l + 32, ... of
-    its slice, all of row l % C, and the lanes cover every entry once."""
+def _flush_stores(C, vec, lanes, cols, passes):
+    """Rows a slice's flush stores, lane by lane and pass by pass, as the
+    source's ``flush``: with one column a step each lane its own partials,
+    under the guard the source states; with several, lane (r, g) of the
+    reduction over the tile, the rows r, r + 32, ... of part g = 0."""
+    stores = []
+    for pas in range(passes):
+        for lane in range(SK_WARP):
+            p, q = lane // lanes, lane % lanes + pas * SK_WARP
+            if cols == 1:
+                if p < cols and q < C // vec:  # q < lanes_col
+                    stores += [(pas, lane, q * vec + i) for i in range(vec)]
+            else:
+                g = lane // C if C <= SK_WARP else 0
+                r0 = lane - g * C if C <= SK_WARP else lane
+                stores += [(pas, lane, r) for r in range(r0, C, SK_WARP)
+                           if g == 0]
+    return stores
+
+
+@pytest.mark.parametrize("C,vec,lanes,cols,passes", [
+    (3, 1, 3, 10, 1), (8, 4, 2, 16, 1), (18, 1, 18, 1, 1),
+    (32, 4, 8, 4, 1), (96, 4, 24, 1, 1), (512, 4, 32, 1, 4)])
+def test_sellp_lane_mapping_and_counts(C, vec, lanes, cols, passes):
+    """The kernel's walk for slice size C: lane l copies ``vec`` consecutive
+    slots (16 bytes of indices when C is a multiple of 4) into its part of
+    the warp's ring, lanes = C / vec of them a column (at most 32), 32 //
+    lanes columns a step, and a column of more than 32 lane-loads in passes
+    of 32.  Over a range's steps and passes the lanes load every slot of
+    every column once, each lane's slots within one column and of the rows
+    it holds partials for; a flush stores each of the slice's C rows from
+    exactly one lane, also where lanes past a column's last lane-load idle
+    (C = 18 and 96: 18 and 24 lanes a column, one column a step)."""
     from repro_torch.kernels.spmv_sellp import kernel as SK
 
     c = _sellp_source_constants()
-    assert c["kWarp"] == SK.WARP
-    geo = SK.sellp_geometry(C, 512)
-    assert (geo["walk"], geo["lanes_per_row"], geo["slices_per_chunk"],
-            geo["wide_groups"]) == (walk, lanes, chunk, groups)
-    assert geo["smem_per_byte"] == groups * C
-    if walk == "warp":
-        # lane l's entries of an 11-column slice, as the kernel walks them
-        width = 11
-        seen = []
+    assert (c["kWarp"], c["kStages"], c["launch_bounds"]) == (
+        SK.WARP, SK.RING_STAGES, SK.MAX_BLOCK_THREADS)
+    assert c["flush_guard"] == "p < cps && q < lanes_col"
+    stored_rows = sorted(r for _, _, r in _flush_stores(C, vec, lanes, cols,
+                                                        passes))
+    assert stored_rows == list(range(C))
+    geo = SK.sellp_geometry(C, itemsize=8)
+    assert (geo["vec"], geo["lanes_per_col"], geo["cols_per_step"],
+            geo["passes"]) == (vec, lanes, cols, passes)
+    # the ring's slots (a column index and a value each), then the tile
+    assert geo["smem_per_thread"] == (
+        SK.RING_STAGES * vec * 12 + (vec * 8 if cols > 1 else 0))
+    # the slots of a range of 11 columns, as the kernel loads them
+    width = 11
+    seen = []
+    for pas in range(passes):
         for lane in range(SK.WARP):
-            entries = list(range(lane, width * C, SK.WARP))
-            assert all(e % C == lane % C for e in entries)
-            assert all(e // C in range(lane // C, width, SK.WARP // C)
-                       for e in entries)
-            seen += entries
-        assert sorted(seen) == list(range(width * C))
+            p, q = lane // lanes, lane % lanes + pas * SK.WARP
+            if p >= cols or q * vec >= C:
+                continue
+            for b in range(0, width, cols):
+                j = b + p
+                if j < width:
+                    slots = [j * C + q * vec + i for i in range(vec)]
+                    assert {e // C for e in slots} == {j}
+                    assert [e % C for e in slots] == [q * vec + i
+                                                      for i in range(vec)]
+                    seen += slots
+    assert sorted(seen) == list(range(width * C))
+
+
+def _slices_ended_by(ss, c):
+    """``slices_ended_by`` of the source: the 32-way search for the first
+    slice ending past column c."""
+    lo, hi = 0, len(ss) - 1
+    while hi > lo:
+        step = -(-(hi - lo) // SK_WARP)
+        le = [lo + (t + 1) * step - 1 < hi
+              and ss[1 + lo + (t + 1) * step - 1] <= c for t in range(SK_WARP)]
+        below = sum(le)
+        assert le == [True] * below + [False] * (SK_WARP - below)
+        hi = min(hi, lo + (below + 1) * step - 1)
+        lo += below * step
+    return lo
+
+
+SK_WARP = 32
+
+
+def _walk(P, x, range_cols, order):
+    """Model of ``csrc/spmv_sellp.cu``'s walk at the step of its warps,
+    ranges taken in ``order``: y, the times each row of y and each stored
+    column was written or read, the slices that carried shares, and the
+    tickets after the launch."""
+    from repro_torch.kernels.spmv_sellp import kernel as SK
+
+    C, m, R = P.slice_size, P.shape[0], range_cols
+    ss = P.slice_sets.numpy().astype(np.int64)
+    cols = P.col_idx.numpy().reshape(-1, C)
+    vals = P.values.numpy().astype(np.float64).reshape(-1, C)
+    prod = vals * x[cols]
+    ns, total = len(ss) - 1, int(ss[-1])
+    cps = SK.sellp_geometry(C)["cols_per_step"]
+    ranges = -(-total // R)
+    head, own = np.full((ranges, C), np.nan), np.full((ranges, C), np.nan)
+    tickets = np.zeros(ranges, np.int64)
+    y, writes = np.full(m, np.nan), np.zeros(m, np.int64)
+    read = np.zeros(total, np.int64)
+    carried = set()
+
+    def write_rows(s, rows):
+        n = min(C, m - s * C)
+        y[s * C:s * C + n] = rows[:n]
+        writes[s * C:s * C + n] += 1
+
+    for k in order:
+        c_lo, c_hi = k * R, min(k * R + R, total)
+        s0 = 0 if k == 0 else _slices_ended_by(ss, c_lo)
+        assert s0 == np.sum(ss[1:] <= c_lo)
+        began_before = ss[s0] < c_lo
+        s, start, e = s0, ss[s0], ss[s0 + 1]
+        acc = np.zeros(C)
+
+        def flush():
+            if s == s0 and began_before:
+                head[k] = acc
+            elif e <= c_hi:
+                write_rows(s, acc)
+            else:
+                own[k] = acc
+            acc[:] = 0
+
+        for bu in range(c_lo, c_hi, cps):
+            nv, lo = min(cps, c_hi - bu), 0
+            while s < ns and e <= bu + nv:
+                acc += prod[bu + lo:e].sum(axis=0)
+                read[bu + lo:e] += 1
+                flush()
+                lo, s, start = e - bu, s + 1, e
+                e = ss[s + 1] if s < ns else 2 ** 31 - 1
+            acc += prod[bu + lo:bu + nv].sum(axis=0)
+            read[bu + lo:bu + nv] += 1
+        open_ = s < ns and start < c_hi
+        if open_:
+            flush()
+
+        def settle(s_, k0, k1):
+            carried.add(s_)
+            tickets[k0] += 1
+            if tickets[k0] == k1 - k0 + 1:
+                write_rows(s_, own[k0] + head[k0 + 1:k1 + 1].sum(axis=0))
+                tickets[k0] = 0
+
+        if began_before:
+            settle(s0, ss[s0] // R, (ss[s0 + 1] - 1) // R)
+        if open_ and not (s == s0 and began_before):
+            settle(s, k, (e - 1) // R)
+    return y, writes, read, carried, tickets
+
+
+def _carried_matrix(C, seed):
+    """A seeded SELL-P matrix of ragged m (not a multiple of C) with an
+    all-empty first slice (one padded column), slices of every width and a
+    hub row of 40 entries, at stride 1."""
+    rng = np.random.default_rng(seed)
+    m, n = 5 * C + 1, max(5 * C + 1, 64)
+    a = np.zeros((m, n), np.float32)
+    for i in range(C, m):
+        nz = rng.choice(n, size=rng.integers(0, 7), replace=False)
+        a[i, nz] = rng.standard_normal(nz.size)
+    a[C + 1, rng.choice(n, size=40, replace=False)] = 1.0
+    return F.sellp_from_dense(a, slice_size=C, stride_factor=1, device="cpu")
+
+
+@pytest.mark.parametrize("C", [3, 8, 32, 512])
+def test_sellp_ranges_and_carries_against_a_brute_force_split(C):
+    """``sellp_geometry``'s ranges and cut slices against a column-by-column
+    split of the stored columns into ranges, at ranges of 1, 4 and 13
+    columns and one past every column; then the walk (:func:`_walk`, ranges
+    in a shuffled order) reads every stored column once, writes every row
+    once, leaves every ticket at 0, carries exactly the cut slices, and gives
+    the plain version's y."""
+    from repro_torch.kernels.spmv_sellp import kernel as SK
+
+    P = _carried_matrix(C, seed=C)
+    ss = P.slice_sets.numpy().astype(np.int64)
+    total, (m, n) = int(ss[-1]), P.shape
+    assert m % C and ss[1] == 1  # ragged m, an all-empty slice
+    x = np.random.default_rng(C + 1).standard_normal(n)
+    want = K.spmv_sellp_plain(P.col_idx, P.values.double(), P.slice_sets,
+                              torch.from_numpy(x), m, C).numpy()
+    slice_of = np.repeat(np.arange(len(ss) - 1), np.diff(ss))
+    spans = []
+    for R in (1, 4, 13, total + 1):
+        ranges_of = {}
+        for j in range(total):
+            ranges_of.setdefault(slice_of[j], set()).add(j // R)
+        cut = {s for s, r in ranges_of.items() if len(r) > 1}
+        geo = SK.sellp_geometry(C, P.slice_sets, R)
+        assert geo["range_cols"] == R
+        assert geo["ranges"] == len({j // R for j in range(total)})
+        assert geo["carries"] == len(cut)
+        spans.append(max(len(r) for r in ranges_of.values()))
+        order = np.random.default_rng(R).permutation(geo["ranges"])
+        y, writes, read, carried, tickets = _walk(P, x, R, order)
+        assert (read == 1).all() and (writes == 1).all()
+        assert not tickets.any() and carried == cut
+        np.testing.assert_allclose(y, want, rtol=1e-12, atol=1e-12)
+    assert spans[1] > 2 and spans[-1] == 1  # a slice over more than two ranges
+
+
+@pytest.mark.parametrize("C", [3, 8, 512])
+def test_sellp_range_cols_from_the_wave(C):
+    """The range size the wrapper sets: the fewest columns that cut the
+    stored columns into at most RANGES_PER_WARP ranges a warp of the wave,
+    and never under MIN_RANGE_SLOTS slots; so a matrix too small to give
+    every warp its ranges walks ranges of the floor's size."""
+    from repro_torch.kernels.spmv_sellp import kernel as SK
+
+    floor = -(-SK.MIN_RANGE_SLOTS // C)
+    for total in (1, 7, floor * 5 + 3, 3_996_928, 225_454_472):
+        for warps in (1, 33, 132 * 32):
+            R = SK.range_cols(C, total, warps)
+            ranges = -(-total // R)
+            assert R >= floor and R * C >= SK.MIN_RANGE_SLOTS
+            if R > floor:
+                assert ranges <= SK.RANGES_PER_WARP * warps
+                assert -(-total // (R - 1)) > SK.RANGES_PER_WARP * warps
+            else:
+                assert total <= floor * SK.RANGES_PER_WARP * warps
 
 
 def test_sellp_probe_needs_a_card(monkeypatch):

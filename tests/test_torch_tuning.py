@@ -129,15 +129,15 @@ def test_entry_the_kernel_cannot_take_raises():
     """No shrink and no fallback: an autotuned or table geometry over a
     block's shared memory raises, where the seed would have fitted."""
     shapes = OPS_AND_SHAPES["spmv_sellp"]
-    small = dataclasses.replace(params.H100, name="h100_3k",
-                                smem_per_block_bytes=3000)
-    assert tuning.resolve("spmv_sellp", shapes, small).smem_bytes == 2048
-    wide = {"block_threads": 1024, "wide_cols": 256}
-    tuning.record_autotuned("spmv_sellp", "h100_3k", shapes, wide)
+    small = dataclasses.replace(params.H100, name="h100_50k",
+                                smem_per_block_bytes=50000)
+    assert tuning.resolve("spmv_sellp", shapes, small).smem_bytes == 36864
+    wide = {"block_threads": 512}
+    tuning.record_autotuned("spmv_sellp", "h100_50k", shapes, wide)
     with pytest.raises(ValueError, match="shared memory"):
         tuning.resolve("spmv_sellp", shapes, small)
     tuning.clear_autotune_cache()
-    tuning.set_table_entry("spmv_sellp", "h100_3k", wide)
+    tuning.set_table_entry("spmv_sellp", "h100_50k", wide)
     with pytest.raises(ValueError, match="shared memory"):
         tuning.resolve("spmv_sellp", shapes, small)
 
