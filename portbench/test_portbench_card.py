@@ -46,7 +46,8 @@ def test_control_is_not_correct_on_the_card(card, cell):
 def test_fault_is_not_correct_on_the_card(card, monkeypatch, cell, fault):
     from portbench import harness, test_portbench_faults
 
-    getattr(test_portbench_faults, fault)(monkeypatch)
+    getattr(test_portbench_faults, fault)(monkeypatch,
+                                          harness.load_cell(cell, ROOT)["config"])
     out = harness.run_cell(cell, 2 ** 31 + 11, 3.0, False, root=ROOT, device="cuda")
     res = out["result"]
     print(json.dumps(harness.json_safe({"cell": cell, "fault": fault,

@@ -4,25 +4,25 @@ limits, at a size a test run holds; the program's runs come out correct."""
 
 import pytest
 
-from portbench import control
+from portbench import control, harness, small, spec
 
-SMALL = {
-    "p3d256-bjcg-f32": {"config": {"problem": {"params": {"n_side": 12}}, "sizes": None}},
-    "p3d256-bjcg-f64": {"config": {"problem": {"params": {"n_side": 12}}, "sizes": None}},
-    "kron23-sellp-jcg-f32": {"config": {"problem": {"params": {"scale": 11}},
-                                        "sizes": None}},
-}
+CELLS = [w["name"] for w in spec.load()["workloads"]]
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL))
-def test_control_fails_program_passes(cell):
+def check_control(cell, root=spec.ROOT):
     out = control.readings(cell, [2 ** 31 + 1, 5], [2 ** 31 + 2, 6, 7], 0.1,
-                           device="cpu", executor="torch", overrides=SMALL[cell],
-                           emit=lambda line: None)
+                           device="cpu", executor="torch",
+                           overrides=small.overrides(cell, root),
+                           emit=lambda line: None, root=root)
     s = out["summary"]
     assert s["program_correct"] == [True, True]
     assert s["control_correct"] == [False, False, False]
+    working = harness.load_cell(cell, root)["traffic"]["dtype"]
     for r in out["runs"]:
         if r["kind"] == "control":
-            assert r["precision"] == control.LOWER[
-                "float64" if cell.endswith("f64") else "float32"]
+            assert r["precision"] == control.LOWER[working]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_fails_program_passes(cell):
+    check_control(cell)

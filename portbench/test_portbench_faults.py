@@ -8,29 +8,28 @@ import dataclasses
 import pytest
 import torch
 
-from portbench import harness
+from portbench import harness, small, spec
 from repro_torch.sparse import formats, ops
 from repro_torch.solvers import krylov
 
-SMALL = {
-    "p3d256-bjcg-f32": {"config": {"problem": {"params": {"n_side": 12}}, "sizes": None}},
-    "p3d256-bjcg-f64": {"config": {"problem": {"params": {"n_side": 12}}, "sizes": None}},
-    "kron23-sellp-jcg-f32": {"config": {"problem": {"params": {"scale": 11}},
-                                        "sizes": None}},
-}
+CELLS = [w["name"] for w in spec.load()["workloads"]]
 
 
-def run(cell):
-    return harness.run_cell(cell, 2 ** 31 + 99, 0.2, False, device="cpu",
-                            executor="torch", overrides=SMALL[cell])["result"]
+def run(cell, root=spec.ROOT):
+    return harness.run_cell(cell, 2 ** 31 + 99, 0.2, False, root=root, device="cpu",
+                            executor="torch",
+                            overrides=small.overrides(cell, root))["result"]
 
 
-def state_unchanged(mp):
+# Each fault takes the monkeypatch and the cell's configuration, and breaks
+# the timed path underneath.
+
+def state_unchanged(mp, config):
     """Every axpy returns its input y: x never moves from x0."""
     mp.setattr(ops, "axpy", lambda alpha, x, y, *, executor=None: y)
 
 
-def half_rows_left_out(mp):
+def half_rows_left_out(mp, config):
     """The operator's apply leaves out the second half of the rows, and the
     fused dot is taken over the rest."""
     real_apply, real_spmv_dot = ops.apply, ops.spmv_dot
@@ -51,7 +50,7 @@ def half_rows_left_out(mp):
     mp.setattr(ops, "spmv_dot", spmv_dot)
 
 
-def answer_altered(mp):
+def answer_altered(mp, config):
     """The solve's answer is altered where it is produced: x[0] + 1."""
     real = krylov.KrylovSolver.solve
 
@@ -63,22 +62,27 @@ def answer_altered(mp):
     mp.setattr(krylov.KrylovSolver, "solve", solve)
 
 
-def format_wrong(mp):
-    """The format conversion stores row 0's diagonal one too large (its
-    first entry: the columns ascend and row 0 has none below the diagonal)."""
-    import repro_torch.sparse as sparse
+def format_wrong(mp, config):
+    """The format conversion the configuration names stores row 0's first
+    entry one too large (its diagonal in the stencils and Laplacians here:
+    the columns ascend and row 0 has none below the diagonal)."""
+    fn = config["program"]["format"]["fn"]
+    real_resolve = harness.resolve
 
-    for name in ("ell_from_csr_host", "sellp_from_csr_host"):
-        real = getattr(sparse, name)
+    def resolve(dotted):
+        real = real_resolve(dotted)
+        if dotted != fn:
+            return real
 
-        def wrong(indptr, indices, values, shape, *args, _real=real, **kw):
+        def wrong(indptr, indices, values, shape, *args, **kw):
             values = values.copy()
             values[0] += 1
-            return _real(indptr, indices, values, shape, *args, **kw)
-        mp.setattr(sparse, name, wrong)
+            return real(indptr, indices, values, shape, *args, **kw)
+        return wrong
+    mp.setattr(harness, "resolve", resolve)
 
 
-def preconditioner_wrong(mp):
+def preconditioner_wrong(mp, config):
     """The preconditioner the configuration names is swapped for a weaker
     one (block-Jacobi for scalar Jacobi, scalar Jacobi for none): the loop
     still converges, in other iterations and through other iterates."""
@@ -97,15 +101,23 @@ FAULTS = [state_unchanged, half_rows_left_out, answer_altered, format_wrong,
           preconditioner_wrong]
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL))
+def run_under(cell, fault, mp, root=spec.ROOT):
+    """A run of ``cell`` with ``fault`` underneath (patched through ``mp``)."""
+    fault(mp, harness.load_cell(cell, root)["config"])
+    return run(cell, root)
+
+
+def assert_caught(res):
+    assert res["correct"] is False, res["checks"]
+    assert res["failed"] >= 1
+
+
+@pytest.mark.parametrize("cell", CELLS)
 def test_sound_run_is_correct(cell):
     assert run(cell)["correct"] is True
 
 
 @pytest.mark.parametrize("fault", FAULTS, ids=lambda f: f.__name__)
-@pytest.mark.parametrize("cell", sorted(SMALL))
+@pytest.mark.parametrize("cell", CELLS)
 def test_fault_is_not_correct(monkeypatch, cell, fault):
-    fault(monkeypatch)
-    res = run(cell)
-    assert res["correct"] is False, res["checks"]
-    assert res["failed"] >= 1
+    assert_caught(run_under(cell, fault, monkeypatch))

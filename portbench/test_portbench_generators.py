@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from portbench import spec
 from portbench.generators import graph500_laplacian, poisson3d_7pt
 from repro_torch.sparse import gallery
 
@@ -83,11 +84,17 @@ def test_graph500_skews_degrees_as_the_spec():
     assert deg.max() > 50 * deg.float().mean()
 
 
-def test_stencil_nonzeros_stated_in_config():
-    import json
-    from pathlib import Path
-    cfg = json.loads((Path(__file__).parent / "configs" /
-                      "poisson3d-7pt-bjcg.json").read_text())
+def _stencil_configs():
+    out = []
+    for c in spec.load()["configs"]:
+        cfg = spec.read_json(spec.ROOT / c["file"])
+        if cfg["problem"]["generator"] == "poisson3d_7pt":
+            out.append(pytest.param(cfg, id=c["name"]))
+    return out
+
+
+@pytest.mark.parametrize("cfg", _stencil_configs())
+def test_stencil_nonzeros_stated_in_config(cfg):
     s = cfg["problem"]["params"]["n_side"]
     # 7 a row, less one for each missing neighbour on the six faces
     assert cfg["sizes"] == {"rows": s ** 3, "nonzeros": 7 * s ** 3 - 6 * s * s}

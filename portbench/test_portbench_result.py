@@ -5,29 +5,30 @@ import json
 
 import pytest
 
-from portbench import harness
+from portbench import harness, small, spec
 
-SMALL = {
-    "p3d256-bjcg-f32": {"config": {"problem": {"params": {"n_side": 10}}, "sizes": None}},
-    "p3d256-bjcg-f64": {"config": {"problem": {"params": {"n_side": 10}}, "sizes": None}},
-    "kron23-sellp-jcg-f32": {"config": {"problem": {"params": {"scale": 11}},
-                                        "sizes": None}},
-}
+CELLS = [w["name"] for w in spec.load()["workloads"]]
 
-
-def run(cell, trace, seed=2 ** 31 + 17, seconds=0.2):
-    return harness.run_cell(cell, seed, seconds, trace, device="cpu",
-                            executor="torch", overrides=SMALL[cell])
+#: per-layer metrics that read the host alone, so a CPU run reports them
+#: wherever its cell lists them
+HOST_READ = {"iterations", "precond_setup_s", "format_setup_s"}
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL))
-def test_untraced_line(cell):
-    out = run(cell, False)
+def run(cell, trace, root=spec.ROOT, seed=2 ** 31 + 17, seconds=0.2):
+    return harness.run_cell(cell, seed, seconds, trace, root=root, device="cpu",
+                            executor="torch", overrides=small.overrides(cell, root))
+
+
+def check_untraced(cell, root=spec.ROOT):
+    out = run(cell, False, root)
     res = out["result"]
     assert list(res)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
     assert list(res)[-1] == "checks"
     assert res["correct"] is True and res["failed"] == 0 and res["attempted"] >= 1
-    assert set(res["metrics"]) == {"solve_s", "setup_s"}
+    # a CPU run reports every end-to-end metric of the cell on the host's clock
+    assert set(res["metrics"]) == {
+        m["name"] for m in spec.metrics_for(spec.load(root), cell, trace=False)
+        if m["source"] == "host_clock"}
     for m in res["metrics"].values():
         assert set(m) == {"value", "unit"} and m["value"] > 0
     assert set(res["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
@@ -38,16 +39,29 @@ def test_untraced_line(cell):
     json.dumps(harness.json_safe(res), allow_nan=False)
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL))
-def test_traced_line(cell):
-    res = run(cell, True)["result"]
+def check_traced(cell, root=spec.ROOT):
+    res = run(cell, True, root)["result"]
     assert res["correct"] is True
-    # on the CPU the trace holds no device activity: no device metric is
-    # written, and busy_s reads 0
-    assert set(res["metrics"]) == {"iterations", "precond_setup_s", "format_setup_s"}
+    # on the CPU the trace holds no device activity: no device metric and no
+    # share of a device peak is written, and busy_s reads 0
+    listed = {m["name"]: m for m in spec.metrics_for(spec.load(root), cell, trace=True)}
+    assert set(res["metrics"]) <= set(listed)
+    assert HOST_READ & set(listed) <= set(res["metrics"])
+    for name in res["metrics"]:
+        assert listed[name]["source"] != "device_trace" and listed[name]["unit"] != "%"
     assert res["device"]["busy_s"] == 0.0 and res["device"]["window_s"] > 0
     assert "breakdown" not in res
     assert list(res)[-1] == "checks"
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_untraced_line(cell):
+    check_untraced(cell)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_traced_line(cell):
+    check_traced(cell)
 
 
 def test_same_seed_same_inputs():

@@ -1,11 +1,12 @@
-"""``BENCHMARK.json`` against the contract's shape and name rules."""
+"""``BENCHMARK.json`` against the contract's shape and name rules, and against
+the accepted entries, which a later change keeps as they are and appends to."""
 
 import copy
 import json
 
 import pytest
 
-from portbench import spec
+from portbench import small, spec
 
 
 @pytest.fixture
@@ -17,18 +18,118 @@ def test_benchmark_json_is_valid(bench):
     assert spec.validate(bench) == []
 
 
-def test_cells_configs_and_metrics(bench):
-    assert [c["name"] for c in bench["configs"]] == [
-        "poisson3d-7pt-bjcg", "graph500-kron-sellp-jcg"]
-    assert [w["name"] for w in bench["workloads"]] == [
-        "p3d256-bjcg-f32", "kron23-sellp-jcg-f32", "p3d256-bjcg-f64"]
-    assert all(w["chips"] == 1 for w in bench["workloads"])
-    assert {m["name"] for m in bench["end_to_end"]} == {"solve_s", "setup_s"}
-    moves = {m["name"]: m["moves"] for m in bench["per_layer"]}
-    assert moves == {"iterations": "solve_s", "solve_mfu": "solve_s",
-                     "launches_per_iter": "solve_s", "spmv_roofline": "solve_s",
-                     "precond_apply_roofline": "solve_s", "idle_share": "solve_s",
-                     "precond_setup_s": "setup_s", "format_setup_s": "setup_s"}
+STENCIL = ["p3d256-bjcg-f32", "p3d256-bjcg-f64"]
+ALL = ["p3d256-bjcg-f32", "kron23-sellp-jcg-f32", "p3d256-bjcg-f64"]
+
+#: The accepted entries of ``BENCHMARK.json``, each with the keys that define
+#: it.  A later PR appends configurations, cells and metrics and may add its
+#: cells to a metric's ``workloads``; it leaves these as they are, so that
+#: every number in the ledger stays comparable.  A metric without
+#: ``workloads`` is reported in every cell.
+ACCEPTED = {
+    "configs": {
+        "poisson3d-7pt-bjcg": {"file": "portbench/configs/poisson3d-7pt-bjcg.json"},
+        "graph500-kron-sellp-jcg": {
+            "file": "portbench/configs/graph500-kron-sellp-jcg.json"},
+    },
+    "workloads": {
+        "p3d256-bjcg-f32": {"config": "poisson3d-7pt-bjcg", "traffic": "solves-f32",
+                            "chips": 1},
+        "kron23-sellp-jcg-f32": {"config": "graph500-kron-sellp-jcg",
+                                 "traffic": "solves-f32", "chips": 1},
+        "p3d256-bjcg-f64": {"config": "poisson3d-7pt-bjcg", "traffic": "solves-f64",
+                            "chips": 1},
+    },
+    "end_to_end": {
+        "solve_s": {"unit": "s", "better": "lower", "bound": 0.08,
+                    "source": "host_clock", "workloads": ALL},
+        "setup_s": {"unit": "s", "better": "lower", "bound": 0.25,
+                    "source": "host_clock", "workloads": ALL},
+    },
+    "per_layer": {
+        "iterations": {"unit": "iter", "better": "lower", "source": "program_counter",
+                       "layer": "solver loop", "moves": "solve_s", "workloads": ALL},
+        "solve_mfu": {"unit": "%", "better": "higher", "source": "host_clock",
+                      "layer": "solver loop", "moves": "solve_s", "workloads": ALL},
+        "launches_per_iter": {"unit": "launches/iter", "better": "lower",
+                              "source": "device_trace", "layer": "dispatch",
+                              "moves": "solve_s", "workloads": ALL},
+        "spmv_roofline": {"unit": "%", "better": "higher", "source": "device_trace",
+                          "layer": "kernels", "moves": "solve_s", "workloads": ALL},
+        "precond_apply_roofline": {"unit": "%", "better": "higher",
+                                   "source": "device_trace", "layer": "kernels",
+                                   "moves": "solve_s", "workloads": STENCIL},
+        "idle_share": {"unit": "ratio", "better": "lower", "source": "device_trace",
+                       "layer": "device", "moves": "solve_s", "workloads": ALL},
+        "precond_setup_s": {"unit": "s", "better": "lower", "source": "host_clock",
+                            "layer": "preconditioner", "moves": "setup_s",
+                            "workloads": ALL},
+        "format_setup_s": {"unit": "s", "better": "lower", "source": "host_clock",
+                           "layer": "sparse formats", "moves": "setup_s",
+                           "workloads": ALL},
+        "precond_apply_whole_roofline": {"unit": "%", "better": "higher",
+                                         "source": "program_span",
+                                         "layer": "preconditioner",
+                                         "moves": "solve_s", "workloads": STENCIL},
+        "stop_test_idle_share": {"unit": "ratio", "better": "lower",
+                                 "source": "device_trace", "layer": "solver loop",
+                                 "moves": "solve_s", "workloads": ALL},
+        "dispatch_host_us": {"unit": "us", "better": "lower", "source": "device_trace",
+                             "layer": "dispatch", "moves": "solve_s", "workloads": ALL},
+        "sellp_useful_share": {"unit": "ratio", "better": "higher",
+                               "source": "program_counter", "layer": "sparse formats",
+                               "moves": "solve_s",
+                               "workloads": ["kron23-sellp-jcg-f32"]},
+    },
+}
+
+
+def accepted_breaches(bench: dict, section: str, name: str) -> list:
+    """How ``bench`` departs from the accepted entry ``name`` of ``section``:
+    gone, a defining key changed, or an accepted cell dropped from the
+    metric's ``workloads`` (empty: none)."""
+    want = ACCEPTED[section][name]
+    got = [e for e in bench[section] if e.get("name") == name]
+    if not got:
+        return [f"{section} {name}: the accepted entry is gone"]
+    cells = [w.get("name") for w in bench["workloads"]]
+    errs = []
+    for key, value in want.items():
+        if key == "workloads":
+            lost = set(value) - set(got[0].get("workloads", cells))
+            if lost:
+                errs.append(f"{section} {name}: accepted cells {sorted(lost)} dropped")
+        elif got[0].get(key) != value:
+            errs.append(f"{section} {name}: {key} {got[0].get(key)!r} != {value!r}")
+    return errs
+
+
+def spec_breaches(bench: dict, root=spec.ROOT) -> list:
+    """The whole spec check: the contract's rules, every accepted entry as
+    accepted, and a CPU size for every cell."""
+    errs = spec.validate(bench, root)
+    for section, entries in ACCEPTED.items():
+        for name in entries:
+            errs += accepted_breaches(bench, section, name)
+    errs += [f"cell {w['name']}: no {small.path(w['name'], root)}"
+             for w in bench["workloads"] if not small.path(w["name"], root).is_file()]
+    return errs
+
+
+@pytest.mark.parametrize("section,name", [(s, n) for s in ACCEPTED for n in ACCEPTED[s]],
+                         ids=lambda v: v)
+def test_cells_configs_and_metrics(bench, section, name):
+    assert accepted_breaches(bench, section, name) == []
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in spec.load()["workloads"]])
+def test_every_cell_has_a_small_size(cell):
+    over = small.overrides(cell)
+    assert over and set(over) <= {"config", "traffic", "limits"}
+
+
+def test_spec_check_passes(bench):
+    assert spec_breaches(bench) == []
 
 
 def test_every_cell_finds_its_files(bench):
