@@ -55,11 +55,12 @@ Phases, each of which exits non-zero on failure:
             bitwise equal in each space (the CSR SpMV sums rows in a fixed
             order); then, at this path's shapes, spmv_ell on every level
             operator (timed, CSR torch.sparse.mm as library, and summed per
-            V(1,1) cycle: A three times, P and R once a level, beside the
+            V(1,1) cycle: A twice, P and R once a level, beside the
             profile's spmv_ell time an iteration), axpy_norm at the outer
             CG's vectors and block_jacobi_apply at the baseline's blocks
-            against their plain versions (phase 3's tolerances), and the two
-            SpGEMM kernels at level 0's shapes (bitwise), with their times;
+            against their plain versions (phase 3's tolerances), and the three
+            SpGEMM kernels at level 0's shapes (bitwise; spgemm_merge against
+            np.add.reduceat), with their times;
             csr_permute also on every level's P^T (bitwise, each timed;
             level 0 with its CUPTI kernel time), on level 0's order less
             its last 3 entries (a scalar tail), on views of both arrays 4
@@ -1852,7 +1853,7 @@ def phase_amg(torch, copy_bw):
     residual, the setup split, the loops alone, the same path in the torch
     space on the card, and the kernels held at this path's shapes: spmv_ell
     on every level operator, axpy_norm and block_jacobi_apply at the outer
-    CG's and the baseline's operands, the two SpGEMM kernels at level 0."""
+    CG's and the baseline's operands, the three SpGEMM kernels at level 0."""
     from repro_torch import kernels as K
     from repro_torch.core import make_executor
     from repro_torch.launch.amg_check import run_amg_check
@@ -1880,17 +1881,19 @@ def phase_amg(torch, copy_bw):
     say(f"[amg] dispatches by phase {r.dispatches}")
 
     # launch counts the hierarchy implies: per coarsened level three SpGEMMs
-    # (A.T, A.P, R.(AP)) and one transpose (R = P^T); per V(1,1)-cycle five
-    # ELL SpMVs per coarsened level (A.x in the pre-sweep, the residual
-    # before restriction, R, P, A.x in the post-sweep), one cycle per
+    # (A.T, A.P, R.(AP)), each one expansion and one merge, and one
+    # transpose (R = P^T); per V(1,1)-cycle four
+    # ELL SpMVs per coarsened level (the residual before restriction, R, P,
+    # A.x in the post-sweep; the pre-sweep from zero applies no A), one cycle per
     # preconditioner apply and CG applies it k + 1 times; the fused CG body
     # launches axpy_norm once per iteration; block-Jacobi applies once per
     # storage class per apply
     classes = len(r.M_bj.inv_blocks)
     expected = {
         ("amg_setup", "spgemm_expand"): 3 * nlev,
+        ("amg_setup", "spgemm_merge"): 3 * nlev,
         ("amg_setup", "csr_permute"): nlev,
-        ("amg_solve", "spmv_ell"): 5 * nlev * (k_amg + 1),
+        ("amg_solve", "spmv_ell"): 4 * nlev * (k_amg + 1),
         ("amg_solve", "axpy_norm"): k_amg,
         ("block_jacobi_solve", "axpy_norm"): k_bj,
         ("block_jacobi_solve", "block_jacobi_apply"): (k_bj + 1) * classes,
@@ -1899,8 +1902,8 @@ def phase_amg(torch, copy_bw):
         got = r.launches[ph][name]
         if got != want:
             fail(f"{name} launched {got} times in {ph}, expected {want}")
-    for name in ("spgemm_expand", "csr_permute", "spmv_ell", "axpy_norm",
-                 "block_jacobi_apply"):
+    for name in ("spgemm_expand", "spgemm_merge", "csr_permute", "spmv_ell",
+                 "axpy_norm", "block_jacobi_apply"):
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched on the AMG path")
     # the baseline applies each storage class once per preconditioner apply;
@@ -2058,12 +2061,12 @@ def phase_amg(torch, copy_bw):
     # k from 4 to about 100): against its plain version, tolerance as in
     # phase 3 (8 k eps relative to max_i sum_j |a_ij x_j|), and timed with
     # CSR torch.sparse.mm as library; then the V(1,1) cycle's sum, each
-    # operator weighted by its ELL SpMVs a cycle (A 3, P 1, R 1)
+    # operator weighted by its ELL SpMVs a cycle (A 2, P 1, R 1)
     eps = torch.finfo(torch.float32).eps
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     worst = 0.0
     levels = []
-    weight = {"A": 3, "P": 1, "R": 1}
+    weight = {"A": 2, "P": 1, "R": 1}
     for lvl, L in enumerate(M.levels):
         for name, E, C in (("A", L.A_op, L.A), ("P", L.P_op, L.P),
                            ("R", L.R_op, L.R)):
@@ -2127,11 +2130,10 @@ def phase_amg(torch, copy_bw):
         held["block_jacobi_apply"].append(bj_row(
             torch, flush, copy_bw, ex, inv, vp, " (AMG path)"))
 
-    # the two kernels at level 0's shapes: R.(AP) and P^T
+    # the three kernels at level 0's shapes: R.(AP) and P^T
     L0 = M.levels[0]
     AP = ops.spgemm(A, L0.P, executor=ex_t)
-    _, _, _, idx1, _ = ops._spgemm_expansion(L0.R, AP)
-    idx = torch.from_numpy(idx1).cuda()
+    rows_a, _, valid, idx, cols = ops._spgemm_expansion(L0.R, AP)
     a_vals = L0.R.values
     b_pad = torch.cat([AP.values.new_zeros(1), AP.values])
     bt = ex.launch_config("spgemm", {})["block_threads"]
@@ -2153,6 +2155,38 @@ def phase_amg(torch, copy_bw):
         lambda: K.spgemm_expand_plain(a_vals, idx, b_pad),
         4 * t + 8 * t * kw + gathered, t * kw)}
     rows_out["spgemm_expand"]["shape"] = {"T": t, "K": kw}
+
+    # spgemm_merge at R.(AP)'s coalesce: the valid products in (row, column)
+    # order and the runs' starts, as ops._coalesce makes them; bitwise
+    # against np.add.reduceat, the host coalesce's merge
+    key, order = torch.sort(
+        rows_a[:, None].expand(-1, kw)[valid] * AP.shape[1] + cols[valid],
+        stable=True)
+    head = torch.ones_like(key, dtype=torch.bool)
+    head[1:] = key[1:] != key[:-1]
+    starts = torch.nonzero(head).flatten()
+    sv = ref[valid][order]
+    del key, order, head
+    got = K.spgemm_merge(sv, starts, block_threads=bt)
+    want = K.spgemm_merge_plain(sv, starts)
+    same = torch.equal(got, want)
+    say(f"[kernels] spgemm_merge at R.(AP) of level 0: {sv.numel()} products "
+        f"in {starts.numel()} runs, {str(sv.dtype).removeprefix('torch.')}; "
+        f"bitwise equal to np.add.reduceat: {same}")
+    if not same:
+        fail("spgemm_merge differs from np.add.reduceat at R.(AP) of level 0")
+    offsets = torch.cat([starts, starts.new_tensor([sv.numel()])])
+    say("[kernels] spgemm_merge library_ms: torch.segment_reduce (sums in "
+        "another order)")
+    rows_out["spgemm_merge"] = row(
+        "spgemm_merge", "spgemm.cu", "src/repro/sparse/ops.py:560", 0.0,
+        lambda: K.spgemm_merge(sv, starts, block_threads=bt),
+        lambda: K.spgemm_merge_plain(sv, starts),
+        sv.numel() * sv.element_size() + starts.numel() * (8 + sv.element_size()),
+        sv.numel() - starts.numel(),
+        lambda: torch.segment_reduce(sv, "sum", offsets=offsets))
+    rows_out["spgemm_merge"]["shape"] = {"products": sv.numel(),
+                                         "runs": starts.numel()}
 
     # csr_permute on the transpose of every level's P (AMG setup's R = P^T),
     # bitwise; level 0's P^T timed as the row (with its CUPTI time), every

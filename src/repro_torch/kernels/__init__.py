@@ -36,6 +36,8 @@ from repro_torch.kernels.spgemm.kernel import (
     csr_permute_plain,
     spgemm_expand,
     spgemm_expand_plain,
+    spgemm_merge,
+    spgemm_merge_plain,
 )
 from repro_torch.kernels.spmv_dot.kernel import spmv_dot_ell, spmv_dot_ell_plain
 from repro_torch.kernels.spmv_batch_ell.kernel import (
@@ -67,6 +69,7 @@ KERNELS = {
     "block_jacobi_apply": block_jacobi_apply,
     "spgemm_expand": spgemm_expand,
     "csr_permute": csr_permute,
+    "spgemm_merge": spgemm_merge,
     "spmv_sellp": spmv_sellp,
     "spmv_batch_ell": spmv_batch_ell,
     "rmsnorm": rmsnorm,
@@ -108,6 +111,8 @@ __all__ = [
     "rwkv6_scan_plain",
     "spgemm_expand",
     "spgemm_expand_plain",
+    "spgemm_merge",
+    "spgemm_merge_plain",
     "spmv_batch_ell",
     "spmv_batch_ell_plain",
     "spmv_dot_ell",

@@ -1,7 +1,9 @@
 // The numeric passes of SpGEMM and of the sparse transpose.
 //
 // Replaces: src/repro/kernels/spgemm/kernel.py::spgemm_expand and
-// ::csr_permute (Pallas TPU).
+// ::csr_permute (Pallas TPU); spgemm_merge replaces the host merge of
+// src/repro/sparse/ops.py::_coalesce_host (np.add.reduceat), which has no
+// TPU kernel.
 //
 // spgemm_expand: out[t, q] = a_vals[t] * b_pad[idx[t, q]] over a row-major
 // (T, K) gather map.  idx is +1-shifted into b_pad, whose slot 0 holds 0, so
@@ -39,6 +41,19 @@
 // bitwise equal to values[order].  4 packs in flight a thread instead of 2
 // gained nothing on the H100 (0.0181 against 0.0183 ms at nnz =
 // 2,619,476).
+//
+// spgemm_merge: out[s] = the sum of values[starts[s] .. starts[s + 1]) (the
+// last run ends at nnz), the merge of a product's duplicate coordinates
+// after its expansion is sorted by (row, column).  The sum is the one the
+// host coalesce takes, numpy's np.add.reduceat: the run's first value plus
+// the pairwise sum of the rest (fewer than 8 terms in order from -0.0; up to
+// 128 in 8 strided accumulators combined as ((0+1)+(2+3))+((4+5)+(6+7)),
+// then the remainder in order; longer runs split at half, rounded down to a
+// multiple of 8, and the halves added), so the result is bitwise the host
+// coalesce's, every run the same bits.  Bound: bytes (the values read once,
+// the starts, the sums written); one thread a run, since a run holds a few
+// terms (1 to about 30 on an AMG hierarchy).  Runs past 129 terms take an
+// out-of-line walk with an explicit stack in place of numpy's recursion.
 #include <cstdint>
 
 #include "common.cuh"
@@ -115,6 +130,89 @@ __global__ void csr_permute_kernel(const T* __restrict__ values,
   if (t < total - tail) out[tail + t] = values[order[tail + t]];
 }
 
+// numpy's pairwise block: fewer than 8 terms in order from -0.0, else 8
+// strided accumulators, their tree, then the remainder in order (n <= 128)
+template <typename T>
+__device__ __forceinline__ T pairwise_block(const T* __restrict__ a,
+                                            long long n) {
+  if (n < 8) {
+    T res = T(-0.0);
+    for (long long i = 0; i < n; ++i) res += a[i];
+    return res;
+  }
+  T r[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r[j] = a[j];
+  long long i = 8;
+  for (; i < n - n % 8; i += 8) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[j] += a[i + j];
+  }
+  T res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]));
+  for (; i < n; ++i) res += a[i];
+  return res;
+}
+
+// numpy's recursion (split at n / 2 rounded down to a multiple of 8, left
+// sum plus right sum) walked on an explicit stack: stage 0 a range not yet
+// entered, 1 its left half summed (in ret), 2 both halves summed
+template <typename T>
+__device__ __noinline__ T pairwise_long(const T* __restrict__ a, long long n) {
+  constexpr int kDepth = 64;  // a run of n terms nests log2(n / 128) + 1
+  long long off[kDepth], len[kDepth];
+  T left[kDepth];
+  unsigned char stage[kDepth];
+  int sp = 0;
+  off[0] = 0;
+  len[0] = n;
+  stage[0] = 0;
+  T ret = T(0);
+  for (;;) {
+    const long long half = len[sp] / 2 - (len[sp] / 2) % 8;
+    if (stage[sp] == 0 && len[sp] > 128) {
+      stage[sp] = 1;
+      off[sp + 1] = off[sp];
+      len[sp + 1] = half;
+      stage[sp + 1] = 0;
+      ++sp;
+      continue;
+    }
+    if (stage[sp] == 0) {
+      ret = pairwise_block(a + off[sp], len[sp]);
+    } else if (stage[sp] == 1) {
+      left[sp] = ret;
+      stage[sp] = 2;
+      off[sp + 1] = off[sp] + half;
+      len[sp + 1] = len[sp] - half;
+      stage[sp + 1] = 0;
+      ++sp;
+      continue;
+    } else {
+      ret = left[sp] + ret;
+    }
+    if (sp == 0) return ret;
+    --sp;
+  }
+}
+
+template <typename T>
+__global__ void spgemm_merge_kernel(const T* __restrict__ values,
+                                    const long long* __restrict__ starts,
+                                    T* __restrict__ out, long long runs,
+                                    long long nnz) {
+  const long long s =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s >= runs) return;
+  const long long lo = starts[s];
+  const long long n = (s + 1 < runs ? starts[s + 1] : nnz) - lo - 1;
+  T sum = values[lo];
+  if (n > 128)
+    sum += pairwise_long(values + lo + 1, n);
+  else if (n > 0)
+    sum += pairwise_block(values + lo + 1, n);
+  out[s] = sum;
+}
+
 unsigned grid_for(long long n, int block_threads) {
   return static_cast<unsigned>((n + block_threads - 1) / block_threads);
 }
@@ -150,7 +248,32 @@ int launch_permute(const T* values, const int* order, T* out, long long nnz,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_merge(const T* values, const long long* starts, T* out,
+                 long long runs, long long nnz, int block_threads,
+                 cudaStream_t stream) {
+  spgemm_merge_kernel<T><<<grid_for(runs, block_threads), block_threads, 0,
+                           stream>>>(values, starts, out, runs, nnz);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int repro_spgemm_merge_f32(const float* values,
+                                      const long long* starts, float* out,
+                                      long long runs, long long nnz,
+                                      int block_threads, void* stream) {
+  return launch_merge(values, starts, out, runs, nnz, block_threads,
+                      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_spgemm_merge_f64(const double* values,
+                                      const long long* starts, double* out,
+                                      long long runs, long long nnz,
+                                      int block_threads, void* stream) {
+  return launch_merge(values, starts, out, runs, nnz, block_threads,
+                      static_cast<cudaStream_t>(stream));
+}
 
 extern "C" int repro_spgemm_expand_f32(const float* a_vals, const int* idx,
                                        const float* b_pad, float* out,

@@ -1,16 +1,17 @@
 """Registry binding: the CUDA numeric passes serve ``spgemm`` and
 ``sptranspose`` in the ``cuda`` space.
 
-Both share the host structure passes of :mod:`repro_torch.sparse.ops` with
-the other spaces (the expansion maps and coalesce; the transpose's lexsort)
-and run only the numeric pass as a kernel: ``spgemm_expand`` for the
-expansion products, ``csr_permute`` for the transpose's value shuffle.  The
-registration is unconditional and nothing falls back to another space (the
-TPU binding fell back to XLA when its working set missed VMEM; these kernels
-keep no tile in shared memory, so nothing can miss).  Threads per block come
-from the ``spgemm`` tuning spec, one spec for both kernels (``csr_permute``
-sizes its grid itself, one wave, and ran level 0's transpose within 3 % at
-128 to 1,024 threads a block on the H100).
+Both share the structure passes of :mod:`repro_torch.sparse.ops` with the
+torch space, on the operands' device (the expansion maps and the sort of the
+coalesce; the transpose's stable argsort), and run the numeric passes as
+kernels: ``spgemm_expand`` for the expansion products, ``spgemm_merge`` for
+the sums of equal coordinates, ``csr_permute`` for the transpose's value
+shuffle.  The registration is unconditional and nothing falls back to
+another space (the TPU binding fell back to XLA when its working set missed
+VMEM; these kernels keep no tile in shared memory, so nothing can miss).
+Threads per block come from the ``spgemm`` tuning spec, one spec for the
+three kernels (``csr_permute`` sizes its grid itself, one wave, and ran
+level 0's transpose within 3 % at 128 to 1,024 threads a block on the H100).
 """
 
 from __future__ import annotations
@@ -19,7 +20,11 @@ import functools
 
 from repro_torch.core import registry, tuning
 from repro_torch.kernels._check import require_cuda
-from repro_torch.kernels.spgemm.kernel import csr_permute, spgemm_expand
+from repro_torch.kernels.spgemm.kernel import (
+    csr_permute,
+    spgemm_expand,
+    spgemm_merge,
+)
 
 
 def _constrain(hw, shapes, block):
@@ -43,15 +48,22 @@ def _spgemm_cuda(ex, A, B):
 
     require_cuda("spgemm", A.values, B.values)
     cfg = ex.launch_config("spgemm", {"nnz_a": A.nnz, "nnz_b": B.nnz})
-    return _spgemm_skeleton(ex, A, B, expand=functools.partial(
-        spgemm_expand, block_threads=cfg["block_threads"]))
+    bt = cfg["block_threads"]
+    return _spgemm_skeleton(
+        ex, A, B, expand=functools.partial(spgemm_expand, block_threads=bt),
+        merge=functools.partial(spgemm_merge, block_threads=bt))
 
 
 @registry.register("sptranspose", "cuda")
 def _sptranspose_cuda(ex, A):
-    from repro_torch.sparse.ops import _sptranspose_skeleton
+    from repro_torch.sparse.ops import (
+        _sptranspose_skeleton,
+        _transpose_structure_device,
+    )
 
     require_cuda("sptranspose", A.values)
     cfg = ex.launch_config("spgemm", {"nnz_a": A.nnz})
-    return _sptranspose_skeleton(ex, A, permute=functools.partial(
-        csr_permute, block_threads=cfg["block_threads"]))
+    return _sptranspose_skeleton(
+        ex, A, structure=_transpose_structure_device,
+        permute=functools.partial(csr_permute,
+                                  block_threads=cfg["block_threads"]))

@@ -53,7 +53,8 @@ def make_preconditioner(A, kind: str, *, executor=None, **opts):
 
     Kinds: ``identity``, ``jacobi`` (scalar; accepts ``adaptive``),
     ``block_jacobi`` (accepts ``block_size``/``blocks``/``adaptive``/``tau``),
-    ``amg`` (smoothed-aggregation multigrid on a CSR ``A``; accepts
+    ``amg`` (aggregation multigrid on a CSR or ELL ``A``, smoothed unless
+    ``smooth_prolongator=False``; accepts
     ``theta``/``cycle``/``smoother``/``coarse_solver``/... — see
     :class:`repro_torch.precond.amg.Multigrid`), ``parilu`` (on a CSR ``A``;
     accepts ``factor_sweeps``/``solve_sweeps``/``structure`` — see

@@ -1,30 +1,43 @@
-"""Algebraic multigrid — smoothed aggregation on the SpGEMM family.
+"""Algebraic multigrid — smoothed or plain (unsmoothed) aggregation.
 
-The port of the JAX package's ``gko::multigrid`` analogue.  Setup, all
-sparse-sparse composition through the registered ``spgemm`` / ``sptranspose``
-ops (so it runs in whichever kernel space the executor selects):
+The port of the JAX package's ``gko::multigrid`` analogue.  Setup per level:
 
   1. strength of connection — entry (i, j) is strong when
      ``|a_ij| ≥ θ·√(a_ii·a_jj)``;
   2. greedy aggregation — three sequential host passes (seed, attach,
-     singletons), the same ``agg`` as the JAX package's;
+     singletons), the same ``agg`` as the JAX package's: :func:`aggregate` in
+     Python for a hierarchy on the CPU, the same passes compiled into the
+     port's library (``kernels/csrc/amg_aggregate.cu``) for one on a card;
   3. tentative prolongator ``T`` (one unit entry per row), smoothed into
-     ``P = (I − ω·D⁻¹A)·T`` by one SpGEMM;
+     ``P = (I − ω·D⁻¹A)·T`` by one SpGEMM (the default), or left as is,
+     ``P = T`` (``smooth_prolongator=False``: ``gko::multigrid::Pgm``'s
+     piecewise-constant transfer);
   4. Galerkin product ``A_c = R·(A·P)`` with ``R = Pᵀ`` — two SpGEMMs and one
      transpose.
 
-So a coarsened level costs three ``spgemm`` and one ``sptranspose``
-dispatches (two ``spgemm`` without the smoothed prolongator).  The cycle
+All sparse-sparse composition goes through the registered ``spgemm`` /
+``sptranspose`` ops (so it runs in whichever kernel space the executor
+selects, on A's device): a coarsened level costs three ``spgemm`` and one
+``sptranspose`` dispatches (two ``spgemm`` without the smoothed
+prolongator).
+
+The operand is a CSR or, for the hierarchy's first level, an ELL matrix:
+an ``Ell`` A is its own level-0 ``A_op`` (no second copy of the fine
+operator), and its stored zeros (the padding) are not entries.  The cycle
 (V or W) runs weighted-Jacobi or block-Jacobi smoothers and a dense-inverse
 (default) or CG coarse solve; every level applies A, P and R through their
 ELL mirrors (``spmv_ell``).  With one pre- and one post-sweep a V-cycle
-makes 5 ELL SpMVs per coarsened level: A·x in the pre-sweep (x = 0 there,
-as in the JAX package), the residual before restriction, R, P, and A·x in
-the post-sweep.
+makes 4 ELL SpMVs per coarsened level: the residual before restriction, R,
+P, and A·x in the post-sweep.  The pre-sweep starts from x = 0, whose
+residual is r itself, so it applies no A (the JAX package applies A to the
+zero guess, which gives the same x but for the sign of a zero).
 
-Setup emits ``amg.setup`` / ``amg.level`` / ``amg.coarse_solver`` trace
-spans (:func:`repro_torch.observability.trace.span`) and the gauges
-``amg_level_rows``, ``amg_level_nnz`` and ``amg_operator_complexity``.
+Setup emits ``amg.setup`` / ``amg.aggregate`` / ``amg.level`` /
+``amg.coarse_solver`` trace spans (:func:`repro_torch.observability.trace.span`)
+and the gauges ``amg_level_rows``, ``amg_level_nnz`` and
+``amg_operator_complexity``.  Each apply's work below the finest level, from
+the restricted residual to the coarse correction, is one ``amg.coarse``
+span, timed on the residual's device while tracing or a profiler records.
 
 The serve path's two-level half (``amg_serve_pattern``,
 ``amg_serve_factors``, ``batch_amg_apply``) splits the hierarchy as the
@@ -36,8 +49,9 @@ whatever the other slots hold.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,7 +64,6 @@ from repro_torch.sparse.formats import (
     Ell,
     csr_from_arrays,
     csr_host_arrays,
-    ell_from_csr_host,
 )
 from repro_torch.sparse.ops import (
     _coalesce_host,
@@ -137,13 +150,15 @@ def aggregate(
     return np.asarray(agg, np.int64), n_agg
 
 
-def tentative_prolongator(agg: np.ndarray, n_agg: int, *, device=None) -> Csr:
-    """``T``: (n, n_agg) CSR with one unit entry per row."""
+def tentative_prolongator(agg: np.ndarray, n_agg: int, *, device=None,
+                          dtype=np.float32) -> Csr:
+    """``T``: (n, n_agg) CSR with one unit entry per row, float32 as in the
+    JAX package unless ``dtype`` says otherwise."""
     n = agg.shape[0]
     return csr_from_arrays(
         np.arange(n + 1, dtype=np.int64),
         agg.astype(np.int32),
-        np.ones(n, np.float32),
+        np.ones(n, dtype),
         (n, n_agg),
         device=device,
     )
@@ -158,9 +173,45 @@ def _csr_diag(indptr, indices, values, n) -> np.ndarray:
 
 
 def _ell_of(A: Csr) -> Ell:
-    indptr, indices, values = csr_host_arrays(A)
-    return ell_from_csr_host(indptr, indices, values, A.shape,
-                             device=A.values.device)
+    """A's ELL mirror, built on A's device in
+    :func:`repro_torch.sparse.formats.ell_from_csr_host`'s
+    layout: row i's entries in its first slots in CSR order, the rest column
+    0 and value 0, as wide as the longest row (at least 1)."""
+    m = A.shape[0]
+    dev = A.values.device
+    counts = (A.indptr[1:] - A.indptr[:-1]).long()
+    k = max(int(counts.max()) if m else 0, 1)
+    rows = torch.repeat_interleave(torch.arange(m, device=dev), counts)
+    pos = torch.arange(rows.shape[0], device=dev) - A.indptr[:-1].long()[rows]
+    cols = torch.zeros((m, k), dtype=torch.int32, device=dev)
+    vals = torch.zeros((m, k), dtype=A.values.dtype, device=dev)
+    cols[rows, pos] = A.indices.to(torch.int32)
+    vals[rows, pos] = A.values
+    return Ell(cols, vals, A.shape)
+
+
+def _aggregate_for(device: torch.device, indptr, indices, strong, n):
+    """:func:`aggregate`'s ``(agg, n_agg)``: the compiled passes for a
+    hierarchy on a card (the port's library is loaded there), the Python
+    ones elsewhere.  Both give the same array."""
+    if device.type == "cuda":
+        from repro_torch.kernels.amg_aggregate import aggregate_compiled
+
+        return aggregate_compiled(indptr, indices, strong, n)
+    return aggregate(indptr, indices, strong, n)
+
+
+def _as_csr(A) -> Csr:
+    """A itself if CSR; an ELL matrix's entries as a CSR on its device (for
+    the SpGEMMs of set-up), without its padding."""
+    if isinstance(A, Csr):
+        return A
+    r, slot = torch.nonzero(A.values, as_tuple=True)
+    indptr = torch.zeros(A.shape[0] + 1, dtype=torch.int32,
+                         device=A.values.device)
+    indptr[1:] = torch.cumsum(torch.bincount(r, minlength=A.shape[0]), 0)
+    return Csr(indptr=indptr, indices=A.col_idx[r, slot],
+               values=A.values[r, slot], shape=tuple(A.shape))
 
 
 def _csr_sub_scaled(Tm: Csr, S: Csr, row_scale: np.ndarray) -> Csr:
@@ -182,13 +233,15 @@ def _csr_sub_scaled(Tm: Csr, S: Csr, row_scale: np.ndarray) -> Csr:
 class AmgLevel:
     """One level: its operator, the transfer pair, the smoother's data.
 
-    The CSR forms are what the Galerkin composition produced; the ``*_op``
-    ELL mirrors are what the cycle applies.  ``smoother`` is a block-Jacobi
-    LinOp when the hierarchy was built with ``smoother="block_jacobi"``,
-    else None (weighted Jacobi with ``inv_diag``).
+    The CSR forms are what the Galerkin composition produced (level 0's
+    ``A`` is the operand as given, CSR or ELL); the ``*_op`` ELL mirrors are
+    what the cycle applies (an ELL operand is its own ``A_op``).
+    ``smoother`` is a block-Jacobi LinOp when the hierarchy was built with
+    ``smoother="block_jacobi"``, else None (weighted Jacobi with
+    ``inv_diag``).
     """
 
-    A: Csr
+    A: Union[Csr, Ell]
     P: Csr  # prolongation: coarse -> fine
     R: Csr  # restriction: fine -> coarse (Pᵀ)
     A_op: Ell
@@ -199,17 +252,24 @@ class AmgLevel:
 
 
 class Multigrid(LinOp):
-    """AMG V/W-cycle as a LinOp (gko::multigrid::Pgm + gko::solver::Multigrid).
+    """AMG V/W-cycle as a LinOp (gko::solver::Multigrid).
 
-    ``apply(r)`` runs one cycle from a zero initial guess: the preconditioner
-    application ``M⁻¹ r``.  With symmetric smoothing (weighted Jacobi, equal
-    pre/post sweep counts) the V-cycle is SPD, safe as CG's ``M``.  The
-    hierarchy lives on A's device.
+    The default transfer is smoothed aggregation (``P = (I − ω·D⁻¹A)·T``);
+    ``smooth_prolongator=False`` is ``gko::multigrid::Pgm``'s unsmoothed,
+    piecewise-constant transfer ``P = T`` and coarse operator ``Tᵀ·A·T``
+    (the aggregates are this module's greedy ones, not Pgm's matched pairs).
+    The unsmoothed P and R hold their unit entries in A's dtype (the JAX
+    package's T is float32), so the cycle applies them to A's vectors in
+    their own precision; for a float32 A the two are the same.
+    ``A`` is a CSR or an ELL matrix.  ``apply(r)`` runs one cycle from a
+    zero initial guess: the preconditioner application ``M⁻¹ r``.  With
+    symmetric smoothing (weighted Jacobi, equal pre/post sweep counts) the
+    V-cycle is SPD, safe as CG's ``M``.  The hierarchy lives on A's device.
     """
 
     def __init__(
         self,
-        A: Csr,
+        A: Union[Csr, Ell],
         *,
         theta: float = 0.08,
         omega: float = 2.0 / 3.0,
@@ -244,7 +304,7 @@ class Multigrid(LinOp):
         self.levels: List[AmgLevel] = []
         dev = A.values.device
 
-        fine_nnz = max(A.nnz, 1)
+        level_nnz: List[int] = []
         with span("amg.setup", cat="amg", n=A.shape[0], nnz=A.nnz,
                   theta=theta, cycle=cycle):
             level = 0
@@ -253,22 +313,32 @@ class Multigrid(LinOp):
                 n = A.shape[0]
                 with span("amg.aggregate", cat="amg", level=level, rows=n):
                     strong = strength_mask(indptr, indices, values, theta)
-                    agg, n_agg = aggregate(indptr, indices, strong, n)
+                    agg, n_agg = _aggregate_for(dev, indptr, indices, strong, n)
                 if n_agg >= n:
                     break  # coarsening stalled: stop descending
                 diag = _csr_diag(indptr, indices, values, n)
                 inv_d = np.where(diag != 0, 1.0 / diag, 0.0).astype(values.dtype)
+                nnz = int(indptr[-1])
+                del indptr, indices, values, strong, diag
                 with span("amg.level", cat="amg", level=level, rows=n,
-                          nnz=A.nnz, coarse_rows=n_agg):
-                    T = tentative_prolongator(agg, n_agg, device=dev)
+                          nnz=nnz, coarse_rows=n_agg):
+                    A_csr = _as_csr(A)  # for this level's SpGEMMs only
                     if smooth_prolongator:
-                        AT = spgemm(A, T, executor=executor)
+                        T = tentative_prolongator(agg, n_agg, device=dev)
+                        AT = spgemm(A_csr, T, executor=executor)
                         P = _csr_sub_scaled(T, AT, self.omega * inv_d)
+                        del AT
                     else:
-                        P = T
+                        # in A's dtype: the cycle applies P and R to A's
+                        # vectors (float32 A: the JAX package's T)
+                        P = tentative_prolongator(agg, n_agg, device=dev,
+                                                  dtype=inv_d.dtype)
                     R = sptranspose(P, executor=executor)
-                    A_c = spgemm(R, spgemm(A, P, executor=executor),
+                    A_c = spgemm(R, spgemm(A_csr, P, executor=executor),
                                  executor=executor)
+                    del A_csr
+                    A_op = A if isinstance(A, Ell) else _ell_of(A)
+                    P_op, R_op = _ell_of(P), _ell_of(R)
                 sm = None
                 if smoother == "block_jacobi":
                     from repro_torch.precond.block_jacobi import block_jacobi
@@ -276,21 +346,21 @@ class Multigrid(LinOp):
                     sm = block_jacobi(A, executor=executor,
                                       **(smoother_opts or {}))
                 self.levels.append(AmgLevel(
-                    A=A, P=P, R=R,
-                    A_op=_ell_of(A), P_op=_ell_of(P), R_op=_ell_of(R),
+                    A=A, P=P, R=R, A_op=A_op, P_op=P_op, R_op=R_op,
                     inv_diag=torch.as_tensor(inv_d, device=dev),
                     smoother=sm,
                 ))
                 metrics.gauge("amg_level_rows", level=level).set(n)
-                metrics.gauge("amg_level_nnz", level=level).set(A.nnz)
+                metrics.gauge("amg_level_nnz", level=level).set(nnz)
+                level_nnz.append(nnz)
                 A = A_c
                 level += 1
 
-            self.coarse_A = A
+            A = self.coarse_A = _as_csr(A)  # an ELL operand never coarsened
             metrics.gauge("amg_level_rows", level=level).set(A.shape[0])
             metrics.gauge("amg_level_nnz", level=level).set(A.nnz)
-            total_nnz = sum(l.A.nnz for l in self.levels) + A.nnz
-            self.operator_complexity = total_nnz / fine_nnz
+            fine_nnz = level_nnz[0] if level_nnz else A.nnz
+            self.operator_complexity = (sum(level_nnz) + A.nnz) / max(fine_nnz, 1)
             metrics.gauge("amg_operator_complexity").set(
                 self.operator_complexity
             )
@@ -312,6 +382,7 @@ class Multigrid(LinOp):
                         stop=Stop(max_iters=50, reduction_factor=1e-8),
                         executor=executor,
                     )
+        self._weights = [self.omega * L.inv_diag for L in self.levels]
 
     @classmethod
     def from_levels(
@@ -347,6 +418,7 @@ class Multigrid(LinOp):
         )
         self._coarse_inv = coarse_inv
         self._coarse_solver = None
+        self._weights = [self.omega * L.inv_diag for L in self.levels]
         return self
 
     @property
@@ -364,13 +436,19 @@ class Multigrid(LinOp):
 
     # -- the cycle -------------------------------------------------------------
 
-    def _smooth(self, L: AmgLevel, x, r, sweeps: int, executor):
+    def _smooth(self, lvl: int, x, r, sweeps: int, executor):
+        """``sweeps`` smoothing sweeps on level ``lvl`` from ``x``; ``x`` None
+        is the zero guess, whose first sweep takes ``r`` as its residual
+        (``r − A·0`` is ``r``) and its update as the new ``x``.  Weighted
+        Jacobi scales by ``ω·D⁻¹``, formed once in set-up."""
+        L = self.levels[lvl]
         for _ in range(sweeps):
-            res = r - sp_apply(L.A_op, x, executor=executor)
+            res = r if x is None else r - sp_apply(L.A_op, x, executor=executor)
             if L.smoother is not None:
-                x = x + L.smoother.apply(res, executor=executor)
+                dx = L.smoother.apply(res, executor=executor)
             else:
-                x = x + self.omega * L.inv_diag * res
+                dx = self._weights[lvl] * res
+            x = dx if x is None else x + dx
         return x
 
     def _coarse_solve(self, r, executor):
@@ -378,13 +456,9 @@ class Multigrid(LinOp):
             return self._coarse_inv @ r
         return self._coarse_solver.apply(r, executor=executor)
 
-    def _cycle(self, lvl: int, r, executor):
-        if lvl == len(self.levels):
-            return self._coarse_solve(r, executor)
-        L = self.levels[lvl]
-        x = self._smooth(L, torch.zeros_like(r), r, self.pre_sweeps, executor)
-        rc = sp_apply(L.R_op, r - sp_apply(L.A_op, x, executor=executor),
-                      executor=executor)
+    def _coarse_correction(self, lvl: int, rc, executor):
+        """The cycle's visits to level ``lvl + 1`` for the restricted
+        residual ``rc``: one (V) or two (W)."""
         xc = self._cycle(lvl + 1, rc, executor)
         if self.cycle == "w" and lvl + 1 < len(self.levels):
             # second recursive visit (γ = 2), corrected with the updated
@@ -392,8 +466,22 @@ class Multigrid(LinOp):
             rc2 = rc - sp_apply(self.levels[lvl + 1].A_op, xc,
                                 executor=executor)
             xc = xc + self._cycle(lvl + 1, rc2, executor)
+        return xc
+
+    def _cycle(self, lvl: int, r, executor):
+        if lvl == len(self.levels):
+            return self._coarse_solve(r, executor)
+        L = self.levels[lvl]
+        x = self._smooth(lvl, None, r, self.pre_sweeps, executor)
+        if x is None:  # no pre-sweep: the residual of x = 0 is r
+            x = torch.zeros_like(r)
+        rc = sp_apply(L.R_op, r - sp_apply(L.A_op, x, executor=executor),
+                      executor=executor)
+        with (span("amg.coarse", cat="amg", device_of=rc) if lvl == 0
+              else contextlib.nullcontext()):
+            xc = self._coarse_correction(lvl, rc, executor)
         x = x + sp_apply(L.P_op, xc, executor=executor)
-        return self._smooth(L, x, r, self.post_sweeps, executor)
+        return self._smooth(lvl, x, r, self.post_sweeps, executor)
 
     def _apply(self, r: torch.Tensor, executor) -> torch.Tensor:
         ex = executor if executor is not None else self.executor
@@ -402,11 +490,13 @@ class Multigrid(LinOp):
         return self._cycle(0, r, ex)
 
 
-def amg_preconditioner(A: Csr, *, executor=None, **opts) -> Multigrid:
-    """``M="amg"`` factory — one V(1,1)-cycle of smoothed aggregation."""
-    if not isinstance(A, Csr):
+def amg_preconditioner(A: Union[Csr, Ell], *, executor=None,
+                       **opts) -> Multigrid:
+    """``M="amg"`` factory — one V(1,1)-cycle of smoothed aggregation by
+    default, over a CSR or an ELL operand."""
+    if not isinstance(A, (Csr, Ell)):
         raise TypeError(
-            f"amg preconditioner needs a CSR operand, got {type(A).__name__}"
+            f"amg preconditioner needs a CSR or ELL operand, got {type(A).__name__}"
         )
     return Multigrid(A, executor=executor, **opts)
 

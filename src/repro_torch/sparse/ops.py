@@ -29,7 +29,11 @@ import torch
 
 from repro_torch.core import registry
 from repro_torch.kernels.axpy_norm.kernel import axpy_norm_plain
-from repro_torch.kernels.spgemm.kernel import csr_permute_plain, spgemm_expand_plain
+from repro_torch.kernels.spgemm.kernel import (
+    csr_permute_plain,
+    spgemm_expand_plain,
+    spgemm_merge_plain,
+)
 from repro_torch.kernels.spmv_ell.kernel import spmv_ell_plain
 from repro_torch.kernels.spmv_sellp.kernel import (
     sellp_slice_of_column,
@@ -494,7 +498,8 @@ def axpy_norm(alpha, x, y, *, executor=None):
 #
 # ``gko::Csr::apply(Csr)``, the setup-path workhorse behind AMG's Galerkin
 # product R·A·P.  The structure of C = A·B depends on the data; the torch
-# and cuda spaces run the same host structure pass around their numeric pass:
+# and cuda spaces run the same structure passes, on the operands' device,
+# around their numeric passes:
 #
 #   1. row-nnz upper bound: expand each a_ik into the length of B's row k and
 #      build the padded (T, K) gather map (T = nnz(A), K = the widest row of
@@ -502,17 +507,22 @@ def axpy_norm(alpha, x, y, *, executor=None):
 #   2. numeric expansion: the (T, K) products a_ik·b_kj — the flop-carrying
 #      pass (the torch space's plain gather-multiply, the cuda space's
 #      ``spgemm_expand`` kernel);
-#   3. coalesce: sort the (row, col, value) triplets, merge duplicates in
-#      order, build indptr.
+#   3. coalesce: a stable sort of the valid products by (row, col) — the
+#      order of the host lexsort — then the merge of each run of equal
+#      coordinates (the torch space's ``np.add.reduceat`` on the host, the
+#      cuda space's ``spgemm_merge`` kernel, which adds in numpy's order),
+#      and indptr.
 #
-# Steps 1 and 3 are shared bit for bit and step 2 is one multiply per entry,
-# so both spaces give the same structure and values; the reference space's
-# per-row merge sums the same products in the same order.  Structural
-# nonzeros are kept even when numerically zero: the pattern is a pure
-# function of the operand patterns.  The transpose's structure pass (the
-# column-major order of A's entries) is a host lexsort in the reference and
-# cuda spaces and a device argsort in the torch space; its numeric pass is
-# the value shuffle ``values[order]`` (the cuda space's ``csr_permute``).
+# Steps 1 and 3's structure are integer passes and step 2 is one multiply
+# per entry, so both spaces give the JAX package's structure and values bit
+# for bit (its host coalesce is the same lexsort and ``np.add.reduceat``);
+# the reference space's per-row merge sums the same products in the same
+# order.  Structural nonzeros are kept even when numerically zero: the
+# pattern is a pure function of the operand patterns.  The transpose's
+# structure pass (the column-major order of A's entries) is a host lexsort
+# in the reference space and a stable device argsort of the (column, row)
+# keys in the torch and cuda spaces; its numeric pass is the value shuffle
+# ``values[order]`` (the cuda space's ``csr_permute``).
 
 spgemm_op = registry.operation(
     "spgemm", "C = A @ B for CSR pairs (sparse-sparse composition)"
@@ -531,40 +541,27 @@ def _empty_csr(m: int, n: int, dtype: torch.dtype, device) -> Csr:
     )
 
 
-def _spgemm_maps(A: Csr, B: Csr):
-    """Host structure pass: expansion maps for C = A·B.
-
-    Returns ``(rows_a, b_start, b_len, K)``: entry t of A contributes
-    products against ``b_len[t]`` entries of B starting at ``b_start[t]``,
-    lands in output row ``rows_a[t]``; ``K`` is the padded expansion width.
-    """
-    ai = host_array(A.indptr).astype(np.int64)
-    ac = host_array(A.indices).astype(np.int64)
-    bi = host_array(B.indptr).astype(np.int64)
-    rows_a = np.repeat(np.arange(A.shape[0], dtype=np.int64), np.diff(ai))
-    b_start = bi[ac]
-    b_len = np.diff(bi)[ac]
-    K = int(b_len.max()) if b_len.size else 0
-    return rows_a, b_start, b_len, K
-
-
 def _spgemm_expansion(A: Csr, B: Csr):
-    """Step 1: ``(rows_a, K, valid, idx1, cols)`` — the (T, K) validity mask,
-    the +1-shifted gather map into the zero-padded values of B, and the output
-    column of every slot (structure, so computed here from the same map)."""
-    rows_a, b_start, b_len, K = _spgemm_maps(A, B)
-    q = np.arange(K)
+    """Step 1 on A's device: ``(rows_a, K, valid, idx1, cols)`` — the output
+    row of each entry of A, the (T, K) validity mask, the +1-shifted int32
+    gather map into the zero-padded values of B, and the output column of
+    every slot (structure, so computed here from the same map)."""
+    bi = B.indptr.long()
+    ac = A.indices.long()
+    rows_a = _csr_row_ids(A)
+    b_start = bi[ac]
+    b_len = (bi[1:] - bi[:-1])[ac]
+    K = int(b_len.max()) if b_len.numel() else 0
+    q = torch.arange(K, device=ac.device)
     valid = q[None, :] < b_len[:, None]
-    idx1 = np.where(valid, b_start[:, None] + q[None, :] + 1, 0).astype(np.int32)
-    bc_pad = np.concatenate(
-        [np.zeros(1, np.int64), host_array(B.indices).astype(np.int64)]
-    )
+    idx1 = torch.where(valid, b_start[:, None] + q[None, :] + 1, 0).to(torch.int32)
+    bc_pad = torch.cat([bi.new_zeros(1), B.indices.long()])
     return rows_a, K, valid, idx1, bc_pad[idx1]
 
 
 def _coalesce_host(rows, cols, vals, m: int):
-    """Step 3: sort (row, col, val) triplets, merge duplicate coordinates in
-    their order, build CSR arrays — the pass every space shares."""
+    """Sort (row, col, val) triplets, merge duplicate coordinates in their
+    order, build CSR arrays — on the host (AMG's smoothed prolongator)."""
     if rows.size == 0:
         return (
             np.zeros(m + 1, np.int64),
@@ -583,14 +580,22 @@ def _coalesce_host(rows, cols, vals, m: int):
     return indptr, out_c.astype(np.int32), out_v
 
 
-def _finalize_spgemm(rows_a, K, valid, cols, prod, m, n, *, device) -> Csr:
-    """Keep the valid expanded triplets and coalesce them into C."""
-    vmask = np.asarray(valid).ravel()
-    rows_f = np.repeat(rows_a, K)[vmask]
-    cols_f = np.asarray(cols).ravel()[vmask]
-    vals_f = np.asarray(prod).ravel()[vmask]
-    indptr, out_c, out_v = _coalesce_host(rows_f, cols_f, vals_f, m)
-    return csr_from_arrays(indptr, out_c, out_v, (m, n), device=device)
+def _coalesce(rows, cols, vals, shape, *, merge) -> Csr:
+    """Step 3 on the triplets' device: :func:`_coalesce_host`'s CSR, with
+    ``merge(sorted_vals, starts)`` summing each run of equal coordinates."""
+    m, n = shape
+    key, order = torch.sort(rows * n + cols, stable=True)
+    head = torch.ones_like(key, dtype=torch.bool)
+    head[1:] = key[1:] != key[:-1]
+    starts = torch.nonzero(head).flatten()
+    out_v = merge(vals[order], starts)
+    out_key = key[starts]
+    del key, order, head
+    counts = torch.bincount(out_key // n, minlength=m)
+    indptr = torch.zeros(m + 1, dtype=torch.int32, device=rows.device)
+    indptr[1:] = torch.cumsum(counts, 0)
+    return Csr(indptr=indptr, indices=(out_key % n).to(torch.int32),
+               values=out_v, shape=(int(m), int(n)))
 
 
 @spgemm_op.register("reference")
@@ -632,31 +637,34 @@ def _spgemm_ref(ex, A: Csr, B: Csr) -> Csr:
     return csr_from_arrays(indptr, cols, vals, (m, n), device=A.values.device)
 
 
-def _spgemm_skeleton(ex, A: Csr, B: Csr, *, expand) -> Csr:
-    """Host structure pass, ``expand(a_vals, idx1, b_pad)`` on A's device for
-    the numeric pass, host coalesce.  The torch space passes the plain
-    gather-multiply, the cuda space the ``spgemm_expand`` kernel."""
+def _spgemm_skeleton(ex, A: Csr, B: Csr, *, expand, merge) -> Csr:
+    """The three steps on A's device: the structure pass,
+    ``expand(a_vals, idx1, b_pad)`` for the products, the coalesce with
+    ``merge``.  The torch space passes the plain gather-multiply and the
+    host ``np.add.reduceat``, the cuda space the ``spgemm_expand`` and
+    ``spgemm_merge`` kernels."""
     m = A.shape[0]
     n = B.shape[1]
     dev = A.values.device
     dtype = torch.promote_types(A.dtype, B.dtype)
     with span("spgemm.structure", cat="spgemm"):
         rows_a, K, valid, idx1, cols = _spgemm_expansion(A, B)
-    if K == 0 or rows_a.size == 0:
+    if K == 0 or rows_a.numel() == 0:
         return _empty_csr(m, n, dtype, dev)
-    with span("spgemm.numeric", cat="spgemm", t=int(rows_a.size), k=K):
+    with span("spgemm.numeric", cat="spgemm", t=int(rows_a.numel()), k=K):
         b_pad = torch.cat([torch.zeros(1, dtype=dtype, device=dev),
                            B.values.to(dtype)])
-        prod = expand(A.values.to(dtype), torch.from_numpy(idx1).to(dev), b_pad)
-        prod = host_array(prod)
+        prod = expand(A.values.to(dtype), idx1, b_pad)
     with span("spgemm.coalesce", cat="spgemm"):
-        return _finalize_spgemm(rows_a, K, valid, cols, prod, m, n, device=dev)
+        rows = rows_a[:, None].expand(-1, K)[valid]
+        return _coalesce(rows, cols[valid], prod[valid], (m, n), merge=merge)
 
 
 @spgemm_op.register("torch")
 def _spgemm_torch(ex, A: Csr, B: Csr) -> Csr:
     """One-shot expansion: the padded gather-multiply as one torch op."""
-    return _spgemm_skeleton(ex, A, B, expand=spgemm_expand_plain)
+    return _spgemm_skeleton(ex, A, B, expand=spgemm_expand_plain,
+                            merge=spgemm_merge_plain)
 
 
 def _transpose_structure(A: Csr):
@@ -673,18 +681,31 @@ def _transpose_structure(A: Csr):
     return order, indptr, rows[order]
 
 
-def _sptranspose_skeleton(ex, A: Csr, *, permute) -> Csr:
-    """Host structure pass, then ``permute(values, order)`` on A's device."""
+def _transpose_structure_device(A: Csr):
+    """:func:`_transpose_structure` on A's device: a stable argsort of the
+    (column, row) keys orders A's entries as the host lexsort does."""
+    m, n = A.shape
+    rows = _csr_row_ids(A)
+    cols = A.indices.long()
+    order = torch.argsort(cols * m + rows, stable=True)
+    counts = torch.bincount(cols, minlength=n)
+    indptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return order, indptr, rows[order]
+
+
+def _sptranspose_skeleton(ex, A: Csr, *, permute,
+                          structure=_transpose_structure) -> Csr:
+    """The structure pass, then ``permute(values, order)`` on A's device."""
     m, n = A.shape
     dev = A.values.device
     with span("sptranspose.structure", cat="spgemm"):
-        order, indptr, t_cols = _transpose_structure(A)
-    with span("sptranspose.numeric", cat="spgemm", nnz=int(order.size)):
+        order, indptr, t_cols = structure(A)
+    with span("sptranspose.numeric", cat="spgemm", nnz=int(order.shape[0])):
         vals = permute(A.values,
-                       torch.from_numpy(order.astype(np.int32)).to(dev))
+                       torch.as_tensor(order, device=dev).to(torch.int32))
     return Csr(
-        indptr=torch.from_numpy(indptr.astype(np.int32)).to(dev),
-        indices=torch.from_numpy(t_cols.astype(np.int32)).to(dev),
+        indptr=torch.as_tensor(indptr, device=dev).to(torch.int32),
+        indices=torch.as_tensor(t_cols, device=dev).to(torch.int32),
         values=vals,
         shape=(n, m),
     )
@@ -698,20 +719,9 @@ def _sptranspose_ref(ex, A: Csr) -> Csr:
 
 @sptranspose_op.register("torch")
 def _sptranspose_torch(ex, A: Csr) -> Csr:
-    """Device transpose: a stable argsort of the (column, row) keys, which
-    orders A's entries as the host lexsort does, and a device bincount."""
-    m, n = A.shape
-    rows = _csr_row_ids(A)
-    cols = A.indices.long()
-    order = torch.argsort(cols * m + rows, stable=True)
-    counts = torch.bincount(cols, minlength=n)
-    indptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    return Csr(
-        indptr=indptr.to(torch.int32),
-        indices=rows[order].to(torch.int32),
-        values=A.values[order],
-        shape=(n, m),
-    )
+    """Device transpose: the device structure pass and the value gather."""
+    return _sptranspose_skeleton(ex, A, permute=csr_permute_plain,
+                                 structure=_transpose_structure_device)
 
 
 def spgemm(A: Csr, B: Csr, *, executor=None) -> Csr:

@@ -16,6 +16,11 @@ settings.register_profile("ci", max_examples=20, deadline=None)
 settings.load_profile("ci")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs a CUDA card; skips inside the test without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

@@ -4,7 +4,8 @@ On ``poisson_2d(16)`` and ``anisotropic_2d(16)`` (256 rows), with the
 default coarse size (one coarsened level) and ``coarse_size=8`` (three):
 
 * ``strength_mask`` and ``aggregate`` give identical arrays;
-* the hierarchy is identical level for level — rows, ``indptr``,
+* the hierarchy is identical level for level, with the smoothed
+  prolongator (the default) and without it — rows, ``indptr``,
   ``indices`` and values bit for bit (the port's reference space against
   the JAX reference space, its torch space against ``xla`` and
   ``pallas_interpret``: the SpGEMM products are single multiplies summed in
@@ -15,11 +16,13 @@ default coarse size (one coarsened level) and ``coarse_size=8`` (three):
   :func:`repro_torch.convert.multigrid` is within rtol 1e-5 of the JAX apply
   (f32 SpMVs summed in another order, through several levels);
 * AMG-CG iterations are within ±1 of the JAX solve for cycle v/w, smoother
-  jacobi/block_jacobi and coarse solver dense/cg, x within rtol 1e-4 (f32
-  dots in another order);
+  jacobi/block_jacobi and coarse solver dense/cg, and for the unsmoothed
+  transfer on both matrices, x within rtol 1e-4 (f32 dots in another
+  order);
 * ``run_amg_check(16, ...)`` passes its gate on the CPU;
-* the dispatch log counts 3 ``spgemm`` and 1 ``sptranspose`` per coarsened
-  level, and 5 ``spmv_ell`` per coarsened level per V(1,1)-cycle — the
+* the dispatch log counts 3 ``spgemm`` (2 unsmoothed) and 1
+  ``sptranspose`` per coarsened level, and 4 ``spmv_ell`` per coarsened
+  level per V(1,1)-cycle (none in the pre-sweep from zero) — the
   counts ``chip_smoke.py`` holds the kernels' launches to on the card.
 """
 
@@ -81,9 +84,10 @@ def _assert_same_csr(got, want):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_hierarchy(name, jax_space, coarse_size):
+def _jax_hierarchy(name, jax_space, coarse_size, smooth=True):
     Aj, _ = _pair(name)
     return jamg.Multigrid(Aj, coarse_size=coarse_size,
+                          smooth_prolongator=smooth,
                           executor=jax_make_executor(jax_space))
 
 
@@ -121,13 +125,7 @@ def test_tentative_prolongator_partition_of_unity():
 # -- the hierarchy -------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("port_space,jax_space", SPACES)
-@pytest.mark.parametrize("name", ["poisson_2d", "anisotropic_2d"])
-@pytest.mark.parametrize("coarse_size", [64, 8])
-def test_hierarchy_identical_to_jax(port_space, jax_space, name, coarse_size):
-    J = _jax_hierarchy(name, jax_space, coarse_size)
-    _, At = _pair(name)
-    M = Multigrid(At, coarse_size=coarse_size, executor=make_executor(port_space))
+def _assert_same_hierarchy(M, J):
     assert M.num_levels == J.num_levels >= 2
     for L, JL in zip(M.levels, J.levels):
         for f in ("A", "P", "R"):
@@ -142,6 +140,35 @@ def test_hierarchy_identical_to_jax(port_space, jax_space, name, coarse_size):
     assert M.operator_complexity == J.operator_complexity
     np.testing.assert_allclose(M._coarse_inv.numpy(), np.asarray(J._coarse_inv),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("port_space,jax_space", SPACES)
+@pytest.mark.parametrize("name", ["poisson_2d", "anisotropic_2d"])
+@pytest.mark.parametrize("coarse_size", [64, 8])
+def test_hierarchy_identical_to_jax(port_space, jax_space, name, coarse_size):
+    J = _jax_hierarchy(name, jax_space, coarse_size)
+    _, At = _pair(name)
+    M = Multigrid(At, coarse_size=coarse_size, executor=make_executor(port_space))
+    _assert_same_hierarchy(M, J)
+
+
+@pytest.mark.parametrize("port_space,jax_space", SPACES)
+@pytest.mark.parametrize("name", ["poisson_2d", "anisotropic_2d"])
+@pytest.mark.parametrize("coarse_size", [64, 8])
+def test_unsmoothed_hierarchy_identical_to_jax(port_space, jax_space, name,
+                                               coarse_size):
+    """``smooth_prolongator=False`` (P = T, the Galerkin product TᵀAT): the
+    same hierarchy bit for bit, P and R float32 like A and the JAX package's
+    T; anisotropic_2d's values are not whole numbers, so the sums' order
+    shows."""
+    J = _jax_hierarchy(name, jax_space, coarse_size, smooth=False)
+    _, At = _pair(name)
+    M = Multigrid(At, coarse_size=coarse_size, smooth_prolongator=False,
+                  executor=make_executor(port_space))
+    _assert_same_hierarchy(M, J)
+    for L in M.levels:
+        assert L.P.values.dtype == L.R.values.dtype == torch.float32
+        assert bool((L.P.values == 1).all()) and bool((L.R.values == 1).all())
 
 
 def test_galerkin_product_matches_dense():
@@ -239,7 +266,7 @@ def test_vcycle_spmv_count_and_residual_drop():
     b = torch.from_numpy(_rhs(At.shape[0]))
     ex.dispatch_log.clear()
     x = M.apply(b)
-    assert ex.dispatch_log["spmv_ell"] == 5 * len(M.levels)
+    assert ex.dispatch_log["spmv_ell"] == 4 * len(M.levels)
     r = b - ops.apply(At, x, executor=ex)
     assert float(r.norm()) < 0.5 * float(b.norm())
 
@@ -278,6 +305,23 @@ def test_amg_cg_matches_jax(cycle, smoother, coarse_solver):
     assert np.linalg.norm(x - x_j) <= 1e-4 * np.linalg.norm(x_j)
     if coarse_solver == "dense":  # (the coarse CG runs its own axpy_norm)
         assert ex.dispatch_log["axpy_norm"] == res.iterations  # fused CG body
+
+
+@pytest.mark.parametrize("cycle", ["v", "w"])
+@pytest.mark.parametrize("name", ["poisson_2d", "anisotropic_2d"])
+def test_unsmoothed_amg_cg_matches_jax(cycle, name):
+    """CG with the unsmoothed (Pgm) transfer against the JAX package's, as
+    :func:`test_amg_cg_matches_jax` holds the smoothed one."""
+    opts = (("cycle", cycle), ("smooth_prolongator", False),
+            ("coarse_size", 8))
+    it_j, x_j, conv_j = _jax_amg_cg(name, opts)
+    _, At = _pair(name)
+    res = cg(At, torch.from_numpy(_rhs(At.shape[0])), stop=Stop(**STOP_KW),
+             M="amg", precond_opts=dict(opts), executor=make_executor("torch"))
+    assert conv_j and res.converged
+    assert abs(res.iterations - it_j) <= 1
+    x = res.x.numpy()
+    assert np.linalg.norm(x - x_j) <= 1e-4 * np.linalg.norm(x_j)
 
 
 def test_amg_cuts_iterations_against_block_jacobi():
@@ -319,7 +363,7 @@ def test_run_amg_check_passes_on_cpu(space, capsys):
     assert r.dispatches["amg_setup"]["spgemm"] == 3 * levels
     assert r.dispatches["amg_setup"]["sptranspose"] == levels
     k = r.amg.iterations
-    assert r.dispatches["amg_solve"]["spmv_ell"] == 5 * levels * (k + 1)
+    assert r.dispatches["amg_solve"]["spmv_ell"] == 4 * levels * (k + 1)
     assert r.dispatches["amg_solve"]["axpy_norm"] == k
     # the CPU path takes the plain versions: no kernel launches anywhere
     assert all(n == 0 for phase in r.launches.values() for n in phase.values())

@@ -193,8 +193,10 @@ def test_default_block_size_and_factory():
     assert P.block_size == 8  # the executor's subgroup width
     with pytest.raises(TypeError, match="CSR"):  # ParILU takes CSR, as in JAX
         make_preconditioner(At, "parilu")
-    with pytest.raises(TypeError, match="CSR"):  # AMG takes CSR, as in JAX
-        make_preconditioner(At, "amg")
+    # AMG takes this ELL operand too (the JAX package's takes CSR only); at
+    # 24 rows it is not coarsened: the dense coarse solve alone
+    M = make_preconditioner(At, "amg", executor=make_executor("torch"))
+    assert M.num_levels == 1 and M.shape == At.shape
     with pytest.raises(ValueError, match="block pointers"):
         block_jacobi(At, blocks=[0, 5, 3, 24])
     with pytest.raises(ValueError, match="adaptive"):

@@ -432,6 +432,9 @@ def test_every_kernel_wrapper_records_a_unit():
         "spgemm_expand": (lambda: K.spgemm_expand(_m(m), _m(m, k, dtype=i32),
                                                   _m(n)), m * k),
         "csr_permute": (lambda: K.csr_permute(_m(n), _m(n, dtype=i32)), 0),
+        "spgemm_merge": (lambda: K.spgemm_merge(_m(n), _m(m // 4,
+                                                          dtype=torch.int64)),
+                         n - m // 4),
         "spmv_sellp": (lambda: K.spmv_sellp(_m(m * k, dtype=i32), _m(m * k),
                                             _m(m // 8 + 1, dtype=i32), _m(n),
                                             m, 8), 2 * m * k),

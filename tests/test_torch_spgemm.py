@@ -6,10 +6,10 @@
   one f32 multiply or one copy.
 * ``spgemm`` / ``sptranspose`` in the port's ``reference`` and ``torch``
   spaces against the JAX package's ``reference`` and ``xla`` /
-  ``pallas_interpret`` spaces: identical structure (the host structure
-  passes are the same code) and bitwise values (the products are single
-  multiplies and the per-entry sums run in the same order in the same numpy
-  routine).
+  ``pallas_interpret`` spaces: identical structure (the structure passes,
+  on the host there and on the tensors' device here, give the same
+  integers) and bitwise values (the products are single multiplies and the
+  per-entry sums run in the same order in the same numpy routine).
 * Semantics against a dense numpy oracle (1e-5 relative: f32 sums of a few
   terms): empty rows, zero nnz, zero dimensions, a rectangular chain,
   structural zeros kept, and the transpose algebra.
